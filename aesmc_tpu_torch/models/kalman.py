@@ -1,0 +1,71 @@
+"""Exact scalar Kalman filter (test oracle), in numpy float64.
+
+Counterpart of `aesmc_tpu.models.kalman` (`KalmanParams`,
+`kalman_filter`) for the scalar linear-Gaussian SSM
+
+    x_0 ~ N(mu_0, P_0)
+    x_t = a x_{t-1} + b + N(0, Q)
+    y_t = c x_t + d + N(0, R)
+
+Independent of the PyTorch code under test, so that a machine with no JAX
+can check the port's log-Z against it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence, Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class KalmanParams:
+    initial_mean: float
+    initial_variance: float
+    transition_mult: float
+    transition_offset: float
+    transition_variance: float
+    emission_mult: float
+    emission_offset: float
+    emission_variance: float
+
+
+def kalman_filter(observations: Sequence[float], params: KalmanParams
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                             np.ndarray, float]:
+    """Forward filtering pass.
+
+    Returns (filtered_means, filtered_variances, predicted_means,
+    predicted_variances, log_marginal_likelihood). predicted_* are the
+    one-step-ahead prior moments at each t (the t=0 entry is the initial
+    prior).
+    """
+    y = np.asarray(observations, dtype=np.float64).reshape(-1)
+    num_timesteps = y.shape[0]
+    a, b, q = (params.transition_mult, params.transition_offset,
+               params.transition_variance)
+    c, d, r = (params.emission_mult, params.emission_offset,
+               params.emission_variance)
+
+    m = np.zeros(num_timesteps)
+    p = np.zeros(num_timesteps)
+    m_pred = np.zeros(num_timesteps)
+    p_pred = np.zeros(num_timesteps)
+    loglik = 0.0
+
+    for t in range(num_timesteps):
+        if t == 0:
+            m_pred[t] = params.initial_mean
+            p_pred[t] = params.initial_variance
+        else:
+            m_pred[t] = a * m[t - 1] + b
+            p_pred[t] = a * a * p[t - 1] + q
+        s = c * c * p_pred[t] + r
+        gain = p_pred[t] * c / s
+        innovation = y[t] - (c * m_pred[t] + d)
+        m[t] = m_pred[t] + gain * innovation
+        p[t] = (1.0 - gain * c) * p_pred[t]
+        loglik += -0.5 * (np.log(2.0 * np.pi * s) + innovation ** 2 / s)
+
+    return m, p, m_pred, p_pred, float(loglik)

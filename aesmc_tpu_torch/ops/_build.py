@@ -1,0 +1,90 @@
+"""Builds the CUDA kernels from `aesmc_tpu_torch/csrc/` and loads them.
+
+Each kernel source is compiled by `nvcc` into a shared library with a
+plain C interface and loaded with `ctypes` (no PyTorch headers, so a
+build takes seconds). Libraries go to `aesmc_tpu_torch/_build/`, named by
+a hash of the source and the flags, at first use; a later call, or a
+later process, with the same source reuses the file.
+
+Nothing here runs at import: the CPU-only test machines import every
+module of the package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
+
+# Round-to-nearest arithmetic is part of the kernels' contract (bit-exact
+# positions): never add --use_fast_math here.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_loaded: dict = {}
+
+
+def nvcc_path() -> str:
+    """The `nvcc` to build with: `$CUDA_HOME/bin`, then PATH, then
+    `/usr/local/cuda/bin`."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin",
+                                       "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for path in candidates:
+        if os.path.isfile(path) and os.access(path, os.X_OK):
+            return path
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+        "/usr/local/cuda/bin); the CUDA kernels are built at first use")
+
+
+def library_path(source: str) -> pathlib.Path:
+    """Where the library built from ``csrc/<source>`` lives."""
+    digest = hashlib.sha256((CSRC / source).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    stem = pathlib.Path(source).stem
+    return BUILD_DIR / f"lib{stem}-{digest.hexdigest()[:16]}.so"
+
+
+def load(source: str) -> ctypes.CDLL:
+    """Builds ``csrc/<source>`` if its library is missing, and loads it
+    (once per process)."""
+    with _lock:
+        if source in _loaded:
+            return _loaded[source]
+        lib_path = library_path(source)
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            # Build into a temporary name and rename, so that a build that
+            # is cut off never leaves a library that looks finished.
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                       str(CSRC / source)]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}) building {source}:"
+                        f"\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+                os.replace(tmp, lib_path)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        lib = ctypes.CDLL(str(lib_path))
+        _loaded[source] = lib
+        return lib
