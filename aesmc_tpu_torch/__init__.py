@@ -3,15 +3,20 @@ one NVIDIA H100.
 
 The port of `aesmc_tpu` (JAX, TPU), which stays beside it as the
 reference. Module names mirror the JAX package. Ported so far: the SMC
-filtering path (`inference.infer` with systematic resampling) and the
-LGSSM, with the fused resample+gather as a hand-written CUDA kernel
-(`ops.resample_cuda`). This package never imports JAX.
+filtering path (`inference.infer` with systematic, stratified and
+multinomial resampling) and the AESMC/IWAE training path (`losses`,
+`train`), on the LGSSM and the conjugate-Gaussian model, with the
+resampling kernels and their backward as hand-written CUDA (`ops`).
+Entry points put their tensors on the card unless the caller asks for
+the CPU (`device`). This package never imports JAX.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
+from . import device
 from . import distributions
 from . import inference
+from . import losses
 from . import math
 from . import models
 from . import noise
@@ -19,8 +24,10 @@ from . import ops
 from . import resampling
 from . import state
 from . import statistics
+from . import train
 
 __all__ = [
-    "distributions", "inference", "math", "models", "noise", "ops",
-    "resampling", "state", "statistics", "__version__",
+    "device", "distributions", "inference", "losses", "math", "models",
+    "noise", "ops", "resampling", "state", "statistics", "train",
+    "__version__",
 ]

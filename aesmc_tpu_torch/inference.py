@@ -1,9 +1,12 @@
 """SMC / importance-sampling inference engine.
 
 Counterpart of the Markov branch of `aesmc_tpu.inference.infer`: one
-`infer` entry point for 'is' and for 'smc' with systematic resampling at
-every step, the same return-dict vocabulary, detached ancestor indices and
-backward lineage tracing (`get_resampled_latents`).
+`infer` entry point for 'is' and for 'smc' with systematic, stratified or
+multinomial resampling at every step, the same return-dict vocabulary,
+detached ancestor indices and backward lineage tracing
+(`get_resampled_latents`). Gradients flow through the resampled particle
+values, never through ancestor indices or the resampling weights, as in
+the JAX package.
 
 The time loop is a plain Python loop (PyTorch runs eagerly); the t = 0 step
 stays hoisted, with `time` the int 0, so that user components can branch on
@@ -29,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import device as _device
 from . import resampling, state
 from .noise import NoiseSource
 from .resampling import sample_ancestral_index  # noqa: F401  (parity export)
@@ -73,25 +77,31 @@ class ObservationSequence:
         return (self[t] for t in range(self._length))
 
 
-def _as_tensor(x):
+def _as_tensor(x, device):
     if isinstance(x, torch.Tensor):
         return x
-    return torch.as_tensor(np.asarray(x))
+    return torch.as_tensor(np.asarray(x), device=_device.resolve(device))
 
 
-def stack_observations(observations):
+def stack_observations(observations, device=None):
     """Normalizes observations to a stacked `[T, batch, ...]` tensor (or
     dict of tensors). Accepts a list of `[batch, ...]` values or an
-    already stacked value."""
+    already stacked value.
+
+    Tensors stay where the caller put them; numpy arrays and lists become
+    tensors on ``device`` (default: the card; raises without one).
+    """
     if isinstance(observations, ObservationSequence):
         return observations.stacked
     if isinstance(observations, (list, tuple)):
         first = observations[0]
         if isinstance(first, dict):
-            return {k: stack_observations([o[k] for o in observations])
+            return {k: stack_observations([o[k] for o in observations],
+                                          device)
                     for k in first}
-        return torch.stack([_as_tensor(o) for o in observations], dim=0)
-    return state.tree_map(_as_tensor, observations)
+        return torch.stack([_as_tensor(o, device) for o in observations],
+                           dim=0)
+    return state.tree_map(lambda x: _as_tensor(x, device), observations)
 
 
 def _first_leaf(tree):
@@ -127,12 +137,14 @@ def infer(inference_algorithm: str,
         inference_algorithm: 'is' or 'smc'.
         observations: list of `[batch, ...]` values of length T, or a
             stacked `[T, batch, ...]` value (tensors or dicts of tensors).
+            Tensors stay on their device; numpy arrays and lists go to
+            the card (see `stack_observations`).
         initial, transition, emission, proposal: user callables (see the
             module docstring). `transition` may be None when T == 1.
         num_particles: number of particles K.
         noise: the source of all random draws; defaults to
             `NoiseSource.seeded(0)` on the observations' device.
-        resampling_method: 'systematic' (the only method ported).
+        resampling_method: 'systematic', 'stratified' or 'multinomial'.
         resampling_implementation: 'auto' | 'cuda' | 'torch' (see
             `resampling`).
         return_*: which outputs to materialize, as in the JAX package.
@@ -192,10 +204,9 @@ def infer(inference_algorithm: str,
         time = TimeIndex(t)
         prev_obs_list = [obs_seq[t - 1]]
         if is_smc:
-            ancestral_index, previous_latent = \
-                resampling._resample_systematic(
-                    prev_log_weight, noise, prev_latent, implementation,
-                    need_ancestors)
+            ancestral_index, previous_latent = resampling._resample(
+                prev_log_weight, noise, prev_latent, resampling_method,
+                implementation, need_ancestors)
             if ancestral_index is None:
                 ancestral_index = torch.zeros(
                     (0,), dtype=torch.int32, device=first.device)

@@ -1,7 +1,8 @@
 """Model families of the PyTorch port: the scalar LGSSM and its exact
-Kalman oracle."""
+Kalman oracle, and the conjugate-Gaussian test model."""
 
+from . import gaussian
 from . import kalman
 from . import lgssm
 
-__all__ = ["kalman", "lgssm"]
+__all__ = ["gaussian", "kalman", "lgssm"]

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import device as _device
 from ..distributions import Normal
 from ..state import BatchShapeMode
 
@@ -127,19 +128,34 @@ def optimal_proposal(initial_loc: float, initial_scale: float,
         scale_t=_stdmath.sqrt(1.0 / prec_t))
 
 
-def from_numpy(params: dict):
-    """Builds (initial, transition, emission, proposal) from numpy fields.
+def optimal_proposal_scales(initial_scale, transition_scale, emission_mult,
+                            emission_scale):
+    """The optimal proposal's standard deviations (scale_0, scale_t): the
+    prior scale shrunk by one Kalman update."""
+    def scale(prior_scale):
+        v = prior_scale ** 2
+        return np.sqrt(v - v * emission_mult /
+                       (emission_scale ** 2 + v * emission_mult ** 2) *
+                       emission_mult * v)
+    return scale(initial_scale), scale(transition_scale)
+
+
+def from_numpy(params: dict, device=None):
+    """Builds (initial, transition, emission, proposal) from numpy fields,
+    on ``device`` (default: the card; raises without one).
 
     ``params`` maps 'initial', 'transition', 'emission' and 'proposal' to
     dicts of the JAX components' fields: {'loc', 'scale'}, {'mult',
     'scale'}, {'mult', 'scale'} and {'lin_0_weight', 'lin_0_bias',
     'lin_t_weight', 'lin_t_bias', 'scale_0', 'scale_t'}.
     """
+    device = _device.resolve(device)
     init, tr, em, prop = (params[k] for k in
                           ("initial", "transition", "emission", "proposal"))
-    return (Initial(init["loc"], init["scale"]),
-            Transition(tr["mult"], tr["scale"]),
-            Emission(em["mult"], em["scale"]),
-            Proposal(prop["lin_0_weight"], prop["lin_0_bias"],
-                     prop["lin_t_weight"], prop["lin_t_bias"],
-                     prop["scale_0"], prop["scale_t"]))
+    return tuple(module.to(device) for module in (
+        Initial(init["loc"], init["scale"]),
+        Transition(tr["mult"], tr["scale"]),
+        Emission(em["mult"], em["scale"]),
+        Proposal(prop["lin_0_weight"], prop["lin_0_bias"],
+                 prop["lin_t_weight"], prop["lin_t_bias"],
+                 prop["scale_0"], prop["scale_t"])))

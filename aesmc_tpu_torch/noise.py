@@ -3,15 +3,18 @@
 The JAX package threads an explicit PRNG key and splits it per step
 (`aesmc_tpu.inference.infer` splits `key` into `(T, 2)` streams: stream 0
 resamples, stream 1 proposes). Here every draw goes through a
-`NoiseSource` instead, which hands out two kinds of noise:
+`NoiseSource` instead, which hands out three kinds of noise:
 
-- `uniform(shape)`: the per-step resampling uniforms `u [B, 1]`;
+- `uniform(shape)`: the resampling uniforms (`[B, 1]` systematic, `[B, K]`
+  stratified);
+- `exponential(shape)`: the `[B, K + 1]` Exp(1) draws whose spacings give
+  the sorted multinomial positions;
 - `normal(shape)`: standard-normal `eps` for reparameterized samples,
   in the `[batch, particle, ...]` layout of the sample it makes.
 
-The default source is backed by a `torch.Generator` on the tensors'
-device. Tests pass a source with the same two methods that replays the
-reference's draws, so both packages compute from the same noise.
+The default source is backed by a `torch.Generator` on the card. Tests
+pass a source with the same methods that replays the reference's draws,
+so both packages compute from the same noise.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from . import device as _device
 
 
 class NoiseSource:
@@ -28,8 +33,10 @@ class NoiseSource:
         self.generator = generator
 
     @classmethod
-    def seeded(cls, seed: int = 0, device="cpu") -> "NoiseSource":
-        generator = torch.Generator(device=device)
+    def seeded(cls, seed: int = 0, device=None) -> "NoiseSource":
+        """A source seeded with ``seed`` on ``device`` (default: the card;
+        raises without one)."""
+        generator = torch.Generator(device=_device.resolve(device))
         generator.manual_seed(seed)
         return cls(generator)
 
@@ -40,6 +47,11 @@ class NoiseSource:
     def uniform(self, shape: Sequence[int]) -> torch.Tensor:
         return torch.rand(tuple(shape), generator=self.generator,
                           device=self.device, dtype=torch.float32)
+
+    def exponential(self, shape: Sequence[int]) -> torch.Tensor:
+        out = torch.empty(tuple(shape), device=self.device,
+                          dtype=torch.float32)
+        return out.exponential_(generator=self.generator)
 
     def normal(self, shape: Sequence[int]) -> torch.Tensor:
         return torch.randn(tuple(shape), generator=self.generator,

@@ -12,6 +12,7 @@ module of the package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -30,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
+_source_locks: dict = {}
 _loaded: dict = {}
 
 
@@ -62,8 +64,10 @@ def library_path(source: str) -> pathlib.Path:
 
 def load(source: str) -> ctypes.CDLL:
     """Builds ``csrc/<source>`` if its library is missing, and loads it
-    (once per process)."""
+    (once per process). Different sources build concurrently."""
     with _lock:
+        lock = _source_locks.setdefault(source, threading.Lock())
+    with lock:
         if source in _loaded:
             return _loaded[source]
         lib_path = library_path(source)
@@ -88,3 +92,10 @@ def load(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path))
         _loaded[source] = lib
         return lib
+
+
+def load_all(sources) -> list:
+    """`load` for several sources, one nvcc each, all started together."""
+    sources = list(sources)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        return list(pool.map(load, sources))

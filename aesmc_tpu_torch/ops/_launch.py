@@ -1,0 +1,65 @@
+"""What every kernel wrapper does around its launch: input checks, binding
+the C entry, the card and stream to launch on, and the error check."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+# Largest K: slot indices and K must be exact in float32 for the
+# positions to be bit-exact, and ancestor indices fit int32.
+MAX_PARTICLES = 1 << 24
+# The grid's second dimension runs over batch rows.
+MAX_BATCH = 65535
+
+
+def check_float32(device: torch.device, **tensors) -> None:
+    """Each tensor is float32, contiguous and on ``device``, which is the
+    CPU (the plain version) or a CUDA card (the kernel)."""
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(t)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+
+
+def check_sizes(batch: int, *lengths: int) -> None:
+    for n in lengths:
+        if n < 1 or n > MAX_PARTICLES:
+            raise ValueError(
+                f"particle counts must be in [1, {MAX_PARTICLES}], got {n}")
+    if batch > MAX_BATCH:
+        raise ValueError(f"B must be at most {MAX_BATCH}, got {batch}")
+
+
+def entry(source: str, symbol: str, argtypes):
+    """The C entry ``symbol`` of the library built from ``source``, with
+    its argument types set (ctypes would otherwise pass each pointer as a
+    32-bit int)."""
+    fn = getattr(_build.load(source), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def target(t: torch.Tensor):
+    """(card index, PyTorch's current stream on it) for a CUDA tensor."""
+    device = t.device.index
+    if device is None:
+        device = torch.cuda.current_device()
+    return device, torch.cuda.current_stream(device).cuda_stream
+
+
+def check_error(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

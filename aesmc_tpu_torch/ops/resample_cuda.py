@@ -25,6 +25,11 @@ Measured on an NVIDIA H100 80GB HBM3 at 700 W: 4.8 us of device time a
 launch at that shape. Shared-memory CDF windows, merge-path search and
 CUDA graphs over the time loop are later work.
 
+The gradient flows to the values only (ancestors and weights are
+detached, as in the JAX package): the backward rebuilds the positions
+with `systematic_positions`, bit-equal to the kernel's own, and runs the
+range sum (`ops.range_sum_cuda`, K2) over them.
+
 `resample_and_gather_systematic` launches the kernel for CUDA tensors (it
 never falls back) and runs `resample_and_gather_systematic_torch`, the
 plain PyTorch version, for CPU tensors. Each launch adds one to
@@ -38,15 +43,9 @@ import ctypes
 import numpy as np
 import torch
 
-from . import _build
+from . import _launch, range_sum_cuda
 
 SOURCE = "resample_systematic.cu"
-
-# Largest K: slot indices and K must be exact in float32 for the
-# positions to be bit-exact, and ancestor indices fit int32.
-MAX_PARTICLES = 1 << 24
-# The grid's second dimension runs over batch rows.
-MAX_BATCH = 65535
 
 _BELOW_ONE = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
 
@@ -55,13 +54,17 @@ LAUNCHES = 0
 
 
 def systematic_positions(u: torch.Tensor, k: int) -> torch.Tensor:
-    """The systematic grid ``min((u + j) / k, nextafter(1, 0))``, `[B, k]`.
+    """The grid ``min((u + j) / k, nextafter(1, 0))`` for j < k, `[B, k]`.
 
-    Divides by a tensor, not a Python number: on CUDA PyTorch turns
-    division by a host scalar into a multiplication by its reciprocal,
-    which can differ from the division in the last bit.
+    ``u`` is `[B]` or `[B, 1]` (systematic: one uniform a row) or `[B, k]`
+    (stratified: one uniform a stratum). Divides by a tensor, not a Python
+    number: on CUDA PyTorch turns division by a host scalar into a
+    multiplication by its reciprocal, which can differ from the division
+    in the last bit.
     """
-    u = u.reshape(-1, 1).to(torch.float32)
+    u = u.to(torch.float32)
+    if u.ndim == 1:
+        u = u[:, None]
     grid = u + torch.arange(k, dtype=torch.float32, device=u.device)
     kf = torch.full((), float(k), dtype=torch.float32, device=u.device)
     return torch.clamp(grid / kf, max=_BELOW_ONE)
@@ -78,18 +81,7 @@ def resample_and_gather_systematic_torch(cdf, u, value, emit_idx=True):
 
 
 def _check(cdf, u, value):
-    for name, t in (("cdf", cdf), ("u", u), ("value", value)):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor, got {type(t)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != cdf.device:
-            raise ValueError(
-                f"{name} is on {t.device}, cdf on {cdf.device}")
-    if cdf.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {cdf.device}")
+    _launch.check_float32(cdf.device, cdf=cdf, u=u, value=value)
     if cdf.ndim != 2:
         raise ValueError(f"cdf must be [B, K], got {tuple(cdf.shape)}")
     batch, k = cdf.shape
@@ -98,39 +90,23 @@ def _check(cdf, u, value):
                          f"got {tuple(value.shape)}")
     if tuple(u.shape) not in ((batch,), (batch, 1)):
         raise ValueError(f"u must be [B] or [B, 1], got {tuple(u.shape)}")
-    if k < 1 or k > MAX_PARTICLES:
-        raise ValueError(f"K must be in [1, {MAX_PARTICLES}], got {k}")
-    if batch > MAX_BATCH:
-        raise ValueError(f"B must be at most {MAX_BATCH}, got {batch}")
+    _launch.check_sizes(batch, k)
 
 
-def _library():
-    lib = _build.load(SOURCE)
-    fn = lib.aesmc_resample_systematic
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 +
-                       [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(cdf, u, value, emit_idx):
+def _launch_kernel(cdf, u, value, emit_idx):
     global LAUNCHES
-    fn = _library()
+    fn = _launch.entry(SOURCE, "aesmc_resample_systematic",
+                       [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 +
+                       [ctypes.c_int, ctypes.c_void_p])
     batch, k, d = value.shape
     out = torch.empty_like(value)
     idx = (torch.empty((batch, k), dtype=torch.int32, device=cdf.device)
            if emit_idx else None)
-    device = cdf.device.index
-    if device is None:
-        device = torch.cuda.current_device()
-    stream = torch.cuda.current_stream(device).cuda_stream
+    device, stream = _launch.target(cdf)
     err = fn(cdf.data_ptr(), u.data_ptr(), value.data_ptr(), out.data_ptr(),
              idx.data_ptr() if idx is not None else None,
              batch, k, d, device, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"resample_systematic kernel launch failed: CUDA error {err}")
+    _launch.check_error(err, "resample_systematic")
     LAUNCHES += 1
     return idx, out
 
@@ -139,19 +115,27 @@ class _ResampleGatherSystematic(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cdf, u, value, emit_idx):
         if cdf.device.type == "cuda":
-            return _launch(cdf, u, value, emit_idx)
-        return resample_and_gather_systematic_torch(cdf, u, value, emit_idx)
+            idx, out = _launch_kernel(cdf, u, value, emit_idx)
+        else:
+            idx, out = resample_and_gather_systematic_torch(cdf, u, value,
+                                                            emit_idx)
+        ctx.save_for_backward(cdf, u)
+        if idx is not None:
+            ctx.mark_non_differentiable(idx)
+        return idx, out
 
     @staticmethod
     def backward(ctx, grad_idx, grad_out):
-        raise NotImplementedError(
-            "the gradient of the fused resample+gather needs the range-sum "
-            "kernel (K2), which is not ported yet: the PyTorch port runs "
-            "filtering only")
+        cdf, u = ctx.saved_tensors
+        pos = systematic_positions(u, cdf.shape[1])
+        grad_value = range_sum_cuda.range_sum(cdf, pos,
+                                              grad_out.contiguous())
+        return None, None, grad_value, None
 
 
 def resample_and_gather_systematic(cdf, u, value, emit_idx=True):
-    """Fused systematic resample + gather (K1).
+    """Fused systematic resample + gather (K1), differentiable in
+    ``value`` (the backward is K2).
 
     Args:
         cdf: `[B, K]` float32 normalized CDF, nondecreasing, last entry 1.

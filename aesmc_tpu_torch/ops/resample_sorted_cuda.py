@@ -1,0 +1,117 @@
+"""Search + gather over loaded sorted positions: kernel K3 and its plain
+version.
+
+For each batch row b and slot j < Kp (Kp may differ from K):
+
+    idx_j        = min(#{i : cdf_i <= pos_j}, K - 1)
+    out[b, j, :] = value[b, idx_j, :]
+
+Replaces `aesmc_tpu/ops/resample_pallas.py::_window_kernel_impl` in
+sorted-positions mode (`sorted_search_gather_pallas`, reached through
+`resample_and_gather` and `resample_and_gather_cdf`). Stratified and
+multinomial resampling run it. The kernel (`csrc/resample_sorted.cu`) is
+K1's thread-per-slot design with the positions read from global memory;
+its source note gives the bound on the card.
+
+The gradient flows to the values only (ancestors and weights are
+detached, as in the JAX package): the backward is the range sum
+(`ops.range_sum_cuda`, K2) over the positions the forward searched.
+
+`resample_and_gather_sorted` launches the kernel for CUDA tensors (it
+never falls back) and runs `resample_and_gather_sorted_torch`, the plain
+PyTorch version (searchsorted, take_along_dim), for CPU tensors. Each
+launch adds one to `LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _launch, range_sum_cuda
+
+SOURCE = "resample_sorted.cu"
+
+# Kernel launches made by `resample_and_gather_sorted` in this process.
+LAUNCHES = 0
+
+
+def resample_and_gather_sorted_torch(cdf, pos, value, emit_idx=True):
+    """The plain PyTorch version of K3: (idx `[B, Kp]` int32 or None,
+    gathered `[B, Kp, D]`)."""
+    k = cdf.shape[1]
+    idx = torch.searchsorted(cdf, pos, right=True).clamp_(max=k - 1)
+    out = torch.take_along_dim(value, idx.unsqueeze(-1), dim=1)
+    return (idx.to(torch.int32) if emit_idx else None), out
+
+
+def _check(cdf, pos, value):
+    _launch.check_float32(cdf.device, cdf=cdf, pos=pos, value=value)
+    if cdf.ndim != 2 or pos.ndim != 2 or pos.shape[0] != cdf.shape[0]:
+        raise ValueError(f"cdf must be [B, K] and pos [B, Kp], got "
+                         f"{tuple(cdf.shape)} and {tuple(pos.shape)}")
+    batch, k = cdf.shape
+    if value.ndim != 3 or tuple(value.shape[:2]) != (batch, k):
+        raise ValueError(f"value must be [B, K, D] = [{batch}, {k}, D], "
+                         f"got {tuple(value.shape)}")
+    _launch.check_sizes(batch, k, pos.shape[1])
+
+
+def _launch_kernel(cdf, pos, value, emit_idx):
+    global LAUNCHES
+    fn = _launch.entry(SOURCE, "aesmc_resample_sorted",
+                       [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 +
+                       [ctypes.c_int, ctypes.c_void_p])
+    batch, k, d = value.shape
+    kp = pos.shape[1]
+    out = torch.empty((batch, kp, d), dtype=torch.float32,
+                      device=value.device)
+    idx = (torch.empty((batch, kp), dtype=torch.int32, device=cdf.device)
+           if emit_idx else None)
+    device, stream = _launch.target(cdf)
+    err = fn(cdf.data_ptr(), pos.data_ptr(), value.data_ptr(),
+             out.data_ptr(), idx.data_ptr() if idx is not None else None,
+             batch, k, kp, d, device, stream)
+    _launch.check_error(err, "resample_sorted")
+    LAUNCHES += 1
+    return idx, out
+
+
+class _ResampleGatherSorted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cdf, pos, value, emit_idx):
+        if cdf.device.type == "cuda":
+            idx, out = _launch_kernel(cdf, pos, value, emit_idx)
+        else:
+            idx, out = resample_and_gather_sorted_torch(cdf, pos, value,
+                                                        emit_idx)
+        ctx.save_for_backward(cdf, pos)
+        if idx is not None:
+            ctx.mark_non_differentiable(idx)
+        return idx, out
+
+    @staticmethod
+    def backward(ctx, grad_idx, grad_out):
+        cdf, pos = ctx.saved_tensors
+        grad_value = range_sum_cuda.range_sum(cdf, pos,
+                                              grad_out.contiguous())
+        return None, None, grad_value, None
+
+
+def resample_and_gather_sorted(cdf, pos, value, emit_idx=True):
+    """Fused search + gather over sorted positions (K3), differentiable in
+    ``value`` (the backward is K2).
+
+    Args:
+        cdf: `[B, K]` float32 normalized CDF, nondecreasing, last entry 1.
+        pos: `[B, Kp]` float32 sorted positions in [0, 1).
+        value: `[B, K, D]` float32 particles.
+        emit_idx: whether to return the ancestor indices.
+
+    Returns:
+        (idx `[B, Kp]` int32, or None without emit_idx; gathered
+        `[B, Kp, D]`).
+    """
+    _check(cdf, pos, value)
+    return _ResampleGatherSorted.apply(cdf, pos, value, bool(emit_idx))

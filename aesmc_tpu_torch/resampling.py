@@ -1,21 +1,26 @@
-"""Systematic particle resampling, on the tensors' device.
+"""Particle resampling, on the tensors' device.
 
-Counterpart of the systematic path of `aesmc_tpu.resampling`:
+Counterpart of the systematic, stratified and multinomial paths of
+`aesmc_tpu.resampling`:
 
-    normalize -> cumulative sum -> systematic grid -> inverse-CDF search
+    normalize -> cumulative sum -> sorted positions -> inverse-CDF search
 
 with ancestor indices detached and the CDF made monotone and pinned to 1.0
-at its end, exactly as the JAX package does. Uniforms come from a
-`noise.NoiseSource`.
+at its end, exactly as the JAX package does. Noise comes from a
+`noise.NoiseSource`: one uniform a row (systematic), one a stratum
+(stratified), or K + 1 exponentials a row whose normalized cumulative sums
+are the sorted multinomial draws.
 
 Two implementations:
-- 'cuda': the fused resample+gather kernel (`ops.resample_cuda`, K1), for
-  CUDA tensors only;
+- 'cuda': the hand-written kernels, for CUDA tensors only: the fused
+  systematic resample+gather (`ops.resample_cuda`, K1) and the search +
+  gather over loaded positions (`ops.resample_sorted_cuda`, K3); their
+  backward is the range sum (`ops.range_sum_cuda`, K2);
 - 'torch': plain PyTorch ops, on any device.
-'auto' picks 'cuda' for a CUDA tensor and 'torch' otherwise.
+'auto' picks 'cuda' for a CUDA tensor and 'torch' otherwise, at every K.
 
-Stratified, multinomial, residual and soft resampling, and the dense
-one-hot route of the JAX package, are not ported yet.
+Residual and soft resampling, and the dense one-hot route of the JAX
+package, are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,9 +31,9 @@ import torch
 
 from . import math as amath
 from . import state
-from .ops import resample_cuda
+from .ops import resample_cuda, resample_sorted_cuda
 
-METHODS = ("systematic",)
+METHODS = ("systematic", "stratified", "multinomial")
 IMPLEMENTATIONS = ("auto", "cuda", "torch")
 
 
@@ -59,21 +64,55 @@ def _normalized_cumsum(log_weight):
 
 
 def resampling_positions(log_weight, noise, method: str = "systematic"):
-    """The sorted query positions ``min((u + j) / K, nextafter(1, 0))``,
-    with one uniform ``u`` per batch row from ``noise``."""
+    """The sorted inverse-CDF query positions `[B, K]`, clamped strictly
+    below 1.0:
+
+    - systematic: ``(u + j) / K`` with one uniform ``u`` a row;
+    - stratified: ``(u_j + j) / K`` with one uniform a stratum;
+    - multinomial: ``S_j / S_K`` for the cumulative sums S of K + 1 iid
+      Exp(1) draws: the order statistics of K iid uniforms.
+    """
     _check_method(method)
     batch_size, k = log_weight.shape
-    return resample_cuda.systematic_positions(noise.uniform((batch_size, 1)),
-                                              k)
+    if method == "systematic":
+        return resample_cuda.systematic_positions(
+            noise.uniform((batch_size, 1)), k)
+    if method == "stratified":
+        return resample_cuda.systematic_positions(
+            noise.uniform((batch_size, k)), k)
+    # A parallel cumulative sum on the card is not monotone in float32
+    # (measured on an H100 at K = 8,388,608); the running max keeps the
+    # positions sorted, which the search and its backward (K2) rely on.
+    s = torch.cummax(
+        torch.cumsum(noise.exponential((batch_size, k + 1)), dim=-1),
+        dim=-1).values
+    return torch.clamp(s[:, :-1] / s[:, -1:],
+                       max=resample_cuda._BELOW_ONE)
+
+
+def _indices(log_weight, noise, method):
+    k = log_weight.shape[-1]
+    cum = _normalized_cumsum(log_weight)
+    pos = resampling_positions(log_weight, noise, method)
+    idx = torch.searchsorted(cum, pos, right=True)
+    return idx.clamp_(max=k - 1).to(torch.int32)
 
 
 def systematic_indices(log_weight, noise):
     """Systematic ancestor indices `[B, K]` int32."""
-    k = log_weight.shape[-1]
-    cum = _normalized_cumsum(log_weight)
-    pos = resampling_positions(log_weight, noise, "systematic")
-    idx = torch.searchsorted(cum, pos, right=True)
-    return idx.clamp_(max=k - 1).to(torch.int32)
+    return _indices(log_weight, noise, "systematic")
+
+
+def stratified_indices(log_weight, noise):
+    """Stratified ancestor indices `[B, K]` int32: an independent uniform
+    per grid stratum."""
+    return _indices(log_weight, noise, "stratified")
+
+
+def multinomial_indices(log_weight, noise):
+    """Multinomial ancestor indices `[B, K]` int32: the sorted order
+    statistics of K iid categorical draws from the weights."""
+    return _indices(log_weight, noise, "multinomial")
 
 
 def resolve_implementation(device, method: str, implementation: str) -> str:
@@ -100,7 +139,7 @@ def sample_ancestral_index(log_weight, noise, method: str = "systematic"):
             f"log_weight must be [batch, particles]. Got "
             f"{tuple(log_weight.shape)}")
     _check_nan_eager(log_weight)
-    return systematic_indices(log_weight.detach(), noise)
+    return _indices(log_weight.detach(), noise, method)
 
 
 def _leaves(value):
@@ -122,26 +161,39 @@ def _rebuild(value, flat, start=0):
     return cols.reshape(value.shape), start + width
 
 
-def _resample_systematic(log_weight, noise, value, implementation,
-                         need_indices):
+def _resample(log_weight, noise, value, method, implementation,
+              need_indices):
     """The resampling step of `infer`: no NaN check (it would wait for the
     device at every step). ``implementation`` is 'cuda' or 'torch'."""
     log_weight = log_weight.detach()
     batch_size, k = log_weight.shape
     cdf = _normalized_cumsum(log_weight)
-    u = noise.uniform((batch_size, 1))
     leaves = _leaves(value)
     if len(leaves) == 1:
         flat = leaves[0].reshape(batch_size, k, -1)
     else:
         flat = torch.cat([leaf.reshape(batch_size, k, -1)
                           for leaf in leaves], dim=2)
-    if implementation == "cuda":
-        idx, gathered = resample_cuda.resample_and_gather_systematic(
-            cdf, u, flat.contiguous(), emit_idx=need_indices)
+    cuda = implementation == "cuda"
+    if method == "systematic":
+        # K1 builds the positions itself from one uniform a row.
+        u = noise.uniform((batch_size, 1))
+        if cuda:
+            idx, gathered = resample_cuda.resample_and_gather_systematic(
+                cdf, u, flat.contiguous(), emit_idx=need_indices)
+        else:
+            idx, gathered = \
+                resample_cuda.resample_and_gather_systematic_torch(
+                    cdf, u, flat, emit_idx=need_indices)
     else:
-        idx, gathered = resample_cuda.resample_and_gather_systematic_torch(
-            cdf, u, flat, emit_idx=need_indices)
+        pos = resampling_positions(log_weight, noise, method)
+        if cuda:
+            idx, gathered = resample_sorted_cuda.resample_and_gather_sorted(
+                cdf, pos, flat.contiguous(), emit_idx=need_indices)
+        else:
+            idx, gathered = \
+                resample_sorted_cuda.resample_and_gather_sorted_torch(
+                    cdf, pos, flat, emit_idx=need_indices)
     return idx, _rebuild(value, gathered)[0]
 
 
@@ -152,17 +204,19 @@ def sample_ancestral_index_and_resample(log_weight, noise, value,
     """Samples ancestor indices AND redistributes ``value`` in one pass.
 
     ``value`` is a `[B, K, ...]` tensor or a dict of them; on the 'cuda'
-    route they must be float32 and travel through the fused kernel as the
-    columns of one `[B, K, D]` tensor. With ``need_indices=False`` the
-    kernel skips the index output and indices come back None.
+    route they must be float32 and travel through the fused kernel (K1 for
+    'systematic', K3 otherwise) as the columns of one `[B, K, D]` tensor.
+    Gradients flow to ``value`` (through K2 on the 'cuda' route). With
+    ``need_indices=False`` the kernel skips the index output and indices
+    come back None.
 
     Returns (indices `[B, K]` int32 - detached - or None, resampled value).
     """
     _check_nan_eager(log_weight)
     implementation = resolve_implementation(log_weight.device, method,
                                             implementation)
-    return _resample_systematic(log_weight, noise, value, implementation,
-                                need_indices)
+    return _resample(log_weight, noise, value, method, implementation,
+                     need_indices)
 
 
 def resample_particles(value, ancestral_index):

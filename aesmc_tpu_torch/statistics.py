@@ -66,8 +66,8 @@ def sample_from_prior(initial, transition, emission, num_timesteps: int,
     """Ancestral sampling of (latents, observations) from the model prior.
 
     The components see the contract of `inference.infer`. Draws come from
-    ``noise`` (default `NoiseSource.seeded(0)` on the CPU; pass a source
-    on the card to sample there).
+    ``noise`` (default `NoiseSource.seeded(0)` on the card, which raises
+    without one; pass a CPU source to sample on the CPU).
 
     Returns:
         (latents, observations): stacked `[T, batch, ...]` tensors.

@@ -9,8 +9,6 @@ latents, and the resampling uniforms are redrawn from its key schedule
 (`split(key, (T, 2))[t, 0]`, as the engine draws them).
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,46 +23,11 @@ from aesmc_tpu_torch import inference, resampling, statistics
 from aesmc_tpu_torch.models import kalman, lgssm
 from aesmc_tpu_torch.noise import NoiseSource
 from aesmc_tpu_torch.ops import resample_cuda
+from torch_replay import lgssm_params, replayed_noise
+from torch_replay import simulate as _simulate
+from torch_replay import tensor as _t
 
 T, B, K = 10, 3, 600
-
-
-def _t(x):
-    return torch.tensor(np.asarray(x))
-
-
-class ReplayNoise:
-    """A noise source that hands out given uniforms and normals in order."""
-
-    def __init__(self, uniforms, normals):
-        self.uniforms = [_t(u) for u in uniforms]
-        self.normals = [_t(e) for e in normals]
-
-    def uniform(self, shape):
-        u = self.uniforms.pop(0)
-        assert tuple(shape) == tuple(u.shape)
-        return u
-
-    def normal(self, shape):
-        eps = self.normals.pop(0)
-        assert tuple(shape) == tuple(eps.shape)
-        return eps
-
-
-def _fields(component):
-    return {f.name: np.asarray(getattr(component, f.name))
-            for f in dataclasses.fields(component)}
-
-
-def _simulate(seed, num_timesteps, batch, mult=0.9, em_scale=0.5):
-    """Observations of the LGSSM x' = mult x + N(0, 1), y = x + N(0, s^2)."""
-    rng = np.random.RandomState(seed)
-    x = rng.randn(batch)
-    ys = []
-    for _ in range(num_timesteps):
-        ys.append(x + em_scale * rng.randn(batch))
-        x = mult * x + rng.randn(batch)
-    return np.asarray(ys, dtype=np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -73,31 +36,13 @@ def models():
                  jax_lgssm.Transition.create(0.9, 1.0),
                  jax_lgssm.Emission.create(1.0, 0.5),
                  jax_lgssm.Proposal.create(1.0, 0.8, jax.random.PRNGKey(1)))
-    params = dict(zip(("initial", "transition", "emission", "proposal"),
-                      (_fields(c) for c in jax_comps)))
-    return jax_comps, lgssm.from_numpy(params)
+    return jax_comps, lgssm.from_numpy(lgssm_params(jax_comps),
+                                       device="cpu")
 
 
 def _replayed_noise(jax_comps, obs, key, latents, ancestors):
     """The JAX run's draws: eps per step, and uniforms for smc."""
-    prop = jax_comps[3]
-    w0, b0 = float(prop.lin_0_weight), float(prop.lin_0_bias)
-    w = np.asarray(prop.lin_t_weight, np.float64)
-    b = float(prop.lin_t_bias)
-    x = np.asarray(latents, np.float64)
-    y = np.asarray(obs, np.float64)
-    eps = [(x[0] - (w0 * y[0] + b0)[:, None]) / prop.scale_0]
-    for t in range(1, len(y)):
-        prev = (x[t - 1] if ancestors is None else
-                np.take_along_axis(x[t - 1], np.asarray(ancestors[t - 1]), 1))
-        loc = w[0] * prev + w[1] * y[t][:, None] + b
-        eps.append((x[t] - loc) / prop.scale_t)
-    eps = [e.astype(np.float32) for e in eps]
-    step_keys = jax.random.split(key, (len(y), 2))
-    uniforms = [np.asarray(jax.random.uniform(step_keys[t, 0], (y.shape[1], 1),
-                                              dtype=jnp.float32))
-                for t in range(1, len(y))] if ancestors is not None else []
-    return ReplayNoise(uniforms, eps)
+    return replayed_noise(jax_comps[3], obs, key, latents, ancestors)
 
 
 def test_smc_slice_matches_jax(models, monkeypatch):
@@ -217,7 +162,8 @@ def test_time_index_and_observation_sequence():
     assert torch.equal(seq[inference.TimeIndex(1)], torch.arange(4.0) + 4)
     assert len(seq[:2]) == 2
     assert inference.TimeIndex(2) != 0
-    stacked = inference.stack_observations([np.ones(2), np.zeros(2)])
+    stacked = inference.stack_observations([np.ones(2), np.zeros(2)],
+                                           device="cpu")
     assert stacked.shape == (2, 2)
 
 
@@ -247,10 +193,10 @@ def test_full_shape_log_z_matches_kalman():
     with torch.no_grad():
         _, obs = statistics.sample_from_prior(
             initial, transition, emission, num_timesteps, batch,
-            NoiseSource.seeded(1))
+            NoiseSource.seeded(1, device="cpu"))
         out = inference.infer("smc", obs, initial, transition, emission,
                               proposal, particles,
-                              noise=NoiseSource.seeded(2),
+                              noise=NoiseSource.seeded(2, device="cpu"),
                               return_log_marginal_likelihood=True,
                               return_latents=False)
     log_z = out["log_marginal_likelihood"].numpy()

@@ -164,7 +164,7 @@ def test_cuda_implementation_on_cpu_tensors_raises():
     assert resampling.resolve_implementation(
         torch.device("cuda", 0), "systematic", "auto") == "cuda"
     with pytest.raises(ValueError, match="method"):
-        resampling.resolve_implementation(torch.device("cpu"), "stratified",
+        resampling.resolve_implementation(torch.device("cpu"), "residual",
                                           "auto")
 
 
@@ -201,9 +201,14 @@ def test_wrapper_checks_inputs_and_counts_no_cpu_launch():
 
 
 def test_gradient_is_not_ported():
+    """The gradient (K2's plain version on the CPU) reaches the values
+    only: each source gets one for every slot that gathered it, and the
+    indices carry none."""
     cdf = torch.linspace(0.1, 1.0, 10).repeat(2, 1)
     value = torch.randn(2, 10, 1, requires_grad=True)
-    _, out = resample_cuda.resample_and_gather_systematic(
+    idx, out = resample_cuda.resample_and_gather_systematic(
         cdf, torch.full((2,), 0.3), value)
-    with pytest.raises(NotImplementedError, match="K2"):
-        out.sum().backward()
+    assert not idx.requires_grad
+    out.sum().backward()
+    counts = torch.bincount(idx[0].long(), minlength=10).float()
+    assert torch.equal(value.grad[0, :, 0], counts)

@@ -165,8 +165,8 @@ def test_default_noise_source_shapes_and_reproducibility():
     d = distributions.Normal(torch.zeros(B, K), 1.0,
                              batch_shape_mode=state.BatchShapeMode
                              .FULLY_EXPANDED)
-    a = state.sample(d, B, K, NoiseSource.seeded(7))
-    b = state.sample(d, B, K, NoiseSource.seeded(7))
+    a = state.sample(d, B, K, NoiseSource.seeded(7, device="cpu"))
+    b = state.sample(d, B, K, NoiseSource.seeded(7, device="cpu"))
     assert torch.equal(a, b) and a.dtype == torch.float32
-    u = NoiseSource.seeded(7).uniform((B, 1))
+    u = NoiseSource.seeded(7, device="cpu").uniform((B, 1))
     assert u.shape == (B, 1) and bool(((u >= 0) & (u < 1)).all())
