@@ -5,13 +5,14 @@ The port of `aesmc_tpu` (JAX, TPU), which stays beside it as the
 reference. Module names mirror the JAX package. Ported so far: the SMC
 filtering path (`inference.infer` with systematic, stratified and
 multinomial resampling) and the AESMC/IWAE training path (`losses`,
-`train`), on the LGSSM and the conjugate-Gaussian model, with the
-resampling kernels and their backward as hand-written CUDA (`ops`).
+`train`), on the LGSSM, the conjugate-Gaussian model and the
+discrete-latent HMM (int32 particles), with every resampling kernel of
+the JAX package, and the backward, as hand-written CUDA (`ops`).
 Entry points put their tensors on the card unless the caller asks for
 the CPU (`device`). This package never imports JAX.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 from . import device
 from . import distributions

@@ -10,6 +10,13 @@
 //   idx_j   = min(#{i : cdf_i <= pos_j}, K - 1)
 //   out_j,: = value[b, idx_j, :]
 //
+// With D = 0 it is index-only, and then it also replaces the v1 merge
+// kernel _make_resample_kernel(cdf_input=True) as launched by
+// searchsorted_sorted_cdf_pallas (K4): the per-shard and large-K search of
+// a CDF of length K at Kp loaded positions. K4's VMEM and HBM regimes
+// (chunks, hbm_resident) have no counterpart here, and its range_lower
+// mode is K2's job (range_sum.cu).
+//
 // One thread per output slot; grid (ceil(Kp / 256), B). Each thread runs an
 // upper-bound binary search over its row of the CDF in global memory and
 // copies one D-row. The comparison is exact, so the indices equal
@@ -57,16 +64,19 @@ __global__ void resample_sorted_kernel(const float* __restrict__ cdf,
   const long long src = lo < k - 1 ? lo : k - 1;
 
   if (idx != nullptr) idx[b * kp + j] = static_cast<int32_t>(src);
-  const float* from = value + (b * k + src) * d;
-  float* to = out + (b * kp + j) * d;
-  for (long long c = 0; c < d; ++c) to[c] = from[c];
+  if (d > 0) {
+    const float* from = value + (b * k + src) * d;
+    float* to = out + (b * kp + j) * d;
+    for (long long c = 0; c < d; ++c) to[c] = from[c];
+  }
 }
 
 }  // namespace
 
 // Launches on `stream` of card `device`; returns the CUDA error of the
 // launch (0 on success). cdf [B, K], pos [B, Kp], value [B, K, D],
-// out [B, Kp, D]; `idx` [B, Kp] may be null, and then no index is written.
+// out [B, Kp, D], neither touched when D = 0 (they may be null then);
+// `idx` [B, Kp] may be null, and then no index is written.
 extern "C" int aesmc_resample_sorted(const float* cdf, const float* pos,
                                      const float* value, float* out,
                                      int32_t* idx, long long batch,

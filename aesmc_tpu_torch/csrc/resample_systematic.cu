@@ -60,16 +60,19 @@ __global__ void resample_systematic_kernel(const float* __restrict__ cdf,
   const long long src = lo < k - 1 ? lo : k - 1;
 
   if (idx != nullptr) idx[b * k + j] = static_cast<int32_t>(src);
-  const float* from = value + (b * k + src) * d;
-  float* to = out + (b * k + j) * d;
-  for (long long c = 0; c < d; ++c) to[c] = from[c];
+  if (d > 0) {
+    const float* from = value + (b * k + src) * d;
+    float* to = out + (b * k + j) * d;
+    for (long long c = 0; c < d; ++c) to[c] = from[c];
+  }
 }
 
 }  // namespace
 
 // Launches on `stream` of card `device`; returns the CUDA error of the
 // launch (0 on success). `idx` may be null, and then no index is written
-// (emit_idx off).
+// (emit_idx off). With D = 0 (indices only) `value` and `out` are not
+// touched and may be null.
 extern "C" int aesmc_resample_systematic(const float* cdf, const float* u,
                                          const float* value, float* out,
                                          int32_t* idx, long long batch,

@@ -20,6 +20,11 @@ User-component contract (as in the JAX package): four callables returning
 `previous_observations` is a length-1 list holding y_{t-1};
 `observations` is an `ObservationSequence`.
 
+Latents may be float32 (reparameterized proposals) or integer (categorical
+proposals: the HMM's int32 states, drawn detached); integer particles go
+through the time loop, resampling (K5 on the card), lineage tracing and
+the returned stacks in their own dtype.
+
 Not ported yet: ESS-adaptive resampling, `lookahead`, `history_window` > 1,
 soft and OT resampling, `remat` and `nan_check`.
 """

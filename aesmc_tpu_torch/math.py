@@ -1,7 +1,7 @@
 """Numerically stable log-space utilities.
 
 Counterpart of `aesmc_tpu.math` (`lognormexp`, `exponentiate_and_normalize`,
-`logsumexp`). `torch.logsumexp` shifts by the maximum as
+`logsumexp`, `table_lookup`). `torch.logsumexp` shifts by the maximum as
 `jax.nn.logsumexp` does, and an all `-inf` slice gives `-inf`.
 """
 
@@ -20,6 +20,22 @@ def exponentiate_and_normalize(values: torch.Tensor,
                                dim: int = 0) -> torch.Tensor:
     """``exp(values) / sum(exp(values), dim)``, computed stably."""
     return torch.exp(lognormexp(values, dim=dim))
+
+
+def table_lookup(table, idx) -> torch.Tensor:
+    """``table[idx]`` for a leading-axis table `[D, ...]` and integer
+    ``idx`` `[...]`: `idx.shape + table.shape[1:]`, in the table's dtype
+    (int8 and bool included), differentiable in the table.
+
+    Index semantics of `aesmc_tpu.math.table_lookup`: a negative index
+    wraps once (``idx + D``), then every index is clamped into [0, D - 1].
+    A plain gather: the JAX package's one-hot masked-sum route works around
+    the TPU's cross-lane gathers and is not needed on the card.
+    """
+    d = table.shape[0]
+    idx = idx.long()
+    idx = torch.clamp(torch.where(idx < 0, idx + d, idx), 0, d - 1)
+    return table[idx]
 
 
 def logsumexp(values: torch.Tensor, axis=None,

@@ -10,7 +10,10 @@ resamples, stream 1 proposes). Here every draw goes through a
 - `exponential(shape)`: the `[B, K + 1]` Exp(1) draws whose spacings give
   the sorted multinomial positions;
 - `normal(shape)`: standard-normal `eps` for reparameterized samples,
-  in the `[batch, particle, ...]` layout of the sample it makes.
+  in the `[batch, particle, ...]` layout of the sample it makes;
+- `gumbel(shape)`: standard Gumbel draws ``-log(-log(U))``, U uniform in
+  (tiny, 1), for categorical samples, in the layout in which
+  `jax.random.categorical` draws them (see `state.sample`).
 
 The default source is backed by a `torch.Generator` on the card. Tests
 pass a source with the same methods that replays the reference's draws,
@@ -56,3 +59,9 @@ class NoiseSource:
     def normal(self, shape: Sequence[int]) -> torch.Tensor:
         return torch.randn(tuple(shape), generator=self.generator,
                            device=self.device, dtype=torch.float32)
+
+    def gumbel(self, shape: Sequence[int]) -> torch.Tensor:
+        # As jax.random.gumbel draws it: U is kept off 0 (where the log
+        # diverges) by the smallest normal float32.
+        u = self.uniform(shape).clamp_(min=torch.finfo(torch.float32).tiny)
+        return -torch.log(-torch.log(u))

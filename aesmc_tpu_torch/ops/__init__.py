@@ -3,12 +3,17 @@ PyTorch version beside it. Kernels are built at first use (`_build`).
 
 - `resample_cuda`: K1, fused systematic resample + gather;
 - `resample_sorted_cuda`: K3, search + gather over loaded sorted
-  positions (stratified, multinomial);
-- `range_sum_cuda`: K2, the deterministic range sum, backward of both.
+  positions (stratified, multinomial); index-only, it is K4's counterpart;
+- `range_sum_cuda`: K2, the deterministic range sum, backward of both;
+- `gather_sorted_cuda`: K5, the gather by sorted indices, any dtype;
+- `searchsorted_cdf_cuda`: K6, CDF, search and gather from log-weights.
 """
 
+from . import gather_sorted_cuda
 from . import range_sum_cuda
 from . import resample_cuda
 from . import resample_sorted_cuda
+from . import searchsorted_cdf_cuda
 
-__all__ = ["range_sum_cuda", "resample_cuda", "resample_sorted_cuda"]
+__all__ = ["gather_sorted_cuda", "range_sum_cuda", "resample_cuda",
+           "resample_sorted_cuda", "searchsorted_cdf_cuda"]

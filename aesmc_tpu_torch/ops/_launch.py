@@ -52,6 +52,13 @@ def entry(source: str, symbol: str, argtypes):
     return fn
 
 
+def pointer(t):
+    """``t``'s device address, or None (a null pointer) for an empty tensor
+    or None: an empty tensor's `data_ptr()` may be 0 or dangling, and the
+    kernels never touch a pointer whose extent is 0."""
+    return t.data_ptr() if t is not None and t.numel() else None
+
+
 def target(t: torch.Tensor):
     """(card index, PyTorch's current stream on it) for a CUDA tensor."""
     device = t.device.index

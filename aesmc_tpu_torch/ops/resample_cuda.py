@@ -103,9 +103,9 @@ def _launch_kernel(cdf, u, value, emit_idx):
     idx = (torch.empty((batch, k), dtype=torch.int32, device=cdf.device)
            if emit_idx else None)
     device, stream = _launch.target(cdf)
-    err = fn(cdf.data_ptr(), u.data_ptr(), value.data_ptr(), out.data_ptr(),
-             idx.data_ptr() if idx is not None else None,
-             batch, k, d, device, stream)
+    err = fn(cdf.data_ptr(), u.data_ptr(), _launch.pointer(value),
+             _launch.pointer(out), _launch.pointer(idx), batch, k, d, device,
+             stream)
     _launch.check_error(err, "resample_systematic")
     LAUNCHES += 1
     return idx, out
@@ -140,7 +140,8 @@ def resample_and_gather_systematic(cdf, u, value, emit_idx=True):
     Args:
         cdf: `[B, K]` float32 normalized CDF, nondecreasing, last entry 1.
         u: `[B]` or `[B, 1]` float32 uniforms.
-        value: `[B, K, D]` float32 particles.
+        value: `[B, K, D]` float32 particles; D may be 0, and then the
+            launch only finds the indices.
         emit_idx: whether to return the ancestor indices.
 
     Returns:

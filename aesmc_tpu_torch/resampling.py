@@ -14,8 +14,12 @@ are the sorted multinomial draws.
 Two implementations:
 - 'cuda': the hand-written kernels, for CUDA tensors only: the fused
   systematic resample+gather (`ops.resample_cuda`, K1) and the search +
-  gather over loaded positions (`ops.resample_sorted_cuda`, K3); their
-  backward is the range sum (`ops.range_sum_cuda`, K2);
+  gather over loaded positions (`ops.resample_sorted_cuda`, K3, index-only
+  for K4's job); their backward is the range sum (`ops.range_sum_cuda`,
+  K2). Float32 particles ride K1 or K3; particles of any other dtype (the
+  HMM's int32 states) are gathered apart by the ancestor indices through
+  the sorted gather (`ops.gather_sorted_cuda`, K5), which moves every
+  dtype bit for bit and is forward-only;
 - 'torch': plain PyTorch ops, on any device.
 'auto' picks 'cuda' for a CUDA tensor and 'torch' otherwise, at every K.
 
@@ -30,8 +34,8 @@ import math as _stdmath
 import torch
 
 from . import math as amath
-from . import state
-from .ops import resample_cuda, resample_sorted_cuda
+from .ops import (gather_sorted_cuda, resample_cuda,
+                  resample_sorted_cuda)
 
 METHODS = ("systematic", "stratified", "multinomial")
 IMPLEMENTATIONS = ("auto", "cuda", "torch")
@@ -119,6 +123,10 @@ def resolve_implementation(device, method: str, implementation: str) -> str:
     """'auto' -> 'cuda' for a CUDA device, 'torch' otherwise. Explicit
     strings pass through; 'cuda' for a tensor off the card raises."""
     _check_method(method)
+    return _route(device, implementation)
+
+
+def _route(device, implementation: str) -> str:
     if implementation not in IMPLEMENTATIONS:
         raise ValueError(f"implementation must be one of {IMPLEMENTATIONS}."
                          f" currently = {implementation}")
@@ -131,15 +139,39 @@ def resolve_implementation(device, method: str, implementation: str) -> str:
     return implementation
 
 
-def sample_ancestral_index(log_weight, noise, method: str = "systematic"):
-    """Samples `[batch, particle]` int32 ancestor indices (no gradient)."""
+def sample_ancestral_index(log_weight, noise, method: str = "systematic",
+                           implementation: str = "auto"):
+    """Samples `[batch, particle]` int32 ancestor indices (no gradient).
+
+    On the 'cuda' route systematic resampling runs K1 with no value
+    columns and its index output on; stratified and multinomial run K3
+    index-only (K4's function) on the positions of `resampling_positions`.
+    The 'torch' route runs `torch.searchsorted`. Both draw the same noise.
+    """
     _check_method(method)
     if log_weight.ndim != 2:
         raise ValueError(
             f"log_weight must be [batch, particles]. Got "
             f"{tuple(log_weight.shape)}")
     _check_nan_eager(log_weight)
-    return _indices(log_weight.detach(), noise, method)
+    implementation = resolve_implementation(log_weight.device, method,
+                                            implementation)
+    log_weight = log_weight.detach()
+    if implementation == "torch":
+        return _indices(log_weight, noise, method)
+    cdf = _normalized_cumsum(log_weight)
+    if method == "systematic":
+        u = noise.uniform((log_weight.shape[0], 1))
+        idx, _ = resample_cuda.resample_and_gather_systematic(
+            cdf, u, _no_columns(cdf))
+        return idx
+    pos = resampling_positions(log_weight, noise, method)
+    return resample_sorted_cuda.searchsorted_sorted(cdf, pos)
+
+
+def _no_columns(cdf):
+    """`[B, K, 0]`: no value columns for K1 or K3."""
+    return cdf.new_empty(tuple(cdf.shape) + (0,))
 
 
 def _leaves(value):
@@ -148,53 +180,86 @@ def _leaves(value):
     return [value]
 
 
-def _rebuild(value, flat, start=0):
-    """Inverse of flattening ``value``'s leaves into the columns of
-    ``flat`` `[B, K, C]`; returns (rebuilt, next column)."""
+def _unflatten(value, leaves):
+    """Inverse of `_leaves`: ``value``'s structure with the next leaves of
+    the iterator ``leaves``."""
     if isinstance(value, dict):
-        out = {}
-        for key, v in value.items():
-            out[key], start = _rebuild(v, flat, start)
-        return out, start
-    width = _stdmath.prod(value.shape[2:])
-    cols = flat[:, :, start:start + width]
-    return cols.reshape(value.shape), start + width
+        return {key: _unflatten(v, leaves) for key, v in value.items()}
+    return next(leaves)
+
+
+def _fused(leaf) -> bool:
+    """Whether a leaf rides K1/K3 as value columns (float32) or is gathered
+    apart by the ancestor indices (K5)."""
+    return leaf.dtype == torch.float32
 
 
 def _resample(log_weight, noise, value, method, implementation,
               need_indices):
     """The resampling step of `infer`: no NaN check (it would wait for the
-    device at every step). ``implementation`` is 'cuda' or 'torch'."""
+    device at every step). ``implementation`` is 'cuda' or 'torch'.
+
+    Float32 leaves go through K1 (systematic) or K3 as the columns of one
+    `[B, K, D]` tensor; every other leaf through K5 with the indices K1 or
+    K3 emitted, which they then emit even when ``need_indices`` is False
+    (the returned indices still follow ``need_indices``)."""
     log_weight = log_weight.detach()
     batch_size, k = log_weight.shape
     cdf = _normalized_cumsum(log_weight)
     leaves = _leaves(value)
-    if len(leaves) == 1:
-        flat = leaves[0].reshape(batch_size, k, -1)
-    else:
-        flat = torch.cat([leaf.reshape(batch_size, k, -1)
-                          for leaf in leaves], dim=2)
+    fused = [leaf.reshape(batch_size, k, -1) for leaf in leaves
+             if _fused(leaf)]
+    apart = [leaf for leaf in leaves if not _fused(leaf)]
     cuda = implementation == "cuda"
+    if cuda and any(leaf.requires_grad for leaf in apart):
+        raise ValueError(
+            "only float32 particles carry a gradient through resampling on "
+            "the 'cuda' route (K1/K3, backward K2); the gather of other "
+            "dtypes (K5) is forward-only")
+    emit_idx = need_indices or bool(apart)
+    if not fused:
+        flat = _no_columns(cdf)
+    elif len(fused) == 1:
+        flat = fused[0]
+    else:
+        flat = torch.cat(fused, dim=2)
     if method == "systematic":
         # K1 builds the positions itself from one uniform a row.
         u = noise.uniform((batch_size, 1))
         if cuda:
             idx, gathered = resample_cuda.resample_and_gather_systematic(
-                cdf, u, flat.contiguous(), emit_idx=need_indices)
+                cdf, u, flat.contiguous(), emit_idx=emit_idx)
         else:
             idx, gathered = \
                 resample_cuda.resample_and_gather_systematic_torch(
-                    cdf, u, flat, emit_idx=need_indices)
+                    cdf, u, flat, emit_idx=emit_idx)
     else:
         pos = resampling_positions(log_weight, noise, method)
         if cuda:
             idx, gathered = resample_sorted_cuda.resample_and_gather_sorted(
-                cdf, pos, flat.contiguous(), emit_idx=need_indices)
+                cdf, pos, flat.contiguous(), emit_idx=emit_idx)
         else:
             idx, gathered = \
                 resample_sorted_cuda.resample_and_gather_sorted_torch(
-                    cdf, pos, flat, emit_idx=need_indices)
-    return idx, _rebuild(value, gathered)[0]
+                    cdf, pos, flat, emit_idx=emit_idx)
+    gathered_apart = iter(_gather_apart(apart, idx, cuda))
+    out, start = [], 0
+    for leaf in leaves:
+        if _fused(leaf):
+            width = _stdmath.prod(leaf.shape[2:])
+            out.append(gathered[:, :, start:start + width].reshape(leaf.shape))
+            start += width
+        else:
+            out.append(next(gathered_apart))
+    return (idx if need_indices else None), _unflatten(value, iter(out))
+
+
+def _gather_apart(leaves, idx, cuda):
+    if cuda:
+        return [gather_sorted_cuda.gather_sorted(leaf.contiguous(), idx)
+                for leaf in leaves]
+    return [gather_sorted_cuda.gather_sorted_torch(leaf, idx)
+            for leaf in leaves]
 
 
 def sample_ancestral_index_and_resample(log_weight, noise, value,
@@ -203,12 +268,14 @@ def sample_ancestral_index_and_resample(log_weight, noise, value,
                                         need_indices: bool = True):
     """Samples ancestor indices AND redistributes ``value`` in one pass.
 
-    ``value`` is a `[B, K, ...]` tensor or a dict of them; on the 'cuda'
-    route they must be float32 and travel through the fused kernel (K1 for
-    'systematic', K3 otherwise) as the columns of one `[B, K, D]` tensor.
-    Gradients flow to ``value`` (through K2 on the 'cuda' route). With
-    ``need_indices=False`` the kernel skips the index output and indices
-    come back None.
+    ``value`` is a `[B, K, ...]` tensor or a dict of them. Float32 leaves
+    travel through the fused kernel (K1 for 'systematic', K3 otherwise) as
+    the columns of one `[B, K, D]` tensor, and gradients flow to them
+    (through K2 on the 'cuda' route); leaves of any other dtype are
+    gathered by the ancestor indices (K5, forward-only: on the 'cuda' route
+    such a leaf that requires a gradient raises ValueError). With
+    ``need_indices=False`` indices come back None, and the kernel skips
+    its index output unless a leaf needs K5.
 
     Returns (indices `[B, K]` int32 - detached - or None, resampled value).
     """
@@ -219,6 +286,14 @@ def sample_ancestral_index_and_resample(log_weight, noise, value,
                      need_indices)
 
 
-def resample_particles(value, ancestral_index):
-    """Gathers particles by ancestor index (any indices, any dtype)."""
-    return state.resample(value, ancestral_index)
+def resample_particles(value, ancestral_index,
+                       implementation: str = "auto"):
+    """Gathers particles by sorted ancestor indices `[B, Kp]`: on the 'cuda'
+    route every leaf goes through K5 (any dtype of 1, 2, 4 or 8 bytes,
+    forward-only), on the 'torch' route through `take_along_dim`. 'auto'
+    follows the indices' device. For unsorted indices use
+    `state.resample`."""
+    implementation = _route(ancestral_index.device, implementation)
+    idx = ancestral_index.to(torch.int32).contiguous()
+    return _unflatten(value, iter(_gather_apart(
+        _leaves(value), idx, implementation == "cuda")))

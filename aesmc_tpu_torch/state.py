@@ -72,7 +72,12 @@ def sample(distribution, batch_size: int, num_particles: int, noise):
 
     Reparameterized distributions sample pathwise (`rsample`), with
     standard-normal noise from ``noise.normal`` drawn in the output's
-    `[batch, particle, ...]` layout. A raw tensor passes through.
+    `[batch, particle, ...]` layout. Categorical distributions (discrete
+    latents) sample detached, from ``noise.gumbel`` drawn as the JAX
+    package's `jax.random.categorical` draws it: ``sample_shape +
+    batch_shape + (D,)``, so `[num_particles, batch, D]` for a
+    BATCH_EXPANDED distribution, whose draw is then swapped to `[batch,
+    particle]`. A raw tensor passes through.
     """
     if isinstance(distribution, dict):
         return {k: sample(v, batch_size, num_particles, noise)
@@ -84,6 +89,9 @@ def sample(distribution, batch_size: int, num_particles: int, noise):
             "distribution must be a dict or a Distribution. Got: {}".format(
                 distribution))
     mode = get_batch_shape_mode(distribution, batch_size, num_particles)
+    if not distribution.has_rsample:
+        return _sample_categorical(distribution, mode, batch_size,
+                                   num_particles, noise)
     tail = tuple(distribution.batch_shape) + tuple(distribution.event_shape)
     if mode == BatchShapeMode.NOT_EXPANDED:
         return distribution.rsample(
@@ -98,6 +106,23 @@ def sample(distribution, batch_size: int, num_particles: int, noise):
     if mode == BatchShapeMode.FULLY_EXPANDED:
         return distribution.rsample((), eps=noise.normal(tail))
     raise ValueError(f"batch_shape_mode {mode} not supported")
+
+
+def _sample_categorical(distribution, mode, batch_size, num_particles,
+                        noise):
+    if not isinstance(distribution, dists.Categorical):
+        raise ValueError(f"{type(distribution).__name__} is not "
+                         f"reparameterizable and not a Categorical")
+    sample_shape = {BatchShapeMode.NOT_EXPANDED: (batch_size, num_particles),
+                    BatchShapeMode.BATCH_EXPANDED: (num_particles,),
+                    BatchShapeMode.FULLY_EXPANDED: ()}[mode]
+    gumbel = noise.gumbel(sample_shape + tuple(distribution.batch_shape) +
+                          (distribution.num_categories,))
+    with torch.no_grad():
+        result = distribution.sample(sample_shape, gumbel=gumbel)
+    if mode == BatchShapeMode.BATCH_EXPANDED:
+        return result.transpose(0, 1).contiguous()
+    return result
 
 
 def log_prob(distribution, value):

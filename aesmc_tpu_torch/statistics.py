@@ -65,9 +65,10 @@ def sample_from_prior(initial, transition, emission, num_timesteps: int,
                       noise: Optional[NoiseSource] = None):
     """Ancestral sampling of (latents, observations) from the model prior.
 
-    The components see the contract of `inference.infer`. Draws come from
-    ``noise`` (default `NoiseSource.seeded(0)` on the card, which raises
-    without one; pass a CPU source to sample on the CPU).
+    The components see the contract of `inference.infer`; categorical
+    components (the HMM) draw their integer states through `state.sample`.
+    Draws come from ``noise`` (default `NoiseSource.seeded(0)` on the card,
+    which raises without one; pass a CPU source to sample on the CPU).
 
     Returns:
         (latents, observations): stacked `[T, batch, ...]` tensors.

@@ -22,8 +22,18 @@ Phases, in order; any failure raises and the exit code is not 0:
      cotangents, and the same bits on two launches;
    - K3, the search + gather over loaded sorted positions: exactly equal
      on stratified, multinomial and Kp != K positions;
+   - K5, the gather by sorted indices: bit-equal for int32 (negative and
+     above 2^24), int64, int8, bool, float64 and float32, D in {1, 8, 64}
+     and at K = 8,388,608, on indices from resampling and all-equal ones;
+   - K4's function, K3 index-only: exactly equal to torch.searchsorted for
+     stratified and multinomial positions up to K = 4,194,304, and at
+     Kc != Kp;
+   - K6, the fused CDF + search + gather: indices within the JAX package's
+     bound of its plain version (< 0.5% differ, by <= 3), exact on a
+     degenerate row, its gathered values the values at its own indices;
    each is timed against its plain version (CUDA events; plain, kernel,
-   kernel, plain) and its device time read from torch.profiler;
+   kernel, plain), K4 and K5 also against the one PyTorch call that
+   computes their function, and its device time read from torch.profiler;
 4. filter: the LGSSM SMC filter at the bench's shape (T=200, B=10,
    K=10,000) through `inference.infer`: the log-Z-only call launches K1
    T-1 times; the lineage call agrees exactly with the plain route; with
@@ -37,7 +47,17 @@ Phases, in order; any failure raises and the exit code is not 0:
    both routes and at K=10,000 (with peak memory), prints a profile of
    one step, runs one stratified and one multinomial step (K3 and K2,
    T-1 launches each), and a short parameter-recovery run of
-   `train.train` that must halve the parameters' distance to the truth.
+   `train.train` that must halve the parameters' distance to the truth;
+6. HMM filter: the discrete HMM (D=8 states, the fully adapted proposal,
+   int32 particles) at the bench's shape (T=200, B=10, K=10,000): the
+   log-Z-only call launches K1 (indices only) and K5 T-1 times each, a
+   stratified call K3 index-only and K5 T-1 times each; the lineage call
+   equals the plain route exactly; log-Z against the exact forward
+   recursion at the JAX test's settings over 8 noise seeds; times both
+   routes and prints a profile of one call;
+7. HMM training: the JAX package's emission-learning test on the card
+   (the loss must fall by more than 0.5 and the learned means land near
+   the truth).
 
 It prints a `{"kernels": [...]}` JSON line before the last, and, as the
 last line, `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -54,10 +74,11 @@ import numpy as np
 import torch
 
 from aesmc_tpu_torch import inference, losses, resampling, statistics, train
-from aesmc_tpu_torch.models import kalman, lgssm
+from aesmc_tpu_torch.models import hmm, kalman, lgssm
 from aesmc_tpu_torch.noise import NoiseSource
-from aesmc_tpu_torch.ops import (_build, range_sum_cuda, resample_cuda,
-                                 resample_sorted_cuda)
+from aesmc_tpu_torch.ops import (_build, gather_sorted_cuda, range_sum_cuda,
+                                 resample_cuda, resample_sorted_cuda,
+                                 searchsorted_cdf_cuda)
 
 T, B, K = 200, 10, 10000
 # The reference training shape (bench.py:264).
@@ -83,13 +104,43 @@ GRAD_RTOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
+# The JAX bench's HMM row (bench.py:240-259): D=8 states, the fully
+# adapted proposal, at the LGSSM's (T, B, K).
+HMM_STATES = 8
+# The JAX package's HMM test settings (tests/test_hmm.py:18-28): D=3,
+# T=25, B=2, K=2048, emission scale 0.6, stay probability 0.85.
+HMM_TEST = dict(num_states=3, emission_scale=0.6, stay_prob=0.85)
+HMM_TEST_T, HMM_TEST_B, HMM_TEST_K = 25, 2, 2048
+# log-Z against the forward recursion over 8 noise seeds, multinomial
+# resampling: the mean deviation of each row below the JAX test's bound,
+# and the largest below three times it (one seed can miss the bound by
+# Monte Carlo noise alone).
+HMM_SEEDS, HMM_MEAN_TOL, HMM_MAX_TOL = 8, 0.05, 0.15
+# K6 against its plain version: the JAX package's bound for indices from a
+# CDF summed in another order (tests/test_resample_pallas.py:39-49), on
+# that test's log-weights N(0, 2^2).
+K6_MISMATCH_FRACTION, K6_MISMATCH_DISTANCE = 0.005, 3
+
+# name: (wrapper module, its launch count, the kernel's name in the
+# profiler, the TPU kernel it replaces). K4's function is K3 with no value
+# columns, whose launches the wrapper counts apart.
 KERNELS = {
-    "resample_systematic": (resample_cuda, "resample_systematic_kernel",
+    "resample_systematic": (resample_cuda, "LAUNCHES",
+                            "resample_systematic_kernel",
                             "aesmc_tpu/ops/resample_pallas.py:385"),
-    "range_sum": (range_sum_cuda, "range_sum_kernel",
+    "range_sum": (range_sum_cuda, "LAUNCHES", "range_sum_kernel",
                   "aesmc_tpu/ops/resample_pallas.py:961"),
-    "resample_sorted": (resample_sorted_cuda, "resample_sorted_kernel",
+    "resample_sorted": (resample_sorted_cuda, "LAUNCHES",
+                        "resample_sorted_kernel",
                         "aesmc_tpu/ops/resample_pallas.py:945"),
+    "searchsorted_sorted": (resample_sorted_cuda, "INDEX_LAUNCHES",
+                            "resample_sorted_kernel",
+                            "aesmc_tpu/ops/resample_pallas.py:1024"),
+    "gather_sorted": (gather_sorted_cuda, "LAUNCHES", "gather_sorted_kernel",
+                      "aesmc_tpu/ops/gather_pallas.py:46"),
+    "searchsorted_cdf": (searchsorted_cdf_cuda, "LAUNCHES",
+                         "searchsorted_cdf_kernel",
+                         "aesmc_tpu/ops/resample_pallas.py:975"),
 }
 
 # Kernel launches on each main path, read from the wrappers' counts.
@@ -101,15 +152,15 @@ def phase(name):
 
 
 def reset_counts():
-    for module, _, _ in KERNELS.values():
-        module.LAUNCHES = 0
+    for module, counter, _, _ in KERNELS.values():
+        setattr(module, counter, 0)
 
 
 def read_counts(path):
     """Records each kernel's launches on ``path`` since `reset_counts`."""
     torch.cuda.synchronize()
-    counts = {name: module.LAUNCHES
-              for name, (module, _, _) in KERNELS.items()}
+    counts = {name: getattr(module, counter)
+              for name, (module, counter, _, _) in KERNELS.items()}
     for name, n in counts.items():
         if n:
             LAUNCHES[name][path] = n
@@ -136,7 +187,7 @@ def device_phase():
 
 def build_phase():
     phase("2 build")
-    sources = [module.SOURCE for module, _, _ in KERNELS.values()]
+    sources = sorted({module.SOURCE for module, _, _, _ in KERNELS.values()})
     # Build from the sources in this checkout, never from a stale library.
     for source in sources:
         _build.library_path(source).unlink(missing_ok=True)
@@ -354,14 +405,21 @@ def _device_ms(fn, kernel, calls=50):
     return total_us / count / 1e3 if count else None
 
 
-def _time_pair(kernel_fn, plain_fn, warmup=20, repeat=200):
-    """(kernel ms, plain ms, runs): CUDA-event means in the order plain,
-    kernel, kernel, plain."""
-    runs = {"kernel": [], "plain": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn = kernel_fn if which == "kernel" else plain_fn
-        runs[which].append(_cuda_ms(fn, warmup, repeat))
-    return float(np.mean(runs["kernel"])), float(np.mean(runs["plain"])), runs
+def _time_pair(kernel_fn, plain_fn, library_fn=None, warmup=20,
+               repeat=200):
+    """(kernel ms, plain ms, library ms or None, runs): CUDA-event means in
+    the order plain, kernel, (library, library,) kernel, plain."""
+    fns = {"kernel": kernel_fn, "plain": plain_fn, "library": library_fn}
+    order = ("plain", "kernel", "kernel", "plain")
+    if library_fn is not None:
+        order = ("plain", "kernel", "library", "library", "kernel", "plain")
+    runs = {which: [] for which in order}
+    for which in order:
+        runs[which].append(_cuda_ms(fns[which], warmup, repeat))
+    library_ms = (None if library_fn is None else
+                  float(np.mean(runs["library"])))
+    return (float(np.mean(runs["kernel"])), float(np.mean(runs["plain"])),
+            library_ms, runs)
 
 
 def _bound(nbytes, ops):
@@ -373,8 +431,34 @@ def _bound(nbytes, ops):
                                                           "operations")
 
 
+def _us(ms):
+    """A device time in microseconds, or 'not measured' for None."""
+    return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
+
+
 def _search_steps(n):
     return math.ceil(math.log2(n + 1))
+
+
+def _kernel_row(name, shape, kernel_fn, plain_fn, library_fn, nbytes, ops):
+    """Times ``name`` at ``shape`` against its plain version (and the one
+    PyTorch call computing its function, where there is one), reads its
+    device time, and returns its fields of the JSON line."""
+    ms, plain_ms, library_ms, runs = _time_pair(kernel_fn, plain_fn,
+                                                library_fn)
+    device_ms = _device_ms(kernel_fn, KERNELS[name][2])
+    bound_ms, bound_by = _bound(nbytes, ops)
+    library = ("" if library_ms is None else
+               f", library call {library_ms * 1e3:.2f} us/call (runs "
+               f"{runs['library']})")
+    print(f"{name} at {shape}: {ms * 1e3:.2f} us/call through the wrapper "
+          f"(runs {runs['kernel']}), device {_us(device_ms)} a launch, plain "
+          f"{plain_ms * 1e3:.2f} us/call (runs {runs['plain']}){library}; "
+          f"bound {bound_ms * 1e3:.3f} us ({bound_by}: {nbytes} bytes, {ops} "
+          f"operations)", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, device_ms=device_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                shape=list(shape))
 
 
 def kernel_times(dev):
@@ -414,21 +498,10 @@ def kernel_times(dev):
                 f * 4 * n, n * steps),
         }
         for name, (kernel_fn, plain_fn, nbytes, ops) in cases.items():
-            ms, plain_ms, runs = _time_pair(kernel_fn, plain_fn)
-            device_ms = _device_ms(kernel_fn, KERNELS[name][1])
-            bound_ms, bound_by = _bound(nbytes, ops)
-            print(f"{name} at (B, K, D) = ({B}, {k}, 1): {ms * 1e3:.2f} "
-                  f"us/call through the wrapper (runs {runs['kernel']}), "
-                  f"device {'not measured' if device_ms is None else f'{device_ms * 1e3:.2f} us'}"
-                  f" a launch, plain {plain_ms * 1e3:.2f} us/call (runs "
-                  f"{runs['plain']}); bound {bound_ms * 1e3:.3f} us "
-                  f"({bound_by}: {nbytes} bytes, {ops} operations)",
-                  flush=True)
+            fields = _kernel_row(name, (B, k, k, 1), kernel_fn, plain_fn,
+                                 None, nbytes, ops)
             if k == K:
-                out[name] = dict(ms=ms, plain_ms=plain_ms,
-                                 device_ms=device_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, library_ms=None,
-                                 shape=[B, k, k, 1])
+                out[name] = fields
         # K2's weak case: a row whose mass sits on one source, which one
         # thread then sums alone.
         one_g = torch.randn(B, k, 1, generator=generator, device=dev)
@@ -436,11 +509,10 @@ def kernel_times(dev):
                                                        one_g), 5, 50)
         device_ms = _device_ms(
             lambda: range_sum_cuda.range_sum(one_cdf, one_pos, one_g),
-            KERNELS["range_sum"][1], calls=10)
+            KERNELS["range_sum"][2], calls=10)
         print(f"range_sum at ({B}, {k}, 1), all mass on one particle a row:"
-              f" {ms * 1e3:.2f} us/call, device "
-              f"{'not measured' if device_ms is None else f'{device_ms * 1e3:.2f} us'}"
-              f" a launch", flush=True)
+              f" {ms * 1e3:.2f} us/call, device {_us(device_ms)} a launch",
+              flush=True)
     return out
 
 
@@ -496,6 +568,188 @@ def host_costs(dev):
     }
     for label, fn in costs.items():
         print(f"host cost, {label}: {_host_us(fn):.1f} us/call", flush=True)
+
+
+def _same_bits(a, b):
+    """Equal dtype, shape and bits (floats compared by bit pattern)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (x.view(as_int[x.element_size()]) for x in (a, b))
+    return torch.equal(a, b)
+
+
+K5_DTYPES = (torch.int32, torch.int64, torch.int8, torch.bool,
+             torch.float64, torch.float32)
+# (B, K, D) of the K5 checks, (B, Kc, Kp) of the K4 checks and (B, K, kind)
+# of the K6 checks.
+K5_SHAPES = [(B, K, 1), (B, K, 8), (B, K, 64), (4, 8388608, 1)]
+K4_SHAPES = [(B, K, K), (B, 4194304, 4194304), (4, 1048576, 262144)]
+K6_CASES = [(B, K, "normal"), (B, 1000, "normal"), (B, K, "one_particle")]
+
+
+def _k5_value(dtype, shape, generator, dev):
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=generator, device=dev,
+                           dtype=dtype)
+    bits = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=generator,
+                         device=dev, dtype=torch.int64)
+    if dtype == torch.bool:
+        return bits > 0
+    if dtype == torch.int64:
+        return bits * (2 ** 31) + bits        # beyond 32 bits
+    value = bits.to(dtype)                    # int8 wraps
+    if dtype == torch.int32:
+        value.view(-1)[:4] = torch.tensor(
+            [-1, 2 ** 24 + 1, -(2 ** 30) - 3, 2 ** 31 - 1], dtype=dtype)
+    return value
+
+
+def k5_phase(dev):
+    """K5 against its plain version, bit for bit; returns the JSON fields
+    of K5 at the HMM filter's shape (10, 10,000), int32 particles."""
+    phase("3f K5 gather_sorted against its plain version")
+    generator = torch.Generator(device=dev).manual_seed(7)
+    for batch, k, d in K5_SHAPES:
+        logw = torch.randn(batch, k, generator=generator, device=dev) * 3.0
+        resampled = resampling.sample_ancestral_index(logw,
+                                                      NoiseSource(generator))
+        equal = torch.full((batch, k), k // 2, dtype=torch.int32,
+                           device=dev)
+        for dtype in K5_DTYPES:
+            value = _k5_value(dtype, (batch, k, d), generator, dev)
+            for label, idx in (("resampled", resampled),
+                               ("all-equal", equal)):
+                got = gather_sorted_cuda.gather_sorted(value, idx)
+                want = gather_sorted_cuda.gather_sorted_torch(value, idx)
+                torch.cuda.synchronize()
+                if not _same_bits(got, want):
+                    raise AssertionError(
+                        f"K5 differs from its plain version at "
+                        f"{(batch, k, d)} {dtype} on {label} indices")
+        print(f"(B, K, D) = {(batch, k, d)}: bit-equal for "
+              f"{', '.join(str(t).split('.')[1] for t in K5_DTYPES)} on "
+              f"resampled and all-equal indices (tolerance 0)", flush=True)
+    logw = torch.randn(B, K, generator=generator, device=dev) * 3.0
+    idx = resampling.sample_ancestral_index(logw, NoiseSource(generator))
+    latents = _k5_value(torch.int32, (B, K), generator, dev)
+    idx64 = idx.long()
+    n = B * K
+    return _kernel_row(
+        "gather_sorted", (B, K, 1),
+        lambda: gather_sorted_cuda.gather_sorted(latents, idx),
+        lambda: gather_sorted_cuda.gather_sorted_torch(latents, idx),
+        lambda: torch.take_along_dim(latents, idx64, dim=1),
+        4 * 3 * n, 0)
+
+
+def k4_phase(dev):
+    """K3 index-only (K4's function) against torch.searchsorted, exactly;
+    returns its JSON fields at (10, 10,000), stratified positions."""
+    phase("3g K4 = K3 index-only against torch.searchsorted")
+    generator = torch.Generator(device=dev).manual_seed(8)
+    for batch, kc, kp in K4_SHAPES:
+        logw = torch.randn(batch, kc, generator=generator, device=dev) * 3.0
+        cdf = resampling._normalized_cumsum(logw)
+        for method in ("stratified", "multinomial"):
+            pos = resampling.resampling_positions(
+                cdf.new_zeros(batch, kp), NoiseSource(generator), method)
+            got = resample_sorted_cuda.searchsorted_sorted(cdf, pos)
+            want = resample_sorted_cuda.searchsorted_sorted_torch(cdf, pos)
+            library = torch.searchsorted(cdf, pos, right=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and
+                    torch.equal(got.long(), library.clamp(max=kc - 1))):
+                raise AssertionError(
+                    f"K3 index-only differs from torch.searchsorted at "
+                    f"{(batch, kc, kp)} {method}: "
+                    f"{int((got != want).sum())} indices")
+            print(f"(B, Kc, Kp) = {(batch, kc, kp)} {method:11s}: equal to "
+                  f"torch.searchsorted (tolerance 0)", flush=True)
+    logw = torch.randn(B, K, generator=generator, device=dev) * 3.0
+    cdf = resampling._normalized_cumsum(logw)
+    pos = resampling.resampling_positions(logw, NoiseSource(generator),
+                                          "stratified")
+    n = B * K
+    return _kernel_row(
+        "searchsorted_sorted", (B, K, K, 0),
+        lambda: resample_sorted_cuda.searchsorted_sorted(cdf, pos),
+        lambda: resample_sorted_cuda.searchsorted_sorted_torch(cdf, pos),
+        lambda: torch.searchsorted(cdf, pos, right=True),
+        4 * 3 * n, n * _search_steps(K))
+
+
+def k6_phase(dev):
+    """K6 against its plain version within the JAX package's bound, and
+    its entry point as its path; returns (max index distance, its JSON
+    fields at (10, 10,000, 1))."""
+    phase("3h K6 searchsorted_cdf against its plain version")
+    generator = torch.Generator(device=dev).manual_seed(9)
+    worst = 0
+    for batch, k, kind in K6_CASES:
+        logw = torch.randn(batch, k, generator=generator, device=dev) * 2.0
+        if kind == "one_particle":
+            hot = torch.randint(0, k, (batch,), generator=generator,
+                                device=dev)
+            logw = torch.full((batch, k), float("-inf"), device=dev)
+            logw[torch.arange(batch, device=dev), hot] = 0.0
+        u = torch.rand(batch, 1, generator=generator, device=dev)
+        pos = resample_cuda.systematic_positions(u, k)
+        value = torch.randn(batch, k, 1, generator=generator, device=dev)
+        idx, out = searchsorted_cdf_cuda.searchsorted_cdf(logw, pos, value)
+        want_idx, _ = searchsorted_cdf_cuda.searchsorted_cdf_torch(
+            logw, pos, value)
+        torch.cuda.synchronize()
+        differ = idx != want_idx
+        fraction = float(differ.float().mean())
+        distance = int((idx - want_idx).abs().max())
+        worst = max(worst, distance)
+        own = torch.take_along_dim(value, idx.long().unsqueeze(-1), dim=1)
+        if not _same_bits(out, own):
+            raise AssertionError(f"K6 gathered other values than those at "
+                                 f"its indices at {(batch, k)} {kind}")
+        if kind == "one_particle" and fraction:
+            raise AssertionError("K6 differs on a degenerate row")
+        if not (fraction < K6_MISMATCH_FRACTION and
+                distance <= K6_MISMATCH_DISTANCE):
+            raise AssertionError(
+                f"K6 indices at {(batch, k)} {kind}: {fraction:.3%} differ, "
+                f"by up to {distance} (bound < {K6_MISMATCH_FRACTION:.1%}, "
+                f"<= {K6_MISMATCH_DISTANCE})")
+        print(f"(B, K, D) = {(batch, k, 1)} {kind:12s}: {int(differ.sum())} "
+              f"of {batch * k} indices differ ({fraction:.4%}), by at most "
+              f"{distance} (bound < {K6_MISMATCH_FRACTION:.1%}, <= "
+              f"{K6_MISMATCH_DISTANCE}); gathered values exact at its own "
+              f"indices", flush=True)
+
+    logw = torch.randn(B, K, generator=generator, device=dev) * 2.0
+    u = torch.rand(B, 1, generator=generator, device=dev)
+    pos = resample_cuda.systematic_positions(u, K)
+    value = torch.randn(B, K, 1, generator=generator, device=dev)
+    # Its path is its entry point, called once as a user would.
+    reset_counts()
+    searchsorted_cdf_cuda.searchsorted_cdf(logw, pos, value)
+    if read_counts("K6 entry point")["searchsorted_cdf"] != 1:
+        raise AssertionError("searchsorted_cdf did not launch K6 once")
+    n = B * K
+    fields = _kernel_row(
+        "searchsorted_cdf", (B, K, 1),
+        lambda: searchsorted_cdf_cuda.searchsorted_cdf(logw, pos, value),
+        lambda: searchsorted_cdf_cuda.searchsorted_cdf_torch(logw, pos,
+                                                             value),
+        None, 4 * 5 * n, 4 * n + n * _search_steps(K))
+    # The port's own route to the same indices: the CDF from torch ops,
+    # then K3.
+    def port_route():
+        cdf = resampling._normalized_cumsum(logw)
+        return resample_sorted_cuda.resample_and_gather_sorted(cdf, pos,
+                                                               value)
+
+    route_ms = _cuda_ms(port_route, 20, 200)
+    print(f"the port's route (_normalized_cumsum + K3) at the same shape: "
+          f"{route_ms * 1e3:.2f} us/call", flush=True)
+    return worst, fields
 
 
 @torch.no_grad()
@@ -598,7 +852,7 @@ def filter_phase(dev):
     cdf, u, value = _case_inputs(B, K, 1, "normal",
                                  torch.Generator(device=dev).manual_seed(5),
                                  dev)
-    ms, plain_ms, runs = _time_pair(
+    ms, plain_ms, _, runs = _time_pair(
         lambda: resample_cuda.resample_and_gather_systematic(
             cdf, u, value, True),
         lambda: resample_cuda.resample_and_gather_systematic_torch(
@@ -619,8 +873,19 @@ def _profile(fn, label):
         fn()
         torch.cuda.synchronize()
     print(f"profile of {label}:", flush=True)
-    print(prof.key_averages().table(sort_by="cuda_time_total",
-                                    row_limit=25), flush=True)
+    events = prof.key_averages()
+    print(events.table(sort_by="cuda_time_total", row_limit=25), flush=True)
+    # The port's kernels, wherever they rank.
+    for kernel in sorted({name for _, _, name, _ in KERNELS.values()}):
+        rows = [e for e in events if kernel in e.key]
+        total_us = sum(getattr(e, "device_time_total",
+                               getattr(e, "cuda_time_total", 0.0))
+                       for e in rows)
+        count = sum(e.count for e in rows)
+        if count:
+            print(f"{kernel}: {total_us / 1e3:.3f} ms of device time in "
+                  f"{count} launches ({total_us / count:.2f} us each)",
+                  flush=True)
 
 
 def _bench_lgssm(dev, transition_mult):
@@ -772,6 +1037,160 @@ def recovery_phase(dev):
         raise AssertionError(f"recovery failed: err {err}, err0 {err0}")
 
 
+def _hmm_data(dev, num_timesteps, batch, seed, **model):
+    """`hmm.make_model(**model)` on the card and observations from it."""
+    comps = hmm.make_model(device=dev, **model)
+    with torch.no_grad():
+        _, obs = statistics.sample_from_prior(
+            *comps[:3], num_timesteps, batch, NoiseSource.seeded(seed, dev))
+    return comps, obs
+
+
+def _hmm_exact(comps, obs):
+    """The forward recursion's log-likelihood of each batch row."""
+    initial, transition, emission, _ = comps
+    args = (initial.logits.cpu().numpy(), transition.logits.cpu().numpy(),
+            emission.locs.detach().cpu().numpy(), emission.scale)
+    obs_np = obs.cpu().numpy()
+    return np.array([hmm.hmm_forward(obs_np[:, b], *args)[1]
+                     for b in range(obs_np.shape[1])])
+
+
+@torch.no_grad()
+def hmm_filter_phase(dev):
+    phase(f"6 HMM filter: D={HMM_STATES}, fully adapted proposal, T={T}, "
+          f"B={B}, K={K:,}")
+    comps, obs = _hmm_data(dev, T, B, 0, num_states=HMM_STATES)
+
+    def smc(seed, implementation="auto", method="systematic", **returns):
+        return inference.infer(
+            "smc", obs, *comps, K, noise=NoiseSource.seeded(seed, dev),
+            resampling_method=method,
+            resampling_implementation=implementation,
+            return_log_marginal_likelihood=True, **returns)
+
+    # The main path: log-Z only. The int32 particles take K5, and K1 runs
+    # with no value columns for the indices K5 needs.
+    reset_counts()
+    out = smc(1, return_latents=False, return_log_weight=False)
+    counts = read_counts("hmm filter")
+    log_z = out["log_marginal_likelihood"]
+    if (counts["resample_systematic"], counts["gather_sorted"]) != (T - 1,
+                                                                    T - 1):
+        raise AssertionError(f"the HMM log-Z call launched {counts}, not "
+                             f"K1 and K5 {T - 1} times each")
+    if log_z.shape != (B,) or not bool(torch.isfinite(log_z).all()):
+        raise AssertionError(f"bad HMM log-Z {log_z}")
+    print(f"log-Z-only call: K1 (indices only) and K5 {T - 1} launches "
+          f"each, log-Z {log_z.cpu().numpy()}", flush=True)
+
+    reset_counts()
+    smc(1, method="stratified", return_latents=False,
+        return_log_weight=False)
+    counts = read_counts("hmm filter stratified")
+    if (counts["searchsorted_sorted"], counts["gather_sorted"],
+            counts["resample_sorted"]) != (T - 1, T - 1, 0):
+        raise AssertionError(f"the stratified HMM call launched {counts}")
+
+    # Lineage outputs, kernel route against plain route on the same noise.
+    kern = smc(2, "cuda", return_ancestral_indices=True)
+    plain = smc(2, "torch", return_ancestral_indices=True)
+    lat, anc = kern["latents"], kern["ancestral_indices"]
+    if lat.dtype != torch.int32 or lat.shape != (T, B, K):
+        raise AssertionError(f"bad HMM latents {lat.dtype} {lat.shape}")
+    same = (torch.equal(lat, plain["latents"]) and
+            torch.equal(anc, plain["ancestral_indices"]) and
+            torch.equal(kern["log_marginal_likelihood"],
+                        plain["log_marginal_likelihood"]))
+    if not same:
+        raise AssertionError(
+            f"HMM lineage call differs from the plain route: "
+            f"{int((anc != plain['ancestral_indices']).sum())} ancestors, "
+            f"{int((lat != plain['latents']).sum())} latents")
+    print(f"lineage call: int32 latents {tuple(lat.shape)}, ancestors and "
+          f"log-Z equal the plain route's exactly", flush=True)
+    bench_dev = np.abs(kern["log_marginal_likelihood"].cpu().numpy() -
+                       _hmm_exact(comps, obs))
+    print(f"log-Z vs the forward recursion at the bench's shape "
+          f"(systematic): per-row deviation {np.round(bench_dev, 4)}, max "
+          f"{bench_dev.max():.4f}, mean {bench_dev.mean():.4f}", flush=True)
+
+    # Accuracy at the JAX test's settings, multinomial, 8 noise seeds.
+    tcomps, tobs = _hmm_data(dev, HMM_TEST_T, HMM_TEST_B, 7, **HMM_TEST)
+    exact = _hmm_exact(tcomps, tobs)
+    devs = np.array([np.abs(inference.infer(
+        "smc", tobs, *tcomps, HMM_TEST_K,
+        noise=NoiseSource.seeded(100 + seed, dev),
+        resampling_method="multinomial", return_log_marginal_likelihood=True,
+        return_latents=False)["log_marginal_likelihood"].cpu().numpy() -
+        exact) for seed in range(HMM_SEEDS)])          # [seeds, B]
+    print(f"log-Z vs the forward recursion, D=3 T={HMM_TEST_T} "
+          f"B={HMM_TEST_B} K={HMM_TEST_K} multinomial, {HMM_SEEDS} seeds: "
+          f"mean deviation per row {np.round(devs.mean(axis=0), 4)} (bound "
+          f"{HMM_MEAN_TOL}), largest {devs.max():.4f} (bound "
+          f"{HMM_MAX_TOL})", flush=True)
+    if not (np.all(devs.mean(axis=0) < HMM_MEAN_TOL) and
+            devs.max() < HMM_MAX_TOL):
+        raise AssertionError(f"HMM log-Z off the forward recursion: {devs}")
+
+    def filt(implementation):
+        return lambda: smc(4, implementation, return_latents=False,
+                           return_log_weight=False)
+
+    torch.cuda.reset_peak_memory_stats()
+    call_ms = {"torch": [], "cuda": []}
+    for implementation in ("torch", "cuda", "cuda", "torch"):
+        call_ms[implementation] += _cuda_ms(
+            filt(implementation), warmup=2, repeat=5, each=True)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    for implementation, label in (("cuda", "kernel route (K1 + K5)"),
+                                  ("torch", "plain route")):
+        q1, med, q3 = _quartiles(call_ms[implementation])
+        print(f"HMM log-Z call, {label}: median {med:.3f} ms/call "
+              f"(quartiles {q1:.3f}, {q3:.3f}; n="
+              f"{len(call_ms[implementation])}) = "
+              f"{B * K * T / med * 1e3:.4g} particle-steps/s", flush=True)
+    print(f"peak device memory {peak_mb:.1f} MiB", flush=True)
+    _profile(filt("cuda"), "one HMM filter call")
+
+
+def hmm_train_phase(dev):
+    """The JAX package's emission-learning test (tests/test_hmm.py:154-191)
+    on the card: the means start off by (0.8, -0.6, 0.7); 120 Adam steps at
+    lr 5e-2, K=256, the same noise at every step as the test fixes its
+    key."""
+    phase(f"7 HMM training: emission means, T={HMM_TEST_T}, B={HMM_TEST_B},"
+          f" K=256, 120 Adam steps")
+    comps, obs = _hmm_data(dev, HMM_TEST_T, HMM_TEST_B, 7, **HMM_TEST)
+    initial, transition, true_emission, proposal = comps
+    truth = true_emission.locs.detach().cpu().numpy()
+    emission = hmm.Emission(truth + np.array([0.8, -0.6, 0.7]),
+                            true_emission.scale).to(dev)
+    optimizer = torch.optim.Adam(emission.parameters(), lr=5e-2)
+    step = train.make_train_step(256, "aesmc", optimizer)
+    components = (initial, transition, emission, proposal)
+    reset_counts()
+    first = float(step(components, obs, NoiseSource.seeded(0, dev)))
+    counts = read_counts("hmm train step")
+    if (counts["resample_systematic"], counts["gather_sorted"]) != (
+            HMM_TEST_T - 1, HMM_TEST_T - 1):
+        raise AssertionError(f"one HMM train step launched {counts}")
+    start = time.perf_counter()
+    for _ in range(119):
+        loss = step(components, obs, NoiseSource.seeded(0, dev))
+    last = float(loss)
+    seconds = time.perf_counter() - start
+    locs = emission.locs.detach().cpu().numpy()
+    err = np.abs(np.sort(locs) - np.sort(truth))
+    print(f"loss {first:.4f} -> {last:.4f} (must fall by more than 0.5); "
+          f"locs {np.round(locs, 4)} vs truth {truth}: error max "
+          f"{err.max():.4f} (bound 0.5), mean {err.mean():.4f} (bound "
+          f"0.25); 119 steps in {seconds:.2f} s", flush=True)
+    if not (last < first - 0.5 and err.max() < 0.5 and err.mean() < 0.25):
+        raise AssertionError(f"HMM emission learning failed: loss {first} "
+                             f"-> {last}, error {err}")
+
+
 def main():
     dev = device_phase()
     build_phase()
@@ -780,10 +1199,18 @@ def main():
               "resample_sorted": k3_phase(dev)}
     times = kernel_times(dev)
     host_costs(dev)
+    times["gather_sorted"] = k5_phase(dev)
+    errors["gather_sorted"] = 0.0
+    times["searchsorted_sorted"] = k4_phase(dev)
+    errors["searchsorted_sorted"] = 0.0
+    # K6's error is the largest index distance from its plain version.
+    errors["searchsorted_cdf"], times["searchsorted_cdf"] = k6_phase(dev)
     filter_phase(dev)
     train_phase(dev)
+    hmm_filter_phase(dev)
+    hmm_train_phase(dev)
     kernels = []
-    for name, (module, _, replaces) in KERNELS.items():
+    for name, (module, _, _, replaces) in KERNELS.items():
         launches = sum(LAUNCHES[name].values())
         if not launches:
             raise AssertionError(f"{name} was never launched on a main path")

@@ -5,7 +5,9 @@ tests run the JAX function first and hand its draws to the port through a
 noise source: the proposal's standard-normal draws are recovered as
 eps = (x - loc) / scale from the JAX run's latents, and the resampling
 noise is redrawn from its key schedule (`split(key, (T, 2))[t, 0]`, as
-`aesmc_tpu.inference.infer` draws it).
+`aesmc_tpu.inference.infer` draws it). A categorical proposal's Gumbel
+noise is redrawn from the proposal's keys (`split(key, (T, 2))[t, 1]`) in
+the shape `jax.random.categorical` draws it.
 """
 
 import dataclasses
@@ -24,10 +26,12 @@ def tensor(x):
 class ReplayNoise:
     """A noise source that hands out given draws, each kind in order."""
 
-    def __init__(self, uniforms=(), normals=(), exponentials=()):
+    def __init__(self, uniforms=(), normals=(), exponentials=(),
+                 gumbels=()):
         self.uniforms = [tensor(u) for u in uniforms]
         self.normals = [tensor(e) for e in normals]
         self.exponentials = [tensor(e) for e in exponentials]
+        self.gumbels = [tensor(g) for g in gumbels]
 
     @staticmethod
     def _pop(queue, shape):
@@ -44,8 +48,12 @@ class ReplayNoise:
     def exponential(self, shape):
         return self._pop(self.exponentials, shape)
 
+    def gumbel(self, shape):
+        return self._pop(self.gumbels, shape)
+
     def exhausted(self):
-        return not (self.uniforms or self.normals or self.exponentials)
+        return not (self.uniforms or self.normals or self.exponentials or
+                    self.gumbels)
 
 
 def fields(component):
@@ -91,14 +99,37 @@ def replayed_noise(proposal, obs, key, latents, ancestors,
     if ancestors is None:
         return ReplayNoise(normals=eps)
     batch, k = x.shape[1:3]
-    step_keys = jax.random.split(key, (len(y), 2))
-    keys = [step_keys[t, 0] for t in range(1, len(y))]
+    return ReplayNoise(normals=eps, **resampling_draws(key, len(y), batch,
+                                                       k, method))
+
+
+def resampling_draws(key, num_timesteps, batch, k, method):
+    """`ReplayNoise` keyword arguments holding the resampling noise that
+    `aesmc_tpu.inference.infer` draws at t = 1 .. T-1 from ``key``."""
+    step_keys = jax.random.split(key, (num_timesteps, 2))
+    keys = [step_keys[t, 0] for t in range(1, num_timesteps)]
     if method == "multinomial":
-        return ReplayNoise(normals=eps, exponentials=[
+        return {"exponentials": [
             np.asarray(jax.random.exponential(kk, (batch, k + 1),
                                               dtype=jnp.float32))
-            for kk in keys])
+            for kk in keys]}
     shape = (batch, 1) if method == "systematic" else (batch, k)
-    return ReplayNoise(normals=eps, uniforms=[
+    return {"uniforms": [
         np.asarray(jax.random.uniform(kk, shape, dtype=jnp.float32))
-        for kk in keys])
+        for kk in keys]}
+
+
+def categorical_gumbels(key, num_timesteps, batch, k, num_states,
+                        first="batch_expanded"):
+    """The Gumbel noise of a categorical proposal in `infer`, one draw a
+    step from ``split(key, (T, 2))[t, 1]``, in the shape in which
+    `jax.random.categorical` draws it: `[K, B, D]` at t = 0 for a
+    BATCH_EXPANDED proposal (``first``; 'not_expanded' draws `[B, K, D]`),
+    and `[B, K, D]` for the FULLY_EXPANDED proposals after."""
+    step_keys = jax.random.split(key, (num_timesteps, 2))
+    shapes = [(k, batch, num_states) if first == "batch_expanded" else
+              (batch, k, num_states)]
+    shapes += [(batch, k, num_states)] * (num_timesteps - 1)
+    return [np.asarray(jax.random.gumbel(step_keys[t, 1], shape,
+                                         dtype=jnp.float32))
+            for t, shape in enumerate(shapes)]
