@@ -10,12 +10,8 @@
 //   idx_j   = min(#{i : cdf_i <= pos_j}, K - 1)
 //   out_j,: = value[b, idx_j, :]
 //
-// With D = 0 it is index-only, and then it also replaces the v1 merge
-// kernel _make_resample_kernel(cdf_input=True) as launched by
-// searchsorted_sorted_cdf_pallas (K4): the per-shard and large-K search of
-// a CDF of length K at Kp loaded positions. K4's VMEM and HBM regimes
-// (chunks, hbm_resident) have no counterpart here, and its range_lower
-// mode is K2's job (range_sum.cu).
+// Its wrapper launches it with D >= 1 only: the index-only search is K4's
+// (searchsorted_sorted.cu).
 //
 // One thread per output slot; grid (ceil(Kp / 256), B). Each thread runs an
 // upper-bound binary search over its row of the CDF in global memory and

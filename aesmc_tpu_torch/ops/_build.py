@@ -55,8 +55,11 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> pathlib.Path:
-    """Where the library built from ``csrc/<source>`` lives."""
+    """Where the library built from ``csrc/<source>`` lives. Its name
+    hashes the source, the headers of `csrc/` and the flags."""
     digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     stem = pathlib.Path(source).stem
     return BUILD_DIR / f"lib{stem}-{digest.hexdigest()[:16]}.so"

@@ -41,14 +41,21 @@ def check_sizes(batch: int, *lengths: int) -> None:
         raise ValueError(f"B must be at most {MAX_BATCH}, got {batch}")
 
 
+# (source, symbol) -> the bound C entry, resolved at its first launch.
+_entries: dict = {}
+
+
 def entry(source: str, symbol: str, argtypes):
     """The C entry ``symbol`` of the library built from ``source``, with
     its argument types set (ctypes would otherwise pass each pointer as a
-    32-bit int)."""
-    fn = getattr(_build.load(source), symbol)
-    if fn.argtypes is None:
+    32-bit int). Bound once per process: later calls are a dict lookup,
+    with none of `_build.load`'s locks."""
+    fn = _entries.get((source, symbol))
+    if fn is None:
+        fn = getattr(_build.load(source), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        _entries[(source, symbol)] = fn
     return fn
 
 
@@ -60,11 +67,12 @@ def pointer(t):
 
 
 def target(t: torch.Tensor):
-    """(card index, PyTorch's current stream on it) for a CUDA tensor."""
-    device = t.device.index
-    if device is None:
-        device = torch.cuda.current_device()
-    return device, torch.cuda.current_stream(device).cuda_stream
+    """(card index, PyTorch's current stream on it) for a CUDA tensor. The
+    raw stream handle is read without building a `torch.cuda.Stream`
+    object (as Triton's launcher reads it), which costs a few µs of host
+    time a launch."""
+    device = t.get_device()
+    return device, torch._C._cuda_getCurrentRawStream(device)
 
 
 def check_error(err: int, name: str) -> None:

@@ -10,10 +10,13 @@ sum of the cotangents of its slots:
 Replaces `aesmc_tpu/ops/resample_pallas.py::_window_kernel_impl` in
 range-sum mode (`range_sum_pallas`, reached through
 `gather_backward_pallas` from the VJPs `_rgs_bwd`, `_rg_bwd` and
-`_rgc_bwd`). The kernel (`csrc/range_sum.cu`) gives each source one
-thread, finds its slot range with two binary searches over the sorted
-positions and sums it in order: no atomics, the same bits on every run.
-Its source note gives the bound on the card.
+`_rgc_bwd`). The kernel (`csrc/range_sum.cu`) is a segmented sum over
+tiles of 1,024 slots: each block finds the source of each of its slots
+through a window of the CDF in shared memory (the search K4 uses), sums
+each segment that starts in its tile in a fixed order, finishing a
+segment that runs past the tile itself, and writes 0 for the sources with
+no slot. One launch, no atomics, no scratch: the same bits on every run.
+Its source note gives the design and the bound on the card.
 
 `range_sum` launches the kernel for CUDA tensors (it never falls back) and
 runs `range_sum_torch`, the plain PyTorch version (searchsorted, clamp,
@@ -76,7 +79,7 @@ def range_sum(cdf, pos, g):
     Args:
         cdf: `[B, K]` float32 normalized CDF, nondecreasing.
         pos: `[B, Kp]` float32 positions the forward searched,
-            nondecreasing along each row (the kernel binary-searches them).
+            nondecreasing along each row (the kernel sums runs of them).
         g: `[B, Kp, D]` float32 cotangents of the gathered values.
 
     Returns:

@@ -1,5 +1,5 @@
 """Search + gather over loaded sorted positions: kernel K3 and its plain
-version, and its index-only launch, the counterpart of kernel K4.
+version.
 
 For each batch row b and slot j < Kp (Kp may differ from K):
 
@@ -13,22 +13,18 @@ multinomial resampling run it. The kernel (`csrc/resample_sorted.cu`) is
 K1's thread-per-slot design with the positions read from global memory;
 its source note gives the bound on the card.
 
-With no value columns (D = 0, `searchsorted_sorted`) the same kernel is
-index-only. That is the function of K4, the v1 merge kernel
-`_make_resample_kernel(cdf_input=True)` that
-`searchsorted_sorted_cdf_pallas` launches: the index-only search of
-stratified and multinomial `sample_ancestral_index`, and of resampling
-whose particles are all gathered apart (integer particles, through K5).
-Index-only launches add one to `INDEX_LAUNCHES`, all others to
-`LAUNCHES`.
+With no value columns (value None or D = 0) there is nothing to gather,
+and `resample_and_gather_sorted` hands the search to K4
+(`ops.searchsorted_sorted_cuda`), so that every index-only launch is K4's;
+K3 runs with D >= 1 only.
 
 The gradient flows to the values only (ancestors and weights are
 detached, as in the JAX package): the backward is the range sum
 (`ops.range_sum_cuda`, K2) over the positions the forward searched.
 
-`resample_and_gather_sorted` and `searchsorted_sorted` launch the kernel
-for CUDA tensors (they never fall back) and run their plain PyTorch
-versions (searchsorted, take_along_dim) for CPU tensors.
+`resample_and_gather_sorted` launches the kernel for CUDA tensors (it
+never falls back) and runs its plain PyTorch version (searchsorted,
+take_along_dim) for CPU tensors. Each launch adds one to `LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -37,30 +33,20 @@ import ctypes
 
 import torch
 
-from . import _launch, range_sum_cuda
+from . import _launch, range_sum_cuda, searchsorted_sorted_cuda
 
 SOURCE = "resample_sorted.cu"
 
-# Kernel launches in this process with value columns (K3) and without
-# (index-only: K4's counterpart).
+# Kernel launches made by `resample_and_gather_sorted` in this process.
 LAUNCHES = 0
-INDEX_LAUNCHES = 0
 
 
 def resample_and_gather_sorted_torch(cdf, pos, value, emit_idx=True):
     """The plain PyTorch version of K3: (idx `[B, Kp]` int32 or None,
     gathered `[B, Kp, D]`)."""
-    idx = searchsorted_sorted_torch(cdf, pos)
+    idx = searchsorted_sorted_cuda.searchsorted_sorted_torch(cdf, pos)
     out = torch.take_along_dim(value, idx.long().unsqueeze(-1), dim=1)
     return (idx if emit_idx else None), out
-
-
-def searchsorted_sorted_torch(cdf, pos):
-    """The plain PyTorch version of the index-only launch: `[B, Kp]` int32,
-    ``torch.searchsorted(cdf, pos, right=True)`` clamped to K - 1."""
-    k = cdf.shape[1]
-    idx = torch.searchsorted(cdf, pos, right=True).clamp_(max=k - 1)
-    return idx.to(torch.int32)
 
 
 def _check(cdf, pos, value):
@@ -75,16 +61,8 @@ def _check(cdf, pos, value):
     _launch.check_sizes(batch, k, pos.shape[1])
 
 
-def _no_columns(cdf):
-    """An empty `[B, K, 0]` value for an index-only launch."""
-    if not isinstance(cdf, torch.Tensor):
-        raise TypeError(f"cdf must be a tensor, got {type(cdf)}")
-    return torch.empty(tuple(cdf.shape) + (0,), dtype=torch.float32,
-                       device=cdf.device)
-
-
 def _launch_kernel(cdf, pos, value, emit_idx):
-    global LAUNCHES, INDEX_LAUNCHES
+    global LAUNCHES
     fn = _launch.entry(SOURCE, "aesmc_resample_sorted",
                        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 +
                        [ctypes.c_int, ctypes.c_void_p])
@@ -99,10 +77,7 @@ def _launch_kernel(cdf, pos, value, emit_idx):
              _launch.pointer(out), _launch.pointer(idx), batch, k, kp, d,
              device, stream)
     _launch.check_error(err, "resample_sorted")
-    if d:
-        LAUNCHES += 1
-    else:
-        INDEX_LAUNCHES += 1
+    LAUNCHES += 1
     return idx, out
 
 
@@ -134,31 +109,19 @@ def resample_and_gather_sorted(cdf, pos, value, emit_idx=True):
     Args:
         cdf: `[B, K]` float32 normalized CDF, nondecreasing, last entry 1.
         pos: `[B, Kp]` float32 sorted positions in [0, 1).
-        value: `[B, K, D]` float32 particles; None or D = 0 makes the
-            launch index-only (as `searchsorted_sorted`).
+        value: `[B, K, D]` float32 particles; with None or D = 0 the
+            search is K4's (`searchsorted_sorted_cuda.searchsorted_sorted`)
+            and nothing is gathered.
         emit_idx: whether to return the ancestor indices.
 
     Returns:
         (idx `[B, Kp]` int32, or None without emit_idx; gathered
         `[B, Kp, D]`).
     """
-    if value is None:
-        value = _no_columns(cdf)
-    _check(cdf, pos, value)
+    if value is not None:
+        _check(cdf, pos, value)
+    if value is None or value.shape[2] == 0:
+        idx = searchsorted_sorted_cuda.searchsorted_sorted(cdf, pos)
+        out = pos.new_empty((pos.shape[0], pos.shape[1], 0))
+        return (idx if emit_idx else None), out
     return _ResampleGatherSorted.apply(cdf, pos, value, bool(emit_idx))
-
-
-def searchsorted_sorted(cdf, pos):
-    """Index-only search of sorted positions in a CDF (K4's function):
-    ``min(#{i : cdf_i <= pos_j}, K - 1)`` as `[B, Kp]` int32, any Kp.
-
-    Args:
-        cdf: `[B, K]` float32 normalized CDF, nondecreasing.
-        pos: `[B, Kp]` float32 positions; sorted positions make the
-            searches of neighbouring threads share their cache lines.
-    """
-    empty = _no_columns(cdf)
-    _check(cdf, pos, empty)
-    if cdf.device.type == "cuda":
-        return _launch_kernel(cdf, pos, empty, True)[0]
-    return searchsorted_sorted_torch(cdf, pos)

@@ -13,13 +13,15 @@ are the sorted multinomial draws.
 
 Two implementations:
 - 'cuda': the hand-written kernels, for CUDA tensors only: the fused
-  systematic resample+gather (`ops.resample_cuda`, K1) and the search +
-  gather over loaded positions (`ops.resample_sorted_cuda`, K3, index-only
-  for K4's job); their backward is the range sum (`ops.range_sum_cuda`,
-  K2). Float32 particles ride K1 or K3; particles of any other dtype (the
-  HMM's int32 states) are gathered apart by the ancestor indices through
-  the sorted gather (`ops.gather_sorted_cuda`, K5), which moves every
-  dtype bit for bit and is forward-only;
+  systematic resample+gather (`ops.resample_cuda`, K1), the search +
+  gather over loaded positions (`ops.resample_sorted_cuda`, K3) and,
+  where only indices are needed, the index-only search of loaded
+  positions (`ops.searchsorted_sorted_cuda`, K4); the backward of K1 and
+  K3 is the range sum (`ops.range_sum_cuda`, K2). Float32 particles ride
+  K1 or K3; particles of any other dtype (the HMM's int32 states) are
+  gathered apart by the ancestor indices through the sorted gather
+  (`ops.gather_sorted_cuda`, K5), which moves every dtype bit for bit and
+  is forward-only;
 - 'torch': plain PyTorch ops, on any device.
 'auto' picks 'cuda' for a CUDA tensor and 'torch' otherwise, at every K.
 
@@ -34,8 +36,8 @@ import math as _stdmath
 import torch
 
 from . import math as amath
-from .ops import (gather_sorted_cuda, resample_cuda,
-                  resample_sorted_cuda)
+from .ops import (gather_sorted_cuda, resample_cuda, resample_sorted_cuda,
+                  searchsorted_sorted_cuda)
 
 METHODS = ("systematic", "stratified", "multinomial")
 IMPLEMENTATIONS = ("auto", "cuda", "torch")
@@ -144,8 +146,8 @@ def sample_ancestral_index(log_weight, noise, method: str = "systematic",
     """Samples `[batch, particle]` int32 ancestor indices (no gradient).
 
     On the 'cuda' route systematic resampling runs K1 with no value
-    columns and its index output on; stratified and multinomial run K3
-    index-only (K4's function) on the positions of `resampling_positions`.
+    columns and its index output on; stratified and multinomial run K4 on
+    the positions of `resampling_positions`.
     The 'torch' route runs `torch.searchsorted`. Both draw the same noise.
     """
     _check_method(method)
@@ -166,11 +168,11 @@ def sample_ancestral_index(log_weight, noise, method: str = "systematic",
             cdf, u, _no_columns(cdf))
         return idx
     pos = resampling_positions(log_weight, noise, method)
-    return resample_sorted_cuda.searchsorted_sorted(cdf, pos)
+    return searchsorted_sorted_cuda.searchsorted_sorted(cdf, pos)
 
 
 def _no_columns(cdf):
-    """`[B, K, 0]`: no value columns for K1 or K3."""
+    """`[B, K, 0]`: no value columns for K1."""
     return cdf.new_empty(tuple(cdf.shape) + (0,))
 
 
@@ -202,7 +204,8 @@ def _resample(log_weight, noise, value, method, implementation,
     Float32 leaves go through K1 (systematic) or K3 as the columns of one
     `[B, K, D]` tensor; every other leaf through K5 with the indices K1 or
     K3 emitted, which they then emit even when ``need_indices`` is False
-    (the returned indices still follow ``need_indices``)."""
+    (the returned indices still follow ``need_indices``). With no float32
+    leaf, stratified and multinomial find the indices with K4."""
     log_weight = log_weight.detach()
     batch_size, k = log_weight.shape
     cdf = _normalized_cumsum(log_weight)
@@ -217,14 +220,14 @@ def _resample(log_weight, noise, value, method, implementation,
             "the 'cuda' route (K1/K3, backward K2); the gather of other "
             "dtypes (K5) is forward-only")
     emit_idx = need_indices or bool(apart)
-    if not fused:
-        flat = _no_columns(cdf)
-    elif len(fused) == 1:
-        flat = fused[0]
-    else:
+    if len(fused) > 1:
         flat = torch.cat(fused, dim=2)
+    else:
+        flat = fused[0] if fused else None
     if method == "systematic":
         # K1 builds the positions itself from one uniform a row.
+        if flat is None:
+            flat = _no_columns(cdf)
         u = noise.uniform((batch_size, 1))
         if cuda:
             idx, gathered = resample_cuda.resample_and_gather_systematic(
@@ -235,7 +238,12 @@ def _resample(log_weight, noise, value, method, implementation,
                     cdf, u, flat, emit_idx=emit_idx)
     else:
         pos = resampling_positions(log_weight, noise, method)
-        if cuda:
+        if flat is None:
+            # Indices only: K4 on the 'cuda' route.
+            search = (searchsorted_sorted_cuda.searchsorted_sorted if cuda
+                      else searchsorted_sorted_cuda.searchsorted_sorted_torch)
+            idx, gathered = search(cdf, pos), None
+        elif cuda:
             idx, gathered = resample_sorted_cuda.resample_and_gather_sorted(
                 cdf, pos, flat.contiguous(), emit_idx=emit_idx)
         else:

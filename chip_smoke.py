@@ -9,7 +9,7 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 1. device: a CUDA card must be present (there is no CPU path); prints
    `nvidia-smi`'s name and power limit of the card;
-2. build: builds the three CUDA kernels of the port's paths from
+2. build: builds the six CUDA kernel sources of the port from
    `aesmc_tpu_torch/csrc/`, one nvcc each, all started together;
 3. kernels against their plain PyTorch versions on the same inputs on the
    card, at the main paths' shapes, at other shapes up to K = 8,388,608
@@ -18,22 +18,29 @@ Phases, in order; any failure raises and the exit code is not 0:
      gathered values), index output on and off;
    - K2, the range sum (the backward of K1 and K3): exactly equal with
      integer cotangents in [-5, 5] (every sum is then exact in float32),
-     within 1e-5 x the largest segment's sum of |g| with float
-     cotangents, and the same bits on two launches;
+     each source within 1e-5 x its segment's sum of |g| with float
+     cotangents, and the same bits on two launches, up to a row of
+     8,388,608 slots on one particle and with the mass on a row's first
+     or last particle;
    - K3, the search + gather over loaded sorted positions: exactly equal
      on stratified, multinomial and Kp != K positions;
    - K5, the gather by sorted indices: bit-equal for int32 (negative and
      above 2^24), int64, int8, bool, float64 and float32, D in {1, 8, 64}
      and at K = 8,388,608, on indices from resampling and all-equal ones;
-   - K4's function, K3 index-only: exactly equal to torch.searchsorted for
-     stratified and multinomial positions up to K = 4,194,304, and at
-     Kc != Kp;
+   - K4, the index-only sorted search: exactly equal to
+     torch.searchsorted for stratified and multinomial positions up to
+     K = 4,194,304, at Kc != Kp, and at (2, 4,194,304, 4,096), whose
+     windows exceed the shared-memory cap (one row on one particle takes
+     the staged path);
    - K6, the fused CDF + search + gather: indices within the JAX package's
      bound of its plain version (< 0.5% differ, by <= 3), exact on a
      degenerate row, its gathered values the values at its own indices;
    each is timed against its plain version (CUDA events; plain, kernel,
    kernel, plain), K4 and K5 also against the one PyTorch call that
-   computes their function, and its device time read from torch.profiler;
+   computes their function and K2 against `scatter_add_` over the
+   forward's ancestors, and its device time read from torch.profiler (the
+   library call's too, over all its kernels); the host cost of K4's
+   wrapper is broken down into its pieces;
 4. filter: the LGSSM SMC filter at the bench's shape (T=200, B=10,
    K=10,000) through `inference.infer`: the log-Z-only call launches K1
    T-1 times; the lineage call agrees exactly with the plain route; with
@@ -51,7 +58,7 @@ Phases, in order; any failure raises and the exit code is not 0:
 6. HMM filter: the discrete HMM (D=8 states, the fully adapted proposal,
    int32 particles) at the bench's shape (T=200, B=10, K=10,000): the
    log-Z-only call launches K1 (indices only) and K5 T-1 times each, a
-   stratified call K3 index-only and K5 T-1 times each; the lineage call
+   stratified call K4 and K5 T-1 times each; the lineage call
    equals the plain route exactly; log-Z against the exact forward
    recursion at the JAX test's settings over 8 noise seeds; times both
    routes and prints a profile of one call;
@@ -76,9 +83,10 @@ import torch
 from aesmc_tpu_torch import inference, losses, resampling, statistics, train
 from aesmc_tpu_torch.models import hmm, kalman, lgssm
 from aesmc_tpu_torch.noise import NoiseSource
-from aesmc_tpu_torch.ops import (_build, gather_sorted_cuda, range_sum_cuda,
-                                 resample_cuda, resample_sorted_cuda,
-                                 searchsorted_cdf_cuda)
+from aesmc_tpu_torch.ops import (_build, _launch, gather_sorted_cuda,
+                                 range_sum_cuda, resample_cuda,
+                                 resample_sorted_cuda, searchsorted_cdf_cuda,
+                                 searchsorted_sorted_cuda)
 
 T, B, K = 200, 10, 10000
 # The reference training shape (bench.py:264).
@@ -89,9 +97,9 @@ TRANSITION_MULT, TRANSITION_SCALE = 0.9, 1.0
 EMISSION_MULT, EMISSION_SCALE = 1.0, 0.2
 # The repo's Kalman-oracle bound on log-Z (tests/test_inference.py).
 LOG_Z_REL_TOL = 0.05
-# K2 with float cotangents: max abs error against the plain version
-# within this fraction of the largest segment's sum of |g| (the two add
-# in different orders; the plain version's scatter_add uses atomics).
+# K2 with float cotangents: each source's error against the plain version
+# within this fraction of its segment's sum of |g| (the two add in
+# different orders; the plain version's scatter_add uses atomics).
 RANGE_SUM_REL_TOL = 1e-5
 # Train step, kernel route against plain route on the same noise: the
 # loss is exactly equal (bit-exact ancestors); each gradient entry within
@@ -122,8 +130,7 @@ HMM_SEEDS, HMM_MEAN_TOL, HMM_MAX_TOL = 8, 0.05, 0.15
 K6_MISMATCH_FRACTION, K6_MISMATCH_DISTANCE = 0.005, 3
 
 # name: (wrapper module, its launch count, the kernel's name in the
-# profiler, the TPU kernel it replaces). K4's function is K3 with no value
-# columns, whose launches the wrapper counts apart.
+# profiler, the TPU kernel it replaces).
 KERNELS = {
     "resample_systematic": (resample_cuda, "LAUNCHES",
                             "resample_systematic_kernel",
@@ -133,8 +140,8 @@ KERNELS = {
     "resample_sorted": (resample_sorted_cuda, "LAUNCHES",
                         "resample_sorted_kernel",
                         "aesmc_tpu/ops/resample_pallas.py:945"),
-    "searchsorted_sorted": (resample_sorted_cuda, "INDEX_LAUNCHES",
-                            "resample_sorted_kernel",
+    "searchsorted_sorted": (searchsorted_sorted_cuda, "LAUNCHES",
+                            "searchsorted_sorted_kernel",
                             "aesmc_tpu/ops/resample_pallas.py:1024"),
     "gather_sorted": (gather_sorted_cuda, "LAUNCHES", "gather_sorted_kernel",
                       "aesmc_tpu/ops/gather_pallas.py:46"),
@@ -200,9 +207,10 @@ def build_phase():
 
 def _case_inputs(batch, k, d, kind, generator, dev):
     logw = torch.randn(batch, k, generator=generator, device=dev) * 3.0
-    if kind == "one_particle":
+    if kind in HOT:
         # All mass on one particle per row.
-        hot = torch.randint(0, k, (batch,), generator=generator, device=dev)
+        hot = (torch.randint(0, k, (batch,), generator=generator, device=dev)
+               if HOT[kind] is None else HOT[kind] % k)
         logw = torch.full((batch, k), float("-inf"), device=dev)
         logw[torch.arange(batch, device=dev), hot] = 0.0
     elif kind == "neg_inf":
@@ -216,10 +224,14 @@ def _case_inputs(batch, k, d, kind, generator, dev):
     return cdf, u, value
 
 
+# The particle that holds all the mass of each row, by kind of case: a
+# random one, the first or the last.
+HOT = {"one_particle": None, "hot_first": 0, "hot_last": -1}
 CASES = [(10, 10000, 1, "normal"), (3, 1000, 3, "normal"),
          (1, 1, 1, "normal"), (2, 1025, 1, "normal"),
          (1, 8388608, 1, "normal"), (3, 1000, 2, "one_particle"),
-         (3, 1000, 2, "neg_inf")]
+         (3, 1000, 2, "neg_inf"), (1, 8388608, 1, "one_particle"),
+         (3, 10000, 2, "hot_first"), (3, 10000, 2, "hot_last")]
 
 
 def k1_phase(dev):
@@ -310,19 +322,24 @@ def k2_phase(dev):
         got = range_sum_cuda.range_sum(cdf, pos, g)
         again = range_sum_cuda.range_sum(cdf, pos, g)
         want = range_sum_cuda.range_sum_torch(cdf, pos, g)
-        bound = RANGE_SUM_REL_TOL * float(
-            range_sum_cuda.range_sum_torch(cdf, pos, g.abs()).max())
-        err = float((got - want).abs().max())
+        # Each source's bound: the fraction of its segment's sum of |g|.
+        bound = RANGE_SUM_REL_TOL * range_sum_cuda.range_sum_torch(
+            cdf, pos, g.abs())
+        diff = (got - want).abs()
+        err = float(diff.max())
         worst = max(worst, err)
-        if err > bound:
+        if not bool((diff <= bound).all()):
             raise AssertionError(
-                f"K2 with float cotangents at {shape} {kind} {method}: max "
-                f"abs error {err} above the bound {bound}")
+                f"K2 with float cotangents at {shape} {kind} {method}: "
+                f"{int((diff > bound).sum())} sources above their bound, max "
+                f"abs error {err}")
+        bound = float(bound.max())
         if not torch.equal(_bits(got), _bits(again)):
             raise AssertionError(f"K2 gave other bits on a second launch "
                                  f"at {shape} {kind} {method}")
         print(f"(B, K, Kp, D) = {shape} {kind:12s} {method:11s}: integer "
-              f"cotangents exact, float max abs error {err:.3g} (bound "
+              f"cotangents exact, float max abs error {err:.3g} (each source "
+              f"within {RANGE_SUM_REL_TOL:g} x its sum of |g|, largest bound "
               f"{bound:.3g}), two launches bit-identical", flush=True)
     return worst
 
@@ -405,6 +422,26 @@ def _device_ms(fn, kernel, calls=50):
     return total_us / count / 1e3 if count else None
 
 
+def _calls_device_ms(fn, calls=50):
+    """Mean device time of one call of ``fn`` over ``calls`` calls, summed
+    over every kernel, copy and fill it runs on the card (torch.profiler);
+    None if the profiler saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0.0))
+                   for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return total_us / calls / 1e3 if total_us else None
+
+
 def _time_pair(kernel_fn, plain_fn, library_fn=None, warmup=20,
                repeat=200):
     """(kernel ms, plain ms, library ms or None, runs): CUDA-event means in
@@ -440,17 +477,21 @@ def _search_steps(n):
     return math.ceil(math.log2(n + 1))
 
 
-def _kernel_row(name, shape, kernel_fn, plain_fn, library_fn, nbytes, ops):
+def _kernel_row(name, shape, kernel_fn, plain_fn, library_fn, nbytes, ops,
+                library_label="library call"):
     """Times ``name`` at ``shape`` against its plain version (and the one
     PyTorch call computing its function, where there is one), reads its
-    device time, and returns its fields of the JSON line."""
+    device time (and the library call's), and returns its fields of the
+    JSON line."""
     ms, plain_ms, library_ms, runs = _time_pair(kernel_fn, plain_fn,
                                                 library_fn)
     device_ms = _device_ms(kernel_fn, KERNELS[name][2])
+    library_device_ms = (None if library_fn is None else
+                         _calls_device_ms(library_fn))
     bound_ms, bound_by = _bound(nbytes, ops)
     library = ("" if library_ms is None else
-               f", library call {library_ms * 1e3:.2f} us/call (runs "
-               f"{runs['library']})")
+               f", {library_label} {library_ms * 1e3:.2f} us/call (runs "
+               f"{runs['library']}), device {_us(library_device_ms)} a call")
     print(f"{name} at {shape}: {ms * 1e3:.2f} us/call through the wrapper "
           f"(runs {runs['kernel']}), device {_us(device_ms)} a launch, plain "
           f"{plain_ms * 1e3:.2f} us/call (runs {runs['plain']}){library}; "
@@ -458,7 +499,7 @@ def _kernel_row(name, shape, kernel_fn, plain_fn, library_fn, nbytes, ops):
           f"operations)", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, device_ms=device_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                shape=list(shape))
+                library_device_ms=library_device_ms, shape=list(shape))
 
 
 def kernel_times(dev):
@@ -479,31 +520,42 @@ def kernel_times(dev):
         sys_pos = resample_cuda.systematic_positions(u, k)
         n, f = B * k, 4
         steps = _search_steps(k)
+        # K2's yardstick: what the plain route's autograd runs, a scatter_add
+        # into zeros over the forward's ancestors. It is handed the
+        # ancestors, which K2 finds itself, and its atomics make it
+        # non-deterministic.
+        ancestors = torch.searchsorted(cdf, sys_pos, right=True).clamp_(
+            max=k - 1).unsqueeze(-1)
         cases = {
             "resample_systematic": (
                 lambda: resample_cuda.resample_and_gather_systematic(
                     cdf, u, value, False),
                 lambda: resample_cuda.resample_and_gather_systematic_torch(
                     cdf, u, value, False),
-                f * (n + B + 2 * n), n * steps),
+                None, f * (n + B + 2 * n), n * steps),
             "range_sum": (
                 lambda: range_sum_cuda.range_sum(cdf, sys_pos, g),
                 lambda: range_sum_cuda.range_sum_torch(cdf, sys_pos, g),
-                f * 4 * n, 2 * n * steps + n),
+                lambda: torch.zeros((B, k, 1), device=dev).scatter_add_(
+                    1, ancestors, g),
+                f * 4 * n, n * steps + n),
             "resample_sorted": (
                 lambda: resample_sorted_cuda.resample_and_gather_sorted(
                     cdf, pos, value, False),
                 lambda: resample_sorted_cuda.resample_and_gather_sorted_torch(
                     cdf, pos, value, False),
-                f * 4 * n, n * steps),
+                None, f * 4 * n, n * steps),
         }
-        for name, (kernel_fn, plain_fn, nbytes, ops) in cases.items():
-            fields = _kernel_row(name, (B, k, k, 1), kernel_fn, plain_fn,
-                                 None, nbytes, ops)
+        for name, (kernel_fn, plain_fn, library_fn, nbytes,
+                   ops) in cases.items():
+            fields = _kernel_row(
+                name, (B, k, k, 1), kernel_fn, plain_fn, library_fn, nbytes,
+                ops, "scatter_add_ over the given ancestors (non-"
+                "deterministic)")
             if k == K:
                 out[name] = fields
         # K2's weak case: a row whose mass sits on one source, which one
-        # thread then sums alone.
+        # block then sums over every later tile alone.
         one_g = torch.randn(B, k, 1, generator=generator, device=dev)
         ms = _cuda_ms(lambda: range_sum_cuda.range_sum(one_cdf, one_pos,
                                                        one_g), 5, 50)
@@ -582,10 +634,14 @@ def _same_bits(a, b):
 
 K5_DTYPES = (torch.int32, torch.int64, torch.int8, torch.bool,
              torch.float64, torch.float32)
-# (B, K, D) of the K5 checks, (B, Kc, Kp) of the K4 checks and (B, K, kind)
-# of the K6 checks.
+# (B, K, D) of the K5 checks and (B, K, kind) of the K6 checks.
 K5_SHAPES = [(B, K, 1), (B, K, 8), (B, K, 64), (4, 8388608, 1)]
-K4_SHAPES = [(B, K, K), (B, 4194304, 4194304), (4, 1048576, 262144)]
+# (B, Kc, Kp, kind) of the K4 checks: at (2, 4,194,304, 4,096) every
+# tile's window exceeds the shared-memory cap, except on the row whose
+# mass sits on one particle (an empty window, staged).
+K4_CASES = [(B, K, K, "normal"), (B, 4194304, 4194304, "normal"),
+            (4, 1048576, 262144, "normal"),
+            (2, 4194304, 4096, "one_particle_row")]
 K6_CASES = [(B, K, "normal"), (B, 1000, "normal"), (B, K, "one_particle")]
 
 
@@ -644,40 +700,83 @@ def k5_phase(dev):
         4 * 3 * n, 0)
 
 
+def _k4_case(batch, kc, kind, generator, dev):
+    """A `[batch, kc]` CDF from N(0, 3^2) log-weights; with kind
+    'one_particle_row' the last row holds all its mass on one particle."""
+    logw = torch.randn(batch, kc, generator=generator, device=dev) * 3.0
+    if kind == "one_particle_row":
+        logw[-1] = float("-inf")
+        logw[-1, kc // 3] = 0.0
+    return resampling._normalized_cumsum(logw)
+
+
 def k4_phase(dev):
-    """K3 index-only (K4's function) against torch.searchsorted, exactly;
-    returns its JSON fields at (10, 10,000), stratified positions."""
-    phase("3g K4 = K3 index-only against torch.searchsorted")
+    """K4 against torch.searchsorted, exactly, and the host cost of its
+    wrapper; returns its JSON fields at (10, 10,000), stratified
+    positions."""
+    phase("3g K4 searchsorted_sorted against torch.searchsorted")
     generator = torch.Generator(device=dev).manual_seed(8)
-    for batch, kc, kp in K4_SHAPES:
-        logw = torch.randn(batch, kc, generator=generator, device=dev) * 3.0
-        cdf = resampling._normalized_cumsum(logw)
+    for batch, kc, kp, kind in K4_CASES:
+        cdf = _k4_case(batch, kc, kind, generator, dev)
         for method in ("stratified", "multinomial"):
             pos = resampling.resampling_positions(
                 cdf.new_zeros(batch, kp), NoiseSource(generator), method)
-            got = resample_sorted_cuda.searchsorted_sorted(cdf, pos)
-            want = resample_sorted_cuda.searchsorted_sorted_torch(cdf, pos)
+            got = searchsorted_sorted_cuda.searchsorted_sorted(cdf, pos)
+            want = searchsorted_sorted_cuda.searchsorted_sorted_torch(cdf,
+                                                                      pos)
             library = torch.searchsorted(cdf, pos, right=True)
             torch.cuda.synchronize()
             if not (torch.equal(got, want) and
                     torch.equal(got.long(), library.clamp(max=kc - 1))):
                 raise AssertionError(
-                    f"K3 index-only differs from torch.searchsorted at "
-                    f"{(batch, kc, kp)} {method}: "
+                    f"K4 differs from torch.searchsorted at "
+                    f"{(batch, kc, kp)} {kind} {method}: "
                     f"{int((got != want).sum())} indices")
-            print(f"(B, Kc, Kp) = {(batch, kc, kp)} {method:11s}: equal to "
-                  f"torch.searchsorted (tolerance 0)", flush=True)
+            print(f"(B, Kc, Kp) = {(batch, kc, kp)} {kind:16s} {method:11s}: "
+                  f"equal to torch.searchsorted (tolerance 0)", flush=True)
     logw = torch.randn(B, K, generator=generator, device=dev) * 3.0
     cdf = resampling._normalized_cumsum(logw)
     pos = resampling.resampling_positions(logw, NoiseSource(generator),
                                           "stratified")
     n = B * K
-    return _kernel_row(
+    fields = _kernel_row(
         "searchsorted_sorted", (B, K, K, 0),
-        lambda: resample_sorted_cuda.searchsorted_sorted(cdf, pos),
-        lambda: resample_sorted_cuda.searchsorted_sorted_torch(cdf, pos),
+        lambda: searchsorted_sorted_cuda.searchsorted_sorted(cdf, pos),
+        lambda: searchsorted_sorted_cuda.searchsorted_sorted_torch(cdf, pos),
         lambda: torch.searchsorted(cdf, pos, right=True),
         4 * 3 * n, n * _search_steps(K))
+
+    # The host cost of the wrapper against the library call, and of each
+    # piece of the wrapper.
+    module = searchsorted_sorted_cuda
+    fn = _launch.entry(module.SOURCE, module._SYMBOL, module._ARGTYPES)
+    idx = torch.empty((B, K), dtype=torch.int32, device=dev)
+    card, stream = _launch.target(cdf)
+    pieces = {
+        "K4 wrapper (searchsorted_sorted)": lambda: module.searchsorted_sorted(
+            cdf, pos),
+        "torch.searchsorted": lambda: torch.searchsorted(cdf, pos,
+                                                         right=True),
+        "  its checks (_check)": lambda: module._check(cdf, pos),
+        "  the bound C entry (_launch.entry, a dict lookup)": lambda: (
+            _launch.entry(module.SOURCE, module._SYMBOL, module._ARGTYPES)),
+        "  the output (torch.empty_like)": lambda: torch.empty_like(
+            pos, dtype=torch.int32),
+        "  the output (torch.empty, the earlier wrapper's)": lambda: (
+            torch.empty((B, K), dtype=torch.int32, device=dev)),
+        "  card and raw stream (_launch.target)": lambda: _launch.target(
+            cdf),
+        "  card and stream object (the earlier wrapper's)": lambda: (
+            cdf.device.index,
+            torch.cuda.current_stream(cdf.device.index).cuda_stream),
+        "  the ctypes call and launch": lambda: fn(
+            cdf.data_ptr(), pos.data_ptr(), idx.data_ptr(), B, K, K, card,
+            stream),
+    }
+    for label, piece in pieces.items():
+        print(f"host cost, {label}: {_host_us(piece):.2f} us/call",
+              flush=True)
+    return fields
 
 
 def k6_phase(dev):

@@ -23,14 +23,20 @@ def _t(x):
     return torch.tensor(np.asarray(x))
 
 
+# The particle that holds all the mass of a row, by kind of problem.
+HOT = {"one_particle": None, "first_particle": 0, "last_particle": -1}
+
+
 def _problem(seed, batch, k, scale, kind=None):
     """Log-weights with zero-weight runs (empty segments), or with all
-    mass on one particle a row."""
+    mass on one particle a row (a random one, the first or the last)."""
     rng = np.random.default_rng(seed)
     logw = (rng.normal(size=(batch, k)) * scale).astype(np.float32)
-    if kind == "one_particle":
+    if kind in HOT:
+        hot = HOT[kind]
         logw = np.full((batch, k), -np.inf, np.float32)
-        logw[np.arange(batch), rng.integers(0, k, size=batch)] = 0.0
+        logw[np.arange(batch),
+             rng.integers(0, k, size=batch) if hot is None else hot] = 0.0
     elif k > 2:
         logw[:, :: (seed % 5) + 3] = -np.inf
     return logw
@@ -58,6 +64,11 @@ CASES = [
     (5, 2, 1, 1, 1, 1.0, "systematic", None),          # K = 1
     (6, 2, 2048, 512, 1, 2.0, "systematic", None),     # Kp < K
     (7, 2, 512, 2048, 2, 2.0, "stratified", None),     # Kp > K
+    # One segment over every slot tile of the kernel (1,024 slots each),
+    # with the empty sources after it, or before it.
+    (8, 2, 4096, 4096, 1, 1.0, "systematic", "first_particle"),
+    (9, 2, 4096, 4096, 2, 1.0, "stratified", "last_particle"),
+    (10, 1, 1000, 3 * 1024 + 17, 3, 2.0, "multinomial", None),  # ragged tile
 ]
 
 
@@ -76,7 +87,7 @@ def test_plain_range_sum_matches_pallas_exactly(seed, batch, k, kp, d, scale,
     np.testing.assert_array_equal(got.numpy(), want)
     # Every cotangent lands on exactly one source.
     np.testing.assert_array_equal(got.numpy().sum(axis=1), g.sum(axis=1))
-    if kind == "one_particle":
+    if kind in HOT:
         hot = np.argmax(logw, axis=1)
         np.testing.assert_array_equal(
             got.numpy()[np.arange(batch), hot], g.sum(axis=1))

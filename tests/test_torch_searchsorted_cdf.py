@@ -1,6 +1,6 @@
-"""The port's fused CDF + search (K6), its index-only sorted search (K4's
-function, K3 with no value columns) and `sample_ancestral_index` against
-the JAX package's Pallas kernels, run through the interpreter.
+"""The port's fused CDF + search (K6), its index-only sorted search (K4)
+and `sample_ancestral_index` against the JAX package's Pallas kernels, run
+through the interpreter.
 
 K6 builds its CDF in another summation order than either package's
 `_normalized_cumsum`, so its indices agree within the JAX package's own
@@ -18,7 +18,8 @@ import torch
 from aesmc_tpu import resampling as jax_resampling
 from aesmc_tpu.ops import resample_pallas
 from aesmc_tpu_torch import resampling
-from aesmc_tpu_torch.ops import resample_sorted_cuda, searchsorted_cdf_cuda
+from aesmc_tpu_torch.ops import (resample_sorted_cuda, searchsorted_cdf_cuda,
+                                 searchsorted_sorted_cuda)
 from torch_replay import ReplayNoise, tensor as _t
 
 # The JAX package's bound on index differences from a CDF summed in
@@ -130,20 +131,21 @@ def test_sample_ancestral_index_matches_pallas(batch, k, method,
 
 @pytest.mark.parametrize("kc,kp", [(1000, 257), (300, 1200), (1, 5)])
 def test_index_only_search_matches_pallas(kc, kp):
-    """K4's function at Kc != Kp: `searchsorted_sorted` and K3 with value
-    None or D = 0, against `searchsorted_sorted_cdf_pallas`."""
+    """K4 at Kc != Kp: `searchsorted_sorted` and K3 with value None or
+    D = 0 (which hand the search to K4), against
+    `searchsorted_sorted_cdf_pallas`."""
     batch = 2
     cdf = np.asarray(jax_resampling._normalized_cumsum(
         jnp.asarray(_log_weights(kc, batch, kc))))
     pos = _positions(batch, kp, "stratified", kc + kp)
     want = np.asarray(resample_pallas.searchsorted_sorted_cdf_pallas(
         jnp.asarray(cdf), jnp.asarray(pos), interpret=True))
-    before = resample_sorted_cuda.INDEX_LAUNCHES
-    got = resample_sorted_cuda.searchsorted_sorted(_t(cdf), _t(pos))
+    before = searchsorted_sorted_cuda.LAUNCHES
+    got = searchsorted_sorted_cuda.searchsorted_sorted(_t(cdf), _t(pos))
     assert got.dtype == torch.int32 and got.shape == (batch, kp)
     np.testing.assert_array_equal(got.numpy(), want)
     for value in (None, torch.zeros(batch, kc, 0)):
         idx, out = resample_sorted_cuda.resample_and_gather_sorted(
             _t(cdf), _t(pos), value)
         assert torch.equal(idx, got) and out.shape == (batch, kp, 0)
-    assert resample_sorted_cuda.INDEX_LAUNCHES == before
+    assert searchsorted_sorted_cuda.LAUNCHES == before
