@@ -11,60 +11,98 @@
 //   out_j,: = value[b, idx_j, :]
 //
 // Its wrapper launches it with D >= 1 only: the index-only search is K4's
-// (searchsorted_sorted.cu).
+// (searchsorted_sorted.cu), and this kernel is K4 with a tile gather at
+// the end (tile_gather.cuh):
 //
-// One thread per output slot; grid (ceil(Kp / 256), B). Each thread runs an
-// upper-bound binary search over its row of the CDF in global memory and
-// copies one D-row. The comparison is exact, so the indices equal
-// torch.searchsorted(right=True) bit for bit.
+// - grid (ceil(Kp / kTile), B), kTile = 512 positions a block, 2 a thread
+//   (thread t holds positions t and t + 256 of the tile, so loads and
+//   index stores are coalesced);
+// - the block loads the tile's first and last positions and narrows the
+//   CDF window between them with 256 loads a round until it fits
+//   kWindowCap = 8,192 floats (no round at K <= 8,192, one at K = 10,000),
+//   stages it in shared memory with cp.async, and every thread searches
+//   its 2 positions there, interleaved; a window over the cap (K >> Kp, or
+//   a tile under which the CDF is flat) is searched in global memory,
+//   within the window;
+// - the block writes its output tile out[b, j0:j1, :], one contiguous run
+//   of (j1 - j0) * D floats, with consecutive threads on consecutive
+//   floats for every D.
 //
-// Bound on an H100: at (B, K = Kp, D) = (10, 10,000, 1) the kernel moves
-// about 1.6 MB (CDF, positions, values, output), under a microsecond of
-// HBM bandwidth; as for K1, latency bounds it: the launch and the ~14
-// dependent L2 loads of each search.
+// Why 512: as for K1 (resample_systematic.cu), at (B, K = Kp) = (10,
+// 10,000) it makes 200 blocks, all resident at once, with windows of
+// about 500 entries; measured on an H100 it was faster there than 256
+// and 1,024.
 //
-// Offsets are 64-bit so that K and Kp up to 2^24 (and B * Kp * D beyond
-// 2^31) index correctly.
+// Bound on an H100: at (B, K = Kp, D) = (10, 10,000, 1) the kernel reads
+// the CDF, the positions and the values and writes the output, 1.6 MB:
+// 0.48 us at 3.35 TB/s. It is latency-bound: the launch, the load of the
+// tile's ends, one narrowing round, the staging round trip, about 9
+// shared-memory search steps and one dependent gather load.
+//
+// Exact: the comparisons are those of torch.searchsorted(right=True) (the
+// build never uses fast math), so the indices equal it, clamped, bit for
+// bit, and the values are copied. Positions that are not sorted stay
+// exact too: one outside its tile's [first, last] range is searched over
+// the whole row.
+//
+// Offsets across rows are 64-bit, so that B * K * D and B * Kp * D may
+// pass 2^31; indices within a row are 32-bit (K, Kp <= 2^24).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sorted_search.cuh"
+#include "tile_gather.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = aesmc::kBlockThreads;
+constexpr int kPerThread = 2;
+constexpr int kTile = kThreads * kPerThread;
 
-__global__ void resample_sorted_kernel(const float* __restrict__ cdf,
-                                       const float* __restrict__ pos,
-                                       const float* __restrict__ value,
-                                       float* __restrict__ out,
-                                       int32_t* __restrict__ idx, long long k,
-                                       long long kp, long long d) {
-  const long long j =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= kp) return;
+__global__ void __launch_bounds__(kThreads)
+    resample_sorted_kernel(const float* __restrict__ cdf,
+                           const float* __restrict__ pos,
+                           const float* __restrict__ value,
+                           float* __restrict__ out,
+                           int32_t* __restrict__ idx, int n, int kp,
+                           long long d) {
+  if (d == 0 && idx == nullptr) return;
+  __shared__ __align__(16) float window[aesmc::kWindowCap + 4];
+  __shared__ int tile[kTile];
   const long long b = blockIdx.y;
-  const float p = pos[b * kp + j];
+  const int j0 = static_cast<int>(blockIdx.x) * kTile;
+  const int j1 = min(j0 + kTile, kp);
+  const float* row = cdf + b * n;
+  const float* prow = pos + b * kp;
+  const float first = prow[j0];
+  const float last = prow[j1 - 1];
 
-  // Upper bound: the first i with cdf[i] > p, i.e. #{i : cdf[i] <= p}.
-  const float* row = cdf + b * k;
-  long long lo = 0;
-  long long hi = k;
-  while (lo < hi) {
-    const long long mid = lo + ((hi - lo) >> 1);
-    if (row[mid] <= p) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
+  // Slots past the row's end search the tile's first position, inside the
+  // window, and write nothing.
+  float p[kPerThread];
+#pragma unroll
+  for (int r = 0; r < kPerThread; ++r) {
+    const int j = j0 + r * kThreads + static_cast<int>(threadIdx.x);
+    p[r] = j < j1 ? prow[j] : first;
+  }
+  const aesmc::Window w = aesmc::block_window(
+      row, n, fminf(first, last), fmaxf(first, last), window);
+  int src[kPerThread];
+  aesmc::window_upper_bounds(w, row, n, p, src);
+
+#pragma unroll
+  for (int r = 0; r < kPerThread; ++r) src[r] = min(src[r], n - 1);
+  if (idx != nullptr) {
+    int32_t* to = idx + b * kp;
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) {
+      const int j = j0 + r * kThreads + static_cast<int>(threadIdx.x);
+      if (j < j1) to[j] = src[r];
     }
   }
-  const long long src = lo < k - 1 ? lo : k - 1;
-
-  if (idx != nullptr) idx[b * kp + j] = static_cast<int32_t>(src);
-  if (d > 0) {
-    const float* from = value + (b * k + src) * d;
-    float* to = out + (b * kp + j) * d;
-    for (long long c = 0; c < d; ++c) to[c] = from[c];
-  }
+  aesmc::gather_tile(value + b * n * d, out + (b * kp + j0) * d, d,
+                     j1 - j0, src, tile);
 }
 
 }  // namespace
@@ -78,13 +116,16 @@ extern "C" int aesmc_resample_sorted(const float* cdf, const float* pos,
                                      int32_t* idx, long long batch,
                                      long long k, long long kp, long long d,
                                      int device, void* stream) {
-  if (batch == 0 || kp == 0) return static_cast<int>(cudaSuccess);
+  if (batch == 0 || k == 0 || kp == 0) {
+    return static_cast<int>(cudaSuccess);
+  }
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid(static_cast<unsigned int>((kp + kThreads - 1) / kThreads),
+  const dim3 grid(static_cast<unsigned int>((kp + kTile - 1) / kTile),
                   static_cast<unsigned int>(batch));
   resample_sorted_kernel<<<grid, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      cdf, pos, value, out, idx, k, kp, d);
+      cdf, pos, value, out, idx, static_cast<int>(k), static_cast<int>(kp),
+      d);
   return static_cast<int>(cudaGetLastError());
 }

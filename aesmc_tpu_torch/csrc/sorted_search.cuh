@@ -1,5 +1,6 @@
 // The search of sorted positions in a CDF shared by K4
-// (searchsorted_sorted.cu) and K2 (range_sum.cu), for sm_90a.
+// (searchsorted_sorted.cu), K2 (range_sum.cu), K1 (resample_systematic.cu)
+// and K3 (resample_sorted.cu), for sm_90a.
 //
 // A block owns a tile of consecutive positions of one batch row. For every
 // position p of the tile with x_lo <= p <= x_hi, its upper bound

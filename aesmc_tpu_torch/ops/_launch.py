@@ -14,6 +14,9 @@ from . import _build
 MAX_PARTICLES = 1 << 24
 # The grid's second dimension runs over batch rows.
 MAX_BATCH = 65535
+# Largest D of K1's and K3's values: a block's output tile (512 slots of D
+# floats) is indexed in 32 bits.
+MAX_COLUMNS = 1 << 22
 
 
 def check_float32(device: torch.device, **tensors) -> None:
@@ -39,6 +42,11 @@ def check_sizes(batch: int, *lengths: int) -> None:
                 f"particle counts must be in [1, {MAX_PARTICLES}], got {n}")
     if batch > MAX_BATCH:
         raise ValueError(f"B must be at most {MAX_BATCH}, got {batch}")
+
+
+def check_columns(d: int) -> None:
+    if d > MAX_COLUMNS:
+        raise ValueError(f"D must be at most {MAX_COLUMNS}, got {d}")
 
 
 # (source, symbol) -> the bound C entry, resolved at its first launch.

@@ -14,16 +14,14 @@ regimes and 12-column cap worked around the TPU's vector layout and VMEM
 size; none of them is carried over.
 
 Bound on an H100: at the main path's shape (B = 10, K = 10,000, D = 1) the
-kernel moves about 1.2 MB (CDF, value and output, 400 KB each), which is
-well under a microsecond of HBM bandwidth, and each row's 40 KB CDF stays
-in L2. What bounds it is latency: the launch itself, and the ~14 dependent
-L2 loads of each thread's binary search. The design answers that with the
-simplest shape that fills the card in one wave: one thread per output slot
-(100,000 threads), a grid over (slot tiles of 256, B), an upper-bound
-search straight over the row in global memory and a copy of one D-row.
-Measured on an NVIDIA H100 80GB HBM3 at 700 W: 4.8 us of device time a
-launch at that shape. Shared-memory CDF windows, merge-path search and
-CUDA graphs over the time loop are later work.
+kernel moves about 1.2 MB (CDF, value and output, 400 KB each), 0.36 us of
+HBM bandwidth; what bounds it is latency. The kernel
+(`csrc/resample_systematic.cu`) gives each block a tile of 512 slots.
+Their positions are sorted by construction, so the block stages the CDF
+window under the tile in shared memory and searches all of its positions
+there (`csrc/sorted_search.cuh`, K4's search), then writes its output
+tile as one contiguous run, coalesced for any D (`csrc/tile_gather.cuh`).
+Its source note gives the chain of steps that bounds it.
 
 The gradient flows to the values only (ancestors and weights are
 detached, as in the JAX package): the backward rebuilds the positions
@@ -91,6 +89,7 @@ def _check(cdf, u, value):
     if tuple(u.shape) not in ((batch,), (batch, 1)):
         raise ValueError(f"u must be [B] or [B, 1], got {tuple(u.shape)}")
     _launch.check_sizes(batch, k)
+    _launch.check_columns(value.shape[2])
 
 
 def _launch_kernel(cdf, u, value, emit_idx):

@@ -10,8 +10,10 @@ Replaces `aesmc_tpu/ops/resample_pallas.py::_window_kernel_impl` in
 sorted-positions mode (`sorted_search_gather_pallas`, reached through
 `resample_and_gather` and `resample_and_gather_cdf`). Stratified and
 multinomial resampling run it. The kernel (`csrc/resample_sorted.cu`) is
-K1's thread-per-slot design with the positions read from global memory;
-its source note gives the bound on the card.
+K4's search (a shared-memory CDF window per tile of 512 sorted
+positions, `csrc/sorted_search.cuh`) followed by a tile gather coalesced
+for any D (`csrc/tile_gather.cuh`); its source note gives the bound on
+the card.
 
 With no value columns (value None or D = 0) there is nothing to gather,
 and `resample_and_gather_sorted` hands the search to K4
@@ -59,6 +61,7 @@ def _check(cdf, pos, value):
         raise ValueError(f"value must be [B, K, D] = [{batch}, {k}, D], "
                          f"got {tuple(value.shape)}")
     _launch.check_sizes(batch, k, pos.shape[1])
+    _launch.check_columns(value.shape[2])
 
 
 def _launch_kernel(cdf, pos, value, emit_idx):

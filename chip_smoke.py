@@ -15,7 +15,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    card, at the main paths' shapes, at other shapes up to K = 8,388,608
    and at degenerate weights:
    - K1, the fused systematic resample+gather: exactly equal (indices and
-     gathered values), index output on and off;
+     gathered values), index output on and off, at the edges of its tiles
+     (K = 1,024, 1,025, 2,049) and of its shared-memory window (K = 8,192,
+     8,193), and at D = 1, 13 and 300;
    - K2, the range sum (the backward of K1 and K3): exactly equal with
      integer cotangents in [-5, 5] (every sum is then exact in float32),
      each source within 1e-5 x its segment's sum of |g| with float
@@ -23,7 +25,9 @@ Phases, in order; any failure raises and the exit code is not 0:
      8,388,608 slots on one particle and with the mass on a row's first
      or last particle;
    - K3, the search + gather over loaded sorted positions: exactly equal
-     on stratified, multinomial and Kp != K positions;
+     on K1's cases with systematic, stratified and multinomial positions,
+     on Kp != K, and at (2, 4,194,304, 4,096), whose windows exceed the
+     shared-memory cap;
    - K5, the gather by sorted indices: bit-equal for int32 (negative and
      above 2^24), int64, int8, bool, float64 and float32, D in {1, 8, 64}
      and at K = 8,388,608, on indices from resampling and all-equal ones;
@@ -36,11 +40,12 @@ Phases, in order; any failure raises and the exit code is not 0:
      bound of its plain version (< 0.5% differ, by <= 3), exact on a
      degenerate row, its gathered values the values at its own indices;
    each is timed against its plain version (CUDA events; plain, kernel,
-   kernel, plain), K4 and K5 also against the one PyTorch call that
-   computes their function and K2 against `scatter_add_` over the
-   forward's ancestors, and its device time read from torch.profiler (the
-   library call's too, over all its kernels); the host cost of K4's
-   wrapper is broken down into its pieces;
+   kernel, plain), K1 also with indices only, K1-K3 also with all mass on
+   one particle and on runs of -inf weight, K4 and K5 also against the
+   one PyTorch call that computes their function and K2 against
+   `scatter_add_` over the forward's ancestors, and its device time read
+   from torch.profiler (the library call's too, over all its kernels);
+   the host cost of K4's wrapper is broken down into its pieces;
 4. filter: the LGSSM SMC filter at the bench's shape (T=200, B=10,
    K=10,000) through `inference.infer`: the log-Z-only call launches K1
    T-1 times; the lineage call agrees exactly with the plain route; with
@@ -227,11 +232,20 @@ def _case_inputs(batch, k, d, kind, generator, dev):
 # The particle that holds all the mass of each row, by kind of case: a
 # random one, the first or the last.
 HOT = {"one_particle": None, "hot_first": 0, "hot_last": -1}
+# (B, K, D, kind). K1's and K3's edges: tiles of 512 slots (K = 1,024,
+# 1,025 and 2,049), the 8,192-entry shared-memory window (K = 8,192 takes
+# no narrowing round, 8,193 one), and the two ways the tile gather runs:
+# D = 1 from registers, D > 1 through shared memory (D = 13 is above the
+# TPU kernel's 12-column cap; D = 300 is more columns than a block has
+# threads).
 CASES = [(10, 10000, 1, "normal"), (3, 1000, 3, "normal"),
          (1, 1, 1, "normal"), (2, 1025, 1, "normal"),
          (1, 8388608, 1, "normal"), (3, 1000, 2, "one_particle"),
          (3, 1000, 2, "neg_inf"), (1, 8388608, 1, "one_particle"),
-         (3, 10000, 2, "hot_first"), (3, 10000, 2, "hot_last")]
+         (3, 10000, 2, "hot_first"), (3, 10000, 2, "hot_last"),
+         (2, 1024, 1, "normal"), (2, 2049, 13, "normal"),
+         (2, 8192, 1, "normal"), (2, 8193, 3, "normal"),
+         (3, 10000, 13, "normal"), (2, 1025, 300, "normal")]
 
 
 def k1_phase(dev):
@@ -273,7 +287,10 @@ def k1_phase(dev):
 
 def _sorted_cases(generator, dev):
     """(label, cdf, pos, value) for K2 and K3: K1's cases with systematic,
-    stratified and multinomial positions, and two cases with Kp != K."""
+    stratified and multinomial positions, and three cases with Kp != K,
+    the last with windows over the shared-memory cap (K3's and K2's tiles
+    of 512 and 1,024 positions span about 500,000 and 1,000,000 CDF
+    entries)."""
     for batch, k, d, kind in CASES:
         cdf, u, value = _case_inputs(batch, k, d, kind, generator, dev)
         yield ((batch, k, k, d), kind, "systematic", cdf,
@@ -282,7 +299,8 @@ def _sorted_cases(generator, dev):
         for method in ("stratified", "multinomial"):
             pos = resampling.resampling_positions(cdf, noise, method)
             yield (batch, k, k, d), kind, method, cdf, pos, value
-    for batch, k, kp, d in ((2, 2048, 512, 1), (2, 512, 2048, 2)):
+    for batch, k, kp, d in ((2, 2048, 512, 1), (2, 512, 2048, 2),
+                            (2, 4194304, 4096, 1)):
         cdf, u, value = _case_inputs(batch, k, d, "normal", generator, dev)
         yield ((batch, k, kp, d), "normal", "systematic", cdf,
                resample_cuda.systematic_positions(u, kp), value)
@@ -504,7 +522,8 @@ def _kernel_row(name, shape, kernel_fn, plain_fn, library_fn, nbytes, ops,
 
 def kernel_times(dev):
     """Times K1, K2 and K3 at the filter's shape (B=10, K=10,000, D=1) and
-    the training shape (K=100), each against its plain version; returns
+    the training shape (K=100), each against its plain version, K1 also
+    with indices only (D=0), and all three on degenerate weights; returns
     the JSON fields of each kernel at (10, 10,000, 1)."""
     phase("3d kernel times against their plain versions")
     out = {}
@@ -514,9 +533,6 @@ def kernel_times(dev):
         pos = resampling.resampling_positions(cdf, NoiseSource(generator),
                                               "stratified")
         g = torch.randn(B, k, 1, generator=generator, device=dev)
-        one_cdf, one_u, _ = _case_inputs(B, k, 1, "one_particle", generator,
-                                         dev)
-        one_pos = resample_cuda.systematic_positions(one_u, k)
         sys_pos = resample_cuda.systematic_positions(u, k)
         n, f = B * k, 4
         steps = _search_steps(k)
@@ -554,17 +570,42 @@ def kernel_times(dev):
                 "deterministic)")
             if k == K:
                 out[name] = fields
-        # K2's weak case: a row whose mass sits on one source, which one
-        # block then sums over every later tile alone.
-        one_g = torch.randn(B, k, 1, generator=generator, device=dev)
-        ms = _cuda_ms(lambda: range_sum_cuda.range_sum(one_cdf, one_pos,
-                                                       one_g), 5, 50)
-        device_ms = _device_ms(
-            lambda: range_sum_cuda.range_sum(one_cdf, one_pos, one_g),
-            KERNELS["range_sum"][2], calls=10)
-        print(f"range_sum at ({B}, {k}, 1), all mass on one particle a row:"
-              f" {ms * 1e3:.2f} us/call, device {_us(device_ms)} a launch",
-              flush=True)
+        # K1 with no value columns and its index output on: the HMM
+        # filter's launch.
+        no_columns = value.new_empty((B, k, 0))
+        _kernel_row(
+            "resample_systematic", (B, k, k, 0),
+            lambda: resample_cuda.resample_and_gather_systematic(
+                cdf, u, no_columns, True),
+            lambda: resample_cuda.resample_and_gather_systematic_torch(
+                cdf, u, no_columns, True),
+            None, f * (n + B + n), n * steps)
+        # Degenerate weights. All mass on one particle a row: K2's weak
+        # case (one block sums over every later tile alone), and K1's and
+        # K3's windows collapse to a few entries. Runs of -inf weight: flat
+        # stretches of the CDF under a tile.
+        for kind, label in (("one_particle", "all mass on one particle a "
+                                             "row"),
+                            ("neg_inf", "runs of -inf weight")):
+            kind_cdf, kind_u, _ = _case_inputs(B, k, 1, kind, generator, dev)
+            kind_pos = resample_cuda.systematic_positions(kind_u, k)
+            kind_g = torch.randn(B, k, 1, generator=generator, device=dev)
+            fns = {
+                "resample_systematic": lambda: (
+                    resample_cuda.resample_and_gather_systematic(
+                        kind_cdf, kind_u, value, False)),
+                "range_sum": lambda: range_sum_cuda.range_sum(
+                    kind_cdf, kind_pos, kind_g),
+                "resample_sorted": lambda: (
+                    resample_sorted_cuda.resample_and_gather_sorted(
+                        kind_cdf, pos, value, False)),
+            }
+            for name, fn in fns.items():
+                ms = _cuda_ms(fn, 5, 50)
+                device_ms = _device_ms(fn, KERNELS[name][2], calls=10)
+                print(f"{name} at ({B}, {k}, 1), {label}: {ms * 1e3:.2f} "
+                      f"us/call, device {_us(device_ms)} a launch",
+                      flush=True)
     return out
 
 

@@ -14,7 +14,7 @@ import torch
 from aesmc_tpu import resampling as jax_resampling
 from aesmc_tpu.ops import resample_pallas
 from aesmc_tpu_torch import resampling
-from aesmc_tpu_torch.ops import resample_cuda
+from aesmc_tpu_torch.ops import _build, _launch, resample_cuda
 
 
 def _t(x):
@@ -60,7 +60,9 @@ def _jax_kernel(cdf, u, value, emit_idx):
     return (None if idx is None else np.asarray(idx)), out
 
 
-CASES = [(2, k, d) for k in (1, 7, 1000, 1025) for d in (1, 3)]
+# K = 1,024, 1,025 and 2,049 sit at the edges of the kernel's tiles of 512
+# slots (two whole tiles, one slot past two, one slot past four).
+CASES = [(2, k, d) for k in (1, 7, 1000, 1024, 1025, 2049) for d in (1, 3)]
 
 
 @pytest.mark.parametrize("emit_idx", [True, False])
@@ -179,7 +181,7 @@ def test_nan_log_weight_raises_at_public_entry():
         resampling.sample_ancestral_index(logw, src)
 
 
-def test_wrapper_checks_inputs_and_counts_no_cpu_launch():
+def test_wrapper_checks_inputs_and_counts_no_cpu_launch(monkeypatch):
     cdf = torch.linspace(0.1, 1.0, 10).repeat(2, 1)
     u = torch.full((2, 1), 0.3)
     value = torch.randn(2, 10, 1)
@@ -198,6 +200,12 @@ def test_wrapper_checks_inputs_and_counts_no_cpu_launch():
     for c, uu, v, err in bad:
         with pytest.raises(err):
             resample_cuda.resample_and_gather_systematic(c, uu, v)
+    # The kernel indexes a tile's output run in 32 bits, so D is capped.
+    monkeypatch.setattr(_launch, "MAX_COLUMNS", 2)
+    resample_cuda.resample_and_gather_systematic(cdf, u, torch.randn(2, 10, 2))
+    with pytest.raises(ValueError, match="D must be at most 2"):
+        resample_cuda.resample_and_gather_systematic(cdf, u,
+                                                     torch.randn(2, 10, 3))
 
 
 def test_gradient_is_not_ported():
@@ -212,3 +220,23 @@ def test_gradient_is_not_ported():
     out.sum().backward()
     counts = torch.bincount(idx[0].long(), minlength=10).float()
     assert torch.equal(value.grad[0, :, 0], counts)
+
+
+@pytest.mark.parametrize("header", ["sorted_search.cuh", "tile_gather.cuh"])
+@pytest.mark.parametrize("source", ["resample_systematic.cu",
+                                    "resample_sorted.cu"])
+def test_library_is_rebuilt_when_a_header_changes(source, header, tmp_path,
+                                                  monkeypatch):
+    """K1 and K3 include both headers: a library named by the bytes of the
+    source alone would survive a change to either."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in _build.CSRC.iterdir():
+        (csrc / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path(source)
+    assert f'#include "{header}"' in (csrc / source).read_text()
+    with open(csrc / header, "a") as f:
+        f.write("// changed\n")
+    after = _build.library_path(source)
+    assert after != before and after.parent == before.parent

@@ -21,7 +21,7 @@ from aesmc_tpu.models import lgssm as jax_lgssm
 from aesmc_tpu.ops import resample_pallas
 from aesmc_tpu_torch import inference, resampling
 from aesmc_tpu_torch.models import lgssm
-from aesmc_tpu_torch.ops import resample_sorted_cuda
+from aesmc_tpu_torch.ops import _launch, resample_sorted_cuda
 from torch_replay import (ReplayNoise, lgssm_params, replayed_noise,
                           simulate, tensor as _t)
 
@@ -64,6 +64,7 @@ CASES = [
     (4, 2, 1, 1, 1, "stratified", None),
     (5, 2, 2048, 512, 1, "systematic", None),     # Kp < K
     (6, 2, 512, 2048, 2, "multinomial", None),    # Kp > K
+    (7, 2, 2049, 1025, 3, "stratified", None),   # Kp one past two tiles
 ]
 
 
@@ -149,7 +150,7 @@ def test_sorted_autograd_matches_take_along_dim(kp):
                                atol=1e-6)
 
 
-def test_wrapper_checks_inputs_and_counts_no_cpu_launch():
+def test_wrapper_checks_inputs_and_counts_no_cpu_launch(monkeypatch):
     cdf = torch.linspace(0.1, 1.0, 10).repeat(2, 1)
     pos = torch.linspace(0.0, 0.95, 12).repeat(2, 1)
     value = torch.randn(2, 10, 1)
@@ -170,6 +171,13 @@ def test_wrapper_checks_inputs_and_counts_no_cpu_launch():
     for c, p, v, err in bad:
         with pytest.raises(err):
             resample_sorted_cuda.resample_and_gather_sorted(c, p, v)
+    # The kernel indexes a tile's output run in 32 bits, so D is capped.
+    monkeypatch.setattr(_launch, "MAX_COLUMNS", 2)
+    resample_sorted_cuda.resample_and_gather_sorted(cdf, pos,
+                                                    torch.randn(2, 10, 2))
+    with pytest.raises(ValueError, match="D must be at most 2"):
+        resample_sorted_cuda.resample_and_gather_sorted(cdf, pos,
+                                                        torch.randn(2, 10, 3))
 
 
 @pytest.mark.parametrize("method", ["stratified", "multinomial"])
