@@ -13,8 +13,9 @@
 // Positions are sorted, so src is nondecreasing along the row and each
 // source's slots are one run (a segment). A segmented sum over slot tiles:
 //
-// - grid (ceil(Kp / kTile), B), kTile = 1024 slots a block, 4 consecutive
-//   slots a thread;
+// - one block a (row, tile) pair, tiles on blockIdx.x and rows on
+//   blockIdx.y and z (any number of rows),
+//   kTile = 1024 slots a block, 4 consecutive slots a thread;
 // - the block finds the source of each slot of its tile, and of the slots
 //   just before and after it, through a window of the CDF staged in shared
 //   memory (sorted_search.cuh, shared with K4);
@@ -80,7 +81,8 @@ __global__ void __launch_bounds__(kThreads)
     range_sum_kernel(const float* __restrict__ cdf,
                      const float* __restrict__ pos,
                      const float* __restrict__ g, float* __restrict__ out,
-                     long long k, long long kp, long long d) {
+                     long long k, long long kp, long long d,
+                     long long batch) {
   __shared__ __align__(16) float window[aesmc::kWindowCap + 4];
   __shared__ int src[kTile];
   __shared__ float warp_sum[kWarps];
@@ -90,7 +92,8 @@ __global__ void __launch_bounds__(kThreads)
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const long long b = blockIdx.y;
+  const long long b = aesmc::block_row();
+  if (b >= batch) return;
   const long long j0 = static_cast<long long>(blockIdx.x) * kTile;
   const long long j1 = j0 + kTile < kp ? j0 + kTile : kp;
   const int n = static_cast<int>(j1 - j0);
@@ -254,9 +257,10 @@ extern "C" int aesmc_range_sum(const float* cdf, const float* pos,
   }
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid(static_cast<unsigned int>((kp + kTile - 1) / kTile),
-                  static_cast<unsigned int>(batch));
-  range_sum_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      cdf, pos, g, out, k, kp, d);
+  const dim3 grid = aesmc::row_grid(batch, (kp + kTile - 1) / kTile);
+  if (grid.z == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  range_sum_kernel<<<grid, kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      cdf, pos, g, out, k, kp, d, batch);
   return static_cast<int>(cudaGetLastError());
 }

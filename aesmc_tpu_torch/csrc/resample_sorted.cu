@@ -14,7 +14,9 @@
 // (searchsorted_sorted.cu), and this kernel is K4 with a tile gather at
 // the end (tile_gather.cuh):
 //
-// - grid (ceil(Kp / kTile), B), kTile = 512 positions a block, 2 a thread
+// - one block a (row, tile) pair, tiles on blockIdx.x and rows on
+//   blockIdx.y and z (any number of rows),
+//   kTile = 512 positions a block, 2 a thread
 //   (thread t holds positions t and t + 256 of the tile, so loads and
 //   index stores are coalesced);
 // - the block loads the tile's first and last positions and narrows the
@@ -66,11 +68,12 @@ __global__ void __launch_bounds__(kThreads)
                            const float* __restrict__ value,
                            float* __restrict__ out,
                            int32_t* __restrict__ idx, int n, int kp,
-                           long long d) {
+                           long long d, long long batch) {
   if (d == 0 && idx == nullptr) return;
   __shared__ __align__(16) float window[aesmc::kWindowCap + 4];
   __shared__ int tile[kTile];
-  const long long b = blockIdx.y;
+  const long long b = aesmc::block_row();
+  if (b >= batch) return;
   const int j0 = static_cast<int>(blockIdx.x) * kTile;
   const int j1 = min(j0 + kTile, kp);
   const float* row = cdf + b * n;
@@ -121,11 +124,11 @@ extern "C" int aesmc_resample_sorted(const float* cdf, const float* pos,
   }
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid(static_cast<unsigned int>((kp + kTile - 1) / kTile),
-                  static_cast<unsigned int>(batch));
+  const dim3 grid = aesmc::row_grid(batch, (kp + kTile - 1) / kTile);
+  if (grid.z == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   resample_sorted_kernel<<<grid, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       cdf, pos, value, out, idx, static_cast<int>(k), static_cast<int>(kp),
-      d);
+      d, batch);
   return static_cast<int>(cudaGetLastError());
 }

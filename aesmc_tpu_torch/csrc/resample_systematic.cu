@@ -12,7 +12,9 @@
 // positions the kernel makes itself, and a tile gather follows
 // (tile_gather.cuh):
 //
-// - grid (ceil(K / kTile), B), kTile = 512 slots a block, 2 a thread
+// - one block a (row, tile) pair, tiles on blockIdx.x and rows on
+//   blockIdx.y and z (any number of rows),
+//   kTile = 512 slots a block, 2 a thread
 //   (thread t holds slots t and t + 256 of the tile, so index stores are
 //   coalesced);
 // - pos_j is nondecreasing in j (round-to-nearest add and divide are
@@ -75,11 +77,12 @@ __global__ void __launch_bounds__(kThreads)
                                const float* __restrict__ value,
                                float* __restrict__ out,
                                int32_t* __restrict__ idx, int n,
-                               long long d) {
+                               long long d, long long batch) {
   if (d == 0 && idx == nullptr) return;
   __shared__ __align__(16) float window[aesmc::kWindowCap + 4];
   __shared__ int tile[kTile];
-  const long long b = blockIdx.y;
+  const long long b = aesmc::block_row();
+  if (b >= batch) return;
   const int j0 = static_cast<int>(blockIdx.x) * kTile;
   const int j1 = min(j0 + kTile, n);
   const float ub = u[b];
@@ -129,10 +132,11 @@ extern "C" int aesmc_resample_systematic(const float* cdf, const float* u,
   // in it before launching on that card's stream.
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid(static_cast<unsigned int>((k + kTile - 1) / kTile),
-                  static_cast<unsigned int>(batch));
+  const dim3 grid = aesmc::row_grid(batch, (k + kTile - 1) / kTile);
+  if (grid.z == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   resample_systematic_kernel<<<grid, kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
-      cdf, u, value, out, idx, static_cast<int>(k), d);
+      cdf, u, value, out, idx, static_cast<int>(k), d,
+      batch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,9 @@
 // cursors through both sorted sequences; here the sortedness shrinks each
 // block's search to a window of the CDF (sorted_search.cuh):
 //
-// - grid (ceil(Kp / kTile), B), kTile = 1024 positions a block, 4 a thread
+// - one block a (row, tile) pair, tiles on blockIdx.x and rows on
+//   blockIdx.y and z (any number of rows),
+//   kTile = 1024 positions a block, 4 a thread
 //   (thread t holds positions t, t + 256, t + 512 and t + 768 of the tile,
 //   so loads and stores are coalesced);
 // - the block narrows the window of the tile's first and last positions
@@ -55,9 +57,10 @@ __global__ void __launch_bounds__(kThreads)
     searchsorted_sorted_kernel(const float* __restrict__ cdf,
                                const float* __restrict__ pos,
                                int32_t* __restrict__ idx, long long kc,
-                               long long kp) {
+                               long long kp, long long batch) {
   __shared__ __align__(16) float window[aesmc::kWindowCap + 4];
-  const long long b = blockIdx.y;
+  const long long b = aesmc::block_row();
+  if (b >= batch) return;
   const long long j0 = static_cast<long long>(blockIdx.x) * kTile;
   const long long j1 = j0 + kTile < kp ? j0 + kTile : kp;
   const float* row = cdf + b * kc;
@@ -99,10 +102,10 @@ extern "C" int aesmc_searchsorted_sorted(const float* cdf, const float* pos,
   if (batch == 0 || kc == 0 || kp == 0) return static_cast<int>(cudaSuccess);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid(static_cast<unsigned int>((kp + kTile - 1) / kTile),
-                  static_cast<unsigned int>(batch));
+  const dim3 grid = aesmc::row_grid(batch, (kp + kTile - 1) / kTile);
+  if (grid.z == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   searchsorted_sorted_kernel<<<grid, kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
-      cdf, pos, idx, kc, kp);
+      cdf, pos, idx, kc, kp, batch);
   return static_cast<int>(cudaGetLastError());
 }

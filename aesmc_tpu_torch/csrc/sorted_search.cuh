@@ -1,6 +1,6 @@
 // The search of sorted positions in a CDF shared by K4
-// (searchsorted_sorted.cu), K2 (range_sum.cu), K1 (resample_systematic.cu)
-// and K3 (resample_sorted.cu), for sm_90a.
+// (searchsorted_sorted.cu), K2 (range_sum.cu), K1 (resample_systematic.cu),
+// K3 (resample_sorted.cu) and K6 (searchsorted_cdf.cu), for sm_90a.
 //
 // A block owns a tile of consecutive positions of one batch row. For every
 // position p of the tile with x_lo <= p <= x_hi, its upper bound
@@ -29,6 +29,9 @@
 // Indices within a row are 32-bit: rows hold at most 2^24 entries (the
 // wrappers' limit). Blocks that search have kBlockThreads threads.
 //
+// It also holds the launch geometry K1-K5 share: any number of batch
+// rows in one launch (`row_grid`, `block_row`).
+//
 // Comparisons are exact (the build never uses fast math) and follow
 // torch.searchsorted(right=True): an entry counts when !(entry > p).
 
@@ -43,6 +46,23 @@ constexpr int kBlockThreads = 256;
 constexpr int kLogBlockThreads = 8;
 // CDF entries a block stages in shared memory: 32 KB, static.
 constexpr int kWindowCap = 8192;
+
+// The grid of every kernel: blockIdx.x runs over a row's tiles, and
+// blockIdx.y + blockIdx.z * gridDim.y over the rows, up to 65,535 a
+// dimension, so any number of rows fits one launch and no block divides.
+// Blocks past the last row (in the last z slice) return at once.
+__device__ __forceinline__ long long block_row() {
+  return blockIdx.y + static_cast<long long>(blockIdx.z) * gridDim.y;
+}
+
+// The grid of a launch over `tiles` tiles of each of `batch` rows; its z
+// extent is 0 (no launch) when the rows exceed 65,535^2.
+inline dim3 row_grid(long long batch, long long tiles) {
+  const long long rows = batch < 65535 ? batch : 65535;
+  const long long slices = (batch + rows - 1) / rows;
+  return dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(rows),
+              slices > 65535 ? 0u : static_cast<unsigned>(slices));
+}
 
 // The order of a search: upper bound (an entry goes before x when
 // !(entry > x)) or lower bound (when entry < x).
@@ -142,15 +162,15 @@ struct Window {
   unsigned copy;
 };
 
-// Finds the window of [x_lo, x_hi] in row[0, n) and stages it. Every
-// thread of the block calls it with the same arguments; `shared` is
-// kWindowCap + 4 floats (16-byte aligned) of shared memory. It ends with
-// a barrier.
+// Finds the window of [x_lo, x_hi] in row[0, n) and stages it, where the
+// upper bounds of x_lo and x_hi are known to lie in the ranges a and b
+// (the whole row when nothing is known). Every thread of the block calls
+// it with the same arguments; `shared` is kWindowCap + 4 floats (16-byte
+// aligned) of shared memory. It ends with a barrier.
 __device__ __forceinline__ Window block_window(const float* __restrict__ row,
                                                int n, float x_lo, float x_hi,
-                                               float* shared) {
-  Range a{0, n};
-  Range b{0, n};
+                                               float* shared, Range a,
+                                               Range b) {
   while (b.hi - a.lo > kWindowCap && (a.lo < a.hi || b.lo < b.hi)) {
     int step_a, step_b;
     const bool before_a = probe<false>(row, a, x_lo, &step_a);
@@ -165,6 +185,12 @@ __device__ __forceinline__ Window block_window(const float* __restrict__ row,
            static_cast<unsigned>(__cvta_generic_to_shared(shared + shift))};
   if (w.staged) stage_window(shared + shift, src, w.hi - w.lo, shift);
   return w;
+}
+
+__device__ __forceinline__ Window block_window(const float* __restrict__ row,
+                                               int n, float x_lo, float x_hi,
+                                               float* shared) {
+  return block_window(row, n, x_lo, x_hi, shared, Range{0, n}, Range{0, n});
 }
 
 // The largest power of two <= n, for n >= 1.

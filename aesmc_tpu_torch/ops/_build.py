@@ -2,9 +2,12 @@
 
 Each kernel source is compiled by `nvcc` into a shared library with a
 plain C interface and loaded with `ctypes` (no PyTorch headers, so a
-build takes seconds). Libraries go to `aesmc_tpu_torch/_build/`, named by
-a hash of the source and the flags, at first use; a later call, or a
-later process, with the same source reuses the file.
+build takes seconds). Libraries go to `aesmc_tpu_torch/_build/` when that
+directory can be created and written, and otherwise (a read-only install)
+to `aesmc_tpu_torch/` in the user's cache directory (`$XDG_CACHE_HOME`,
+else `~/.cache`); they are named by a hash of the source and the flags,
+built at first use, and reused by a later call, or a later process, with
+the same source.
 
 Nothing here runs at import: the CPU-only test machines import every
 module of the package.
@@ -54,6 +57,26 @@ def nvcc_path() -> str:
         "/usr/local/cuda/bin); the CUDA kernels are built at first use")
 
 
+def _writable(directory: pathlib.Path) -> bool:
+    """Whether ``directory`` can be created and a file written in it."""
+    try:
+        directory.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryFile(dir=directory):
+            return True
+    except OSError:
+        return False
+
+
+def build_dir() -> pathlib.Path:
+    """Where the libraries go: `BUILD_DIR` beside the sources when it can be
+    written, else `aesmc_tpu_torch/` in the user's cache directory."""
+    if _writable(BUILD_DIR):
+        return BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return pathlib.Path(cache) / "aesmc_tpu_torch"
+
+
 def library_path(source: str) -> pathlib.Path:
     """Where the library built from ``csrc/<source>`` lives. Its name
     hashes the source, the headers of `csrc/` and the flags."""
@@ -62,7 +85,7 @@ def library_path(source: str) -> pathlib.Path:
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     stem = pathlib.Path(source).stem
-    return BUILD_DIR / f"lib{stem}-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{stem}-{digest.hexdigest()[:16]}.so"
 
 
 def load(source: str) -> ctypes.CDLL:
@@ -75,10 +98,10 @@ def load(source: str) -> ctypes.CDLL:
             return _loaded[source]
         lib_path = library_path(source)
         if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            lib_path.parent.mkdir(parents=True, exist_ok=True)
             # Build into a temporary name and rename, so that a build that
             # is cut off never leaves a library that looks finished.
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib_path.parent)
             os.close(fd)
             try:
                 cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,

@@ -12,8 +12,6 @@ from . import _build
 # Largest K: slot indices and K must be exact in float32 for the
 # positions to be bit-exact, and ancestor indices fit int32.
 MAX_PARTICLES = 1 << 24
-# The grid's second dimension runs over batch rows.
-MAX_BATCH = 65535
 # Largest D of K1's and K3's values: a block's output tile (512 slots of D
 # floats) is indexed in 32 bits.
 MAX_COLUMNS = 1 << 22
@@ -35,13 +33,14 @@ def check_float32(device: torch.device, **tensors) -> None:
         raise ValueError(f"unsupported device {device}")
 
 
-def check_sizes(batch: int, *lengths: int) -> None:
+def check_sizes(*lengths: int) -> None:
+    """Each particle count is in [1, MAX_PARTICLES]. Any number of batch
+    rows is taken: the kernels put rows on the grid's second and third
+    dimensions, or a cluster a row on its first."""
     for n in lengths:
         if n < 1 or n > MAX_PARTICLES:
             raise ValueError(
                 f"particle counts must be in [1, {MAX_PARTICLES}], got {n}")
-    if batch > MAX_BATCH:
-        raise ValueError(f"B must be at most {MAX_BATCH}, got {batch}")
 
 
 def check_columns(d: int) -> None:

@@ -10,9 +10,11 @@ reached through `resampling.resample_particles` on the kernel route). The
 TPU kernel moves float32 only, so the JAX package carries integer
 particles through it as 16-bit halves in float32 columns
 (`aesmc_tpu/resampling.py:588-598`); the kernel here
-(`csrc/gather_sorted.cu`) copies elements of 1, 2, 4 or 8 bytes as raw
-bits, so every such dtype moves bit for bit with no transport. Its source
-note gives the bound on the card.
+(`csrc/gather_sorted.cu`) copies elements as raw bits, so every dtype of
+1, 2, 4 or 8 bytes moves bit for bit with no transport. A row of D
+elements moves as fewer, wider elements where its bytes and the addresses
+allow (`_unit`). Its source note gives the design and the bound on the
+card.
 
 Forward only, like `gather_sorted_pallas`: a CUDA value that requires a
 gradient raises ValueError. Float32 particles that need gradients travel
@@ -47,6 +49,17 @@ def gather_sorted_torch(value, idx):
     return torch.take_along_dim(value, index, dim=1)
 
 
+def _unit(row_bytes, *addresses):
+    """The widest element the kernel copies (16, 8, 4, 2 or 1 bytes) that a
+    particle's row of ``row_bytes`` bytes splits into, with every address
+    in ``addresses`` aligned to it: the kernel copies each row as
+    row_bytes / unit elements of that width (D = 8 int32 columns as two
+    16-byte elements)."""
+    return next(unit for unit in (16, 8, 4, 2, 1)
+                if row_bytes % unit == 0 and
+                all(a % unit == 0 for a in addresses))
+
+
 def _check(value, idx):
     for name, t in (("value", value), ("idx", idx)):
         if not isinstance(t, torch.Tensor):
@@ -65,7 +78,7 @@ def _check(value, idx):
     if value.ndim < 2 or idx.ndim != 2 or idx.shape[0] != value.shape[0]:
         raise ValueError(f"value must be [B, K, ...] and idx [B, Kp], got "
                          f"{tuple(value.shape)} and {tuple(idx.shape)}")
-    _launch.check_sizes(value.shape[0], value.shape[1], idx.shape[1])
+    _launch.check_sizes(value.shape[1], idx.shape[1])
 
 
 def _launch_kernel(value, idx):
@@ -75,15 +88,15 @@ def _launch_kernel(value, idx):
                        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     batch, k = value.shape[:2]
     kp = idx.shape[1]
-    d = math.prod(value.shape[2:])
     out = torch.empty((batch, kp) + tuple(value.shape[2:]),
                       dtype=value.dtype, device=value.device)
     if out.numel() == 0:
         return out
+    row_bytes = math.prod(value.shape[2:]) * value.element_size()
+    unit = _unit(row_bytes, value.data_ptr(), out.data_ptr())
     device, stream = _launch.target(value)
-    err = fn(_launch.pointer(value), _launch.pointer(idx),
-             _launch.pointer(out), batch, k, kp, d, value.element_size(),
-             device, stream)
+    err = fn(value.data_ptr(), idx.data_ptr(), out.data_ptr(), batch, k, kp,
+             row_bytes // unit, unit, device, stream)
     _launch.check_error(err, "gather_sorted")
     LAUNCHES += 1
     return out

@@ -54,7 +54,7 @@ def _check(cdf, pos, g):
     if g.ndim != 3 or tuple(g.shape[:2]) != (batch, kp):
         raise ValueError(f"g must be [B, Kp, D] = [{batch}, {kp}, D], got "
                          f"{tuple(g.shape)}")
-    _launch.check_sizes(batch, cdf.shape[1], kp)
+    _launch.check_sizes(cdf.shape[1], kp)
 
 
 def _launch_kernel(cdf, pos, g):

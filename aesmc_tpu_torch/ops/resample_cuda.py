@@ -88,7 +88,7 @@ def _check(cdf, u, value):
                          f"got {tuple(value.shape)}")
     if tuple(u.shape) not in ((batch,), (batch, 1)):
         raise ValueError(f"u must be [B] or [B, 1], got {tuple(u.shape)}")
-    _launch.check_sizes(batch, k)
+    _launch.check_sizes(k)
     _launch.check_columns(value.shape[2])
 
 

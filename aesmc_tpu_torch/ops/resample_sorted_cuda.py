@@ -60,7 +60,7 @@ def _check(cdf, pos, value):
     if value.ndim != 3 or tuple(value.shape[:2]) != (batch, k):
         raise ValueError(f"value must be [B, K, D] = [{batch}, {k}, D], "
                          f"got {tuple(value.shape)}")
-    _launch.check_sizes(batch, k, pos.shape[1])
+    _launch.check_sizes(k, pos.shape[1])
     _launch.check_columns(value.shape[2])
 
 

@@ -3,7 +3,9 @@ version.
 
 For each batch row b and slot j < Kp:
 
-    cdf   = cummax(cumsum(exp(logw - max logw))) / its last entry
+    w     = round(exp(logw - max logw) * 2^38)     (int64 fixed point)
+    cum   = float32(cumsum(w))
+    cdf   = min(cum * (1 / cum[-1]), 1), and its last entry 1
     idx_j = min(#{i : cdf_i <= pos_j}, K - 1)
     out[b, j, :] = value[b, idx_j, :]
 
@@ -15,13 +17,20 @@ this module ports. The JAX engine never calls it: it searches the CDF that
 does not share (`resample_pallas.py:1192-1197`). The same holds here: the
 engine builds the CDF with torch ops and runs K1 or K3.
 
-The kernel (`csrc/searchsorted_cdf.cu`) sums in another order than
-`torch.cumsum`, so an index may differ from the plain version's where a
-position lies within rounding of a bin edge: the JAX package's own bound
-is fewer than 0.5% of the indices, each by at most 3
-(`tests/test_resample_pallas.py:39-49`). Gathered values are always the
-values at the kernel's own indices. Its source note gives the design and
-the bound on the card. Forward only, like `searchsorted_cdf_pallas`.
+The TPU kernel sums its float32 weights in float32, and float32 prefix
+sums taken in two orders drift apart as K grows: on an H100, float32
+`torch.cumsum` put 70% of the indices off those of a float64 CDF, by up
+to 119, at K = 4,194,304 (PERF.md, K6). Here the weights are summed as
+integers, exactly, so the kernel (`csrc/searchsorted_cdf.cu`, which
+splits each row over a cluster of 8 blocks) and the plain version build
+the same CDF bit for bit in any order, and their indices are equal. A
+weight below 2^-39 of the row's largest counts as 0, so no position
+picks it. Against the JAX package's float32 CDF the indices stay within
+its bound for CDFs summed in another order (fewer than 0.5% differ, each
+by at most 3; `tests/test_resample_pallas.py:39-49`) up to K = 100,000
+on N(0, 2^2) log-weights; beyond, the float32 CDF drifts. Gathered
+values are always the values at the kernel's own indices. Forward only,
+like `searchsorted_cdf_pallas`.
 
 `searchsorted_cdf` launches the kernel for CUDA tensors (it never falls
 back) and runs `searchsorted_cdf_torch` for CPU tensors. Each launch adds
@@ -38,6 +47,9 @@ from . import _launch
 
 SOURCE = "searchsorted_cdf.cu"
 
+# A weight of 1 (the row's largest) in the CDF's fixed point: 2^38.
+FIXED_ONE = 2.0 ** 38
+
 # Kernel launches made by `searchsorted_cdf` in this process.
 LAUNCHES = 0
 
@@ -47,8 +59,10 @@ def searchsorted_cdf_torch(log_weight, pos, values=None):
     gathered `[B, Kp, D]`) when ``values`` is given."""
     k = log_weight.shape[1]
     w = torch.exp(log_weight - log_weight.max(dim=1, keepdim=True).values)
-    cum = torch.cummax(torch.cumsum(w, dim=1), dim=1).values
-    cdf = cum / cum[:, -1:]
+    fixed = torch.round(w * FIXED_ONE).to(torch.int64)
+    cum = torch.cumsum(fixed, dim=1).to(torch.float32)
+    cdf = (cum * (1.0 / cum[:, -1:])).clamp_(max=1.0)
+    cdf[:, -1] = 1.0
     idx = torch.searchsorted(cdf, pos, right=True).clamp_(max=k - 1)
     idx = idx.to(torch.int32)
     if values is None:
@@ -70,7 +84,7 @@ def _check(log_weight, pos, values):
                                tuple(values.shape[:2]) != (batch, k)):
         raise ValueError(f"values must be [B, K, D] = [{batch}, {k}, D], "
                          f"got {tuple(values.shape)}")
-    _launch.check_sizes(batch, k, pos.shape[1])
+    _launch.check_sizes(k, pos.shape[1])
 
 
 def _launch_kernel(log_weight, pos, values):

@@ -66,7 +66,7 @@ def _check(cdf, pos):
                          f"{tuple(cdf.shape)} and {tuple(pos.shape)}")
     batch, kc = cdf.shape
     kp = pos.shape[1]
-    _launch.check_sizes(batch, kc, kp)
+    _launch.check_sizes(kc, kp)
     return batch, kc, kp
 
 

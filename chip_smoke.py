@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the exit code is not 0:
 1. device: a CUDA card must be present (there is no CPU path); prints
    `nvidia-smi`'s name and power limit of the card;
 2. build: builds the six CUDA kernel sources of the port from
-   `aesmc_tpu_torch/csrc/`, one nvcc each, all started together;
+   `aesmc_tpu_torch/csrc/`, one nvcc each, all started together, into
+   `aesmc_tpu_torch/_build/` (or the user's cache directory when the
+   package cannot be written);
 3. kernels against their plain PyTorch versions on the same inputs on the
    card, at the main paths' shapes, at other shapes up to K = 8,388,608
    and at degenerate weights:
@@ -29,16 +31,25 @@ Phases, in order; any failure raises and the exit code is not 0:
      on Kp != K, and at (2, 4,194,304, 4,096), whose windows exceed the
      shared-memory cap;
    - K5, the gather by sorted indices: bit-equal for int32 (negative and
-     above 2^24), int64, int8, bool, float64 and float32, D in {1, 8, 64}
-     and at K = 8,388,608, on indices from resampling and all-equal ones;
+     above 2^24), int64, int8, bool, float64 and float32, D in {1, 5, 8,
+     64}, at K = 256 and 257 (one slot a thread up to 256), K = 8,388,608
+     and B = 65,536, on indices from resampling and all-equal ones;
+     timed at (B, K, D) = (10, 100, 1), (2, 256, 1) (the HMM train
+     step's), (10, 10,000, 1), (10, 10,000, 8), (10, 10,000, 64) and
+     (4, 8,388,608, 1);
    - K4, the index-only sorted search: exactly equal to
      torch.searchsorted for stratified and multinomial positions up to
      K = 4,194,304, at Kc != Kp, and at (2, 4,194,304, 4,096), whose
      windows exceed the shared-memory cap (one row on one particle takes
      the staged path);
-   - K6, the fused CDF + search + gather: indices within the JAX package's
-     bound of its plain version (< 0.5% differ, by <= 3), exact on a
-     degenerate row, its gathered values the values at its own indices;
+   - K6, the fused CDF + search + gather: indices equal to its plain
+     version's (both build the same fixed-point CDF), its gathered values
+     the values at its own indices, up to (2, 4,194,304), on one particle
+     a row, runs of -inf weight, Kp != K both ways, positions in no order
+     and D in {0, 1, 2, 3}; timed at (10, 10,000), (10, 1,000), one
+     particle a row at (10, 10,000) and (2, 4,194,304);
+   - every kernel at B = 65,536 rows (more than a grid's second dimension
+     holds) and K = 4, exact;
    each is timed against its plain version (CUDA events; plain, kernel,
    kernel, plain), K1 also with indices only, K1-K3 also with all mass on
    one particle and on runs of -inf weight, K4 and K5 also against the
@@ -73,12 +84,24 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 It prints a `{"kernels": [...]}` JSON line before the last, and, as the
 last line, `{"ok": true, "device": {...}}`. It imports nothing of JAX.
+
+    python3 chip_smoke.py --compare DIR
+
+runs phases 1 and 2, then times each kernel against another version of it
+built from the sources in DIR (for example an earlier commit's, from
+`git show <commit>:aesmc_tpu_torch/csrc/<file>`), on the same inputs, in
+turns, by torch.profiler's device time a launch, and drives no path.
 """
 
 from __future__ import annotations
 
+import argparse
+import concurrent.futures
+import contextlib
+import ctypes
 import json
 import math
+import pathlib
 import subprocess
 import time
 
@@ -129,11 +152,6 @@ HMM_TEST_T, HMM_TEST_B, HMM_TEST_K = 25, 2, 2048
 # and the largest below three times it (one seed can miss the bound by
 # Monte Carlo noise alone).
 HMM_SEEDS, HMM_MEAN_TOL, HMM_MAX_TOL = 8, 0.05, 0.15
-# K6 against its plain version: the JAX package's bound for indices from a
-# CDF summed in another order (tests/test_resample_pallas.py:39-49), on
-# that test's log-weights N(0, 2^2).
-K6_MISMATCH_FRACTION, K6_MISMATCH_DISTANCE = 0.005, 3
-
 # name: (wrapper module, its launch count, the kernel's name in the
 # profiler, the TPU kernel it replaces).
 KERNELS = {
@@ -675,15 +693,35 @@ def _same_bits(a, b):
 
 K5_DTYPES = (torch.int32, torch.int64, torch.int8, torch.bool,
              torch.float64, torch.float32)
-# (B, K, D) of the K5 checks and (B, K, kind) of the K6 checks.
-K5_SHAPES = [(B, K, 1), (B, K, 8), (B, K, 64), (4, 8388608, 1)]
+# (B, K, D) of the K5 checks; rows of at most 256 slots take one slot a
+# thread, longer ones four.
+K5_SHAPES = [(B, K, 1), (B, K, 8), (B, K, 64), (4, 8388608, 1),
+             (65536, 4, 1), (3, 256, 5), (3, 257, 1)]
+# (B, K, D) of K5's device times; (2, 256, 1) is the HMM train step's.
+K5_TIMES = [(B, 100, 1), (2, 256, 1), (B, K, 1), (B, K, 8), (B, K, 64),
+            (4, 8388608, 1)]
 # (B, Kc, Kp, kind) of the K4 checks: at (2, 4,194,304, 4,096) every
 # tile's window exceeds the shared-memory cap, except on the row whose
 # mass sits on one particle (an empty window, staged).
 K4_CASES = [(B, K, K, "normal"), (B, 4194304, 4194304, "normal"),
             (4, 1048576, 262144, "normal"),
             (2, 4194304, 4096, "one_particle_row")]
-K6_CASES = [(B, K, "normal"), (B, 1000, "normal"), (B, K, "one_particle")]
+# (B, K, Kp, D, kind) of the K6 checks: positions split over the cluster
+# apart from the CDF (Kp != K both ways), positions that are not sorted,
+# runs of -inf weight, indices only (D = 0) and D = 3.
+K6_CASES = [(B, K, K, 1, "normal"), (B, 1000, 1000, 1, "normal"),
+            (B, K, K, 1, "one_particle"), (2, 4194304, 4194304, 1, "normal"),
+            (2, 20000, 5000, 3, "normal"), (2, 5000, 20000, 1, "normal"),
+            (3, 10000, 10000, 1, "unsorted"), (3, 1000, 4000, 3, "unsorted"),
+            (2, 50000, 50000, 1, "neg_inf"), (2, 50000, 50000, 0, "neg_inf"),
+            (3, 9, 9, 0, "normal"), (3, 1, 1, 1, "normal"),
+            (4, 100000, 100000, 2, "normal")]
+# (B, K, kind) of K6's device times; the first goes to the JSON line.
+K6_TIMES = [(B, K, "normal"), (B, 1000, "normal"), (B, K, "one_particle"),
+            (2, 4194304, "normal")]
+# B of the check that every kernel takes more rows than a grid's second
+# dimension holds (65,535), at K = ROWS_K.
+ROWS_B, ROWS_K = 65536, 4
 
 
 def _k5_value(dtype, shape, generator, dev):
@@ -728,17 +766,26 @@ def k5_phase(dev):
         print(f"(B, K, D) = {(batch, k, d)}: bit-equal for "
               f"{', '.join(str(t).split('.')[1] for t in K5_DTYPES)} on "
               f"resampled and all-equal indices (tolerance 0)", flush=True)
-    logw = torch.randn(B, K, generator=generator, device=dev) * 3.0
-    idx = resampling.sample_ancestral_index(logw, NoiseSource(generator))
-    latents = _k5_value(torch.int32, (B, K), generator, dev)
-    idx64 = idx.long()
-    n = B * K
-    return _kernel_row(
-        "gather_sorted", (B, K, 1),
-        lambda: gather_sorted_cuda.gather_sorted(latents, idx),
-        lambda: gather_sorted_cuda.gather_sorted_torch(latents, idx),
-        lambda: torch.take_along_dim(latents, idx64, dim=1),
-        4 * 3 * n, 0)
+    # Device times against the bound, int32 values on resampled indices:
+    # the HMM filter's shape (10, 10,000, 1), whose fields go to the JSON
+    # line, and four others.
+    fields = None
+    for batch, k, d in K5_TIMES:
+        logw = torch.randn(batch, k, generator=generator, device=dev) * 3.0
+        idx = resampling.sample_ancestral_index(logw, NoiseSource(generator))
+        shape = (batch, k) if d == 1 else (batch, k, d)
+        latents = _k5_value(torch.int32, shape, generator, dev)
+        index = idx.long() if d == 1 else idx.long().unsqueeze(-1)
+        n = batch * k
+        row = _kernel_row(
+            "gather_sorted", (batch, k, d),
+            lambda: gather_sorted_cuda.gather_sorted(latents, idx),
+            lambda: gather_sorted_cuda.gather_sorted_torch(latents, idx),
+            lambda: torch.take_along_dim(latents, index, dim=1),
+            4 * n + 2 * 4 * n * d, 0)
+        if (batch, k, d) == (B, K, 1):
+            fields = row
+    return fields
 
 
 def _k4_case(batch, kc, kind, generator, dev):
@@ -820,76 +867,161 @@ def k4_phase(dev):
     return fields
 
 
-def k6_phase(dev):
-    """K6 against its plain version within the JAX package's bound, and
-    its entry point as its path; returns (max index distance, its JSON
-    fields at (10, 10,000, 1))."""
-    phase("3h K6 searchsorted_cdf against its plain version")
-    generator = torch.Generator(device=dev).manual_seed(9)
-    worst = 0
-    for batch, k, kind in K6_CASES:
-        logw = torch.randn(batch, k, generator=generator, device=dev) * 2.0
-        if kind == "one_particle":
-            hot = torch.randint(0, k, (batch,), generator=generator,
-                                device=dev)
-            logw = torch.full((batch, k), float("-inf"), device=dev)
-            logw[torch.arange(batch, device=dev), hot] = 0.0
+def _k6_inputs(batch, k, kind, generator, dev, kp=None, d=1):
+    """K6's log-weights N(0, 2^2) (the JAX package's test's), with all mass
+    on one particle a row ('one_particle') or with two runs of -inf weight
+    ('neg_inf'); Kp (default K) systematic positions, or uniform ones in no
+    order ('unsorted'); D value columns (None for D = 0)."""
+    kp = k if kp is None else kp
+    logw = torch.randn(batch, k, generator=generator, device=dev) * 2.0
+    if kind == "one_particle":
+        hot = torch.randint(0, k, (batch,), generator=generator, device=dev)
+        logw = torch.full((batch, k), float("-inf"), device=dev)
+        logw[torch.arange(batch, device=dev), hot] = 0.0
+    elif kind == "neg_inf":
+        logw[:, :k // 4] = float("-inf")
+        logw[:, k // 2:k // 2 + k // 8] = float("-inf")
+    if kind == "unsorted":
+        pos = torch.rand(batch, kp, generator=generator, device=dev)
+    else:
         u = torch.rand(batch, 1, generator=generator, device=dev)
-        pos = resample_cuda.systematic_positions(u, k)
-        value = torch.randn(batch, k, 1, generator=generator, device=dev)
+        pos = resample_cuda.systematic_positions(u, kp)
+    value = (None if d == 0 else
+             torch.randn(batch, k, d, generator=generator, device=dev))
+    return logw, pos, value
+
+
+def _k6_check(logw, pos, value, label):
+    """K6 against its plain version: both build the same fixed-point CDF,
+    so every index must be equal (tolerance 0), and the gathered values
+    must be exactly those at its own indices."""
+    if value is None:
+        idx = searchsorted_cdf_cuda.searchsorted_cdf(logw, pos)
+        want_idx = searchsorted_cdf_cuda.searchsorted_cdf_torch(logw, pos)
+    else:
         idx, out = searchsorted_cdf_cuda.searchsorted_cdf(logw, pos, value)
         want_idx, _ = searchsorted_cdf_cuda.searchsorted_cdf_torch(
             logw, pos, value)
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    if not torch.equal(idx, want_idx):
         differ = idx != want_idx
-        fraction = float(differ.float().mean())
-        distance = int((idx - want_idx).abs().max())
-        worst = max(worst, distance)
+        raise AssertionError(
+            f"K6 indices differ from its plain version at {label}: "
+            f"{int(differ.sum())} of {idx.numel()}, by up to "
+            f"{int((idx - want_idx).abs().max())} (tolerance 0)")
+    if value is not None:
         own = torch.take_along_dim(value, idx.long().unsqueeze(-1), dim=1)
         if not _same_bits(out, own):
             raise AssertionError(f"K6 gathered other values than those at "
-                                 f"its indices at {(batch, k)} {kind}")
-        if kind == "one_particle" and fraction:
-            raise AssertionError("K6 differs on a degenerate row")
-        if not (fraction < K6_MISMATCH_FRACTION and
-                distance <= K6_MISMATCH_DISTANCE):
-            raise AssertionError(
-                f"K6 indices at {(batch, k)} {kind}: {fraction:.3%} differ, "
-                f"by up to {distance} (bound < {K6_MISMATCH_FRACTION:.1%}, "
-                f"<= {K6_MISMATCH_DISTANCE})")
-        print(f"(B, K, D) = {(batch, k, 1)} {kind:12s}: {int(differ.sum())} "
-              f"of {batch * k} indices differ ({fraction:.4%}), by at most "
-              f"{distance} (bound < {K6_MISMATCH_FRACTION:.1%}, <= "
-              f"{K6_MISMATCH_DISTANCE}); gathered values exact at its own "
-              f"indices", flush=True)
+                                 f"its indices at {label}")
+    print(f"K6 at {label}: all {idx.numel()} indices equal to its plain "
+          f"version's (tolerance 0)"
+          f"{'' if value is None else '; gathered values exact'}",
+          flush=True)
 
-    logw = torch.randn(B, K, generator=generator, device=dev) * 2.0
-    u = torch.rand(B, 1, generator=generator, device=dev)
-    pos = resample_cuda.systematic_positions(u, K)
-    value = torch.randn(B, K, 1, generator=generator, device=dev)
+
+def _k6_against_float64(logw, pos):
+    """How far K6's indices, and those of the engine's float32 CDF
+    (`_normalized_cumsum`, torch.cumsum), lie from a float64 CDF's."""
+    k = logw.shape[1]
+    lw = logw.double()
+    cum = torch.cumsum(torch.exp(lw - lw.max(dim=1, keepdim=True).values),
+                       dim=1)
+    exact = torch.searchsorted(cum / cum[:, -1:], pos.double(),
+                               right=True).clamp_(max=k - 1)
+    float32 = torch.searchsorted(resampling._normalized_cumsum(logw), pos,
+                                 right=True).clamp_(max=k - 1)
+    for label, idx in (("K6", searchsorted_cdf_cuda.searchsorted_cdf(
+            logw, pos).long()), ("a float32 torch.cumsum CDF", float32)):
+        off = (idx - exact).abs()
+        print(f"K6 at {tuple(logw.shape)}: {label} against a float64 CDF: "
+              f"{float((off > 0).float().mean()):.4%} of indices differ, by "
+              f"at most {int(off.max())}", flush=True)
+
+
+def k6_phase(dev):
+    """K6 against its plain version, exactly, and its entry point as its
+    path; returns its JSON fields at (10, 10,000, 1)."""
+    phase("3h K6 searchsorted_cdf against its plain version")
+    generator = torch.Generator(device=dev).manual_seed(9)
+    for batch, k, kp, d, kind in K6_CASES:
+        logw, pos, value = _k6_inputs(batch, k, kind, generator, dev, kp, d)
+        _k6_check(logw, pos, value, f"(B, K, Kp, D) = {(batch, k, kp, d)} "
+                                    f"{kind}")
+        if k >= 1000000:
+            _k6_against_float64(logw, pos)
+
+    logw, pos, value = _k6_inputs(B, K, "normal", generator, dev)
     # Its path is its entry point, called once as a user would.
     reset_counts()
     searchsorted_cdf_cuda.searchsorted_cdf(logw, pos, value)
     if read_counts("K6 entry point")["searchsorted_cdf"] != 1:
         raise AssertionError("searchsorted_cdf did not launch K6 once")
-    n = B * K
-    fields = _kernel_row(
-        "searchsorted_cdf", (B, K, 1),
-        lambda: searchsorted_cdf_cuda.searchsorted_cdf(logw, pos, value),
-        lambda: searchsorted_cdf_cuda.searchsorted_cdf_torch(logw, pos,
-                                                             value),
-        None, 4 * 5 * n, 4 * n + n * _search_steps(K))
-    # The port's own route to the same indices: the CDF from torch ops,
-    # then K3.
-    def port_route():
-        cdf = resampling._normalized_cumsum(logw)
-        return resample_sorted_cuda.resample_and_gather_sorted(cdf, pos,
-                                                               value)
+    fields = None
+    for batch, k, kind in K6_TIMES:
+        logw, pos, value = _k6_inputs(batch, k, kind, generator, dev)
+        n = batch * k
+        row = _kernel_row(
+            "searchsorted_cdf", (batch, k, 1, kind),
+            lambda: searchsorted_cdf_cuda.searchsorted_cdf(logw, pos, value),
+            lambda: searchsorted_cdf_cuda.searchsorted_cdf_torch(logw, pos,
+                                                                 value),
+            None, 4 * 5 * n, 4 * n + n * _search_steps(k))
+        if fields is None:
+            fields = row
+            # The port's own route to the same indices (not one PyTorch
+            # call): the CDF from torch ops, then K3.
+            def port_route():
+                cdf = resampling._normalized_cumsum(logw)
+                return resample_sorted_cuda.resample_and_gather_sorted(
+                    cdf, pos, value)
 
-    route_ms = _cuda_ms(port_route, 20, 200)
-    print(f"the port's route (_normalized_cumsum + K3) at the same shape: "
-          f"{route_ms * 1e3:.2f} us/call", flush=True)
-    return worst, fields
+            route_ms = _cuda_ms(port_route, 20, 200)
+            print(f"the port's route (_normalized_cumsum + K3) at "
+                  f"{(batch, k, 1)}: {route_ms * 1e3:.2f} us/call, device "
+                  f"{_us(_calls_device_ms(port_route))} a call", flush=True)
+    return fields
+
+
+def rows_phase(dev):
+    """Every kernel at B = 65,536 rows (more than a grid's second dimension
+    holds) and K = 4, against its plain version, exactly."""
+    phase(f"3i every kernel at B = {ROWS_B:,} rows, K = {ROWS_K}")
+    generator = torch.Generator(device=dev).manual_seed(10)
+    cdf, u, value = _case_inputs(ROWS_B, ROWS_K, 2, "normal", generator, dev)
+    pos = resampling.resampling_positions(cdf, NoiseSource(generator),
+                                          "stratified")
+    g = torch.randint(-5, 6, value.shape, generator=generator,
+                      device=dev).float()
+    ints = _k5_value(torch.int32, (ROWS_B, ROWS_K, 3), generator, dev)
+    idx = searchsorted_sorted_cuda.searchsorted_sorted_torch(cdf, pos)
+    pairs = {
+        "resample_systematic": (
+            resample_cuda.resample_and_gather_systematic(cdf, u, value),
+            resample_cuda.resample_and_gather_systematic_torch(cdf, u,
+                                                               value)),
+        "range_sum": (range_sum_cuda.range_sum(cdf, pos, g),
+                      range_sum_cuda.range_sum_torch(cdf, pos, g)),
+        "resample_sorted": (
+            resample_sorted_cuda.resample_and_gather_sorted(cdf, pos, value),
+            resample_sorted_cuda.resample_and_gather_sorted_torch(cdf, pos,
+                                                                  value)),
+        "searchsorted_sorted": (
+            searchsorted_sorted_cuda.searchsorted_sorted(cdf, pos), idx),
+        "gather_sorted": (gather_sorted_cuda.gather_sorted(ints, idx),
+                          gather_sorted_cuda.gather_sorted_torch(ints, idx)),
+    }
+    torch.cuda.synchronize()
+    for name, (got, want) in pairs.items():
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if not all(_same_bits(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"B = {ROWS_B}")
+        print(f"{name} at (B, K) = {(ROWS_B, ROWS_K)}: exact (tolerance 0)",
+              flush=True)
+    logw, pos, value = _k6_inputs(ROWS_B, ROWS_K, "normal", generator, dev)
+    _k6_check(logw, pos, value, f"(B, K, D) = {(ROWS_B, ROWS_K, 1)} normal")
 
 
 @torch.no_grad()
@@ -1331,9 +1463,124 @@ def hmm_train_phase(dev):
                              f"-> {last}, error {err}")
 
 
+def _build_other(other, sources):
+    """Builds each of ``sources`` from directory ``other`` with `_build`'s
+    flags, one nvcc each, all started together, into `compare/` of the
+    build directory; returns {source: its library}."""
+    out = _build.build_dir() / "compare"
+    out.mkdir(parents=True, exist_ok=True)
+
+    def build(source):
+        lib = out / f"lib{pathlib.Path(source).stem}.so"
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+               str(other / source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed building {other / source}:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        return ctypes.CDLL(str(lib))
+
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        return dict(zip(sources, pool.map(build, sources)))
+
+
+@contextlib.contextmanager
+def _launching(entries):
+    """The wrappers launch ``entries`` ({(source, symbol): C entry}) in
+    place of the entries `_launch.entry` bound for them (K4's wrapper
+    keeps its entry in its module as well)."""
+    k4 = searchsorted_sorted_cuda
+    saved, saved_k4 = dict(_launch._entries), k4._entry
+    _launch._entries.update(entries)
+    k4._entry = _launch._entries[(k4.SOURCE, k4._SYMBOL)]
+    try:
+        yield
+    finally:
+        _launch._entries.update(saved)
+        k4._entry = saved_k4
+
+
+def compare_phase(dev, other):
+    """Each kernel's device time against another version of it, built from
+    the sources in ``other`` (files named as in `aesmc_tpu_torch/csrc/`,
+    with the same C entries), on the same inputs, in turns (other, this,
+    this, other, twice). The other version is launched through this
+    version's wrappers: its C entries are bound with the argument types
+    that the wrappers bound for their own."""
+    phase(f"3 compare: each kernel against the version in {other}")
+    generator = torch.Generator(device=dev).manual_seed(11)
+    cdf, u, value = _case_inputs(B, K, 1, "normal", generator, dev)
+    pos = resampling.resampling_positions(cdf, NoiseSource(generator),
+                                          "stratified")
+    g = torch.randn(B, K, 1, generator=generator, device=dev)
+    cases = [
+        ("K1 (10, 10000, 1)", "resample_systematic", lambda: (
+            resample_cuda.resample_and_gather_systematic(cdf, u, value))),
+        ("K1 (10, 10000, 0) indices", "resample_systematic", lambda: (
+            resample_cuda.resample_and_gather_systematic(
+                cdf, u, value.new_empty((B, K, 0)), True))),
+        ("K2 (10, 10000, 1)", "range_sum", lambda: range_sum_cuda.range_sum(
+            cdf, pos, g)),
+        ("K3 (10, 10000, 1)", "resample_sorted", lambda: (
+            resample_sorted_cuda.resample_and_gather_sorted(cdf, pos,
+                                                            value))),
+        ("K4 (10, 10000)", "searchsorted_sorted", lambda: (
+            searchsorted_sorted_cuda.searchsorted_sorted(cdf, pos))),
+    ]
+    for batch, k, d in K5_TIMES:
+        logw = torch.randn(batch, k, generator=generator, device=dev) * 3.0
+        idx = resampling.sample_ancestral_index(logw, NoiseSource(generator))
+        shape = (batch, k) if d == 1 else (batch, k, d)
+        latents = _k5_value(torch.int32, shape, generator, dev)
+        cases.append((f"K5 {(batch, k, d)} int32", "gather_sorted",
+                      lambda latents=latents, idx=idx: (
+                          gather_sorted_cuda.gather_sorted(latents, idx))))
+    for batch, k, kind in K6_TIMES:
+        logw, p6, v6 = _k6_inputs(batch, k, kind, generator, dev)
+        cases.append((f"K6 {(batch, k, 1)} {kind}", "searchsorted_cdf",
+                      lambda logw=logw, p6=p6, v6=v6: (
+                          searchsorted_cdf_cuda.searchsorted_cdf(logw, p6,
+                                                                 v6))))
+    for _, _, fn in cases:
+        fn()        # binds this version's C entries
+    torch.cuda.synchronize()
+    libs = _build_other(other, sorted({key[0] for key in _launch._entries}))
+    entries = {}
+    for (source, symbol), fn in _launch._entries.items():
+        entries[(source, symbol)] = getattr(libs[source], symbol)
+        entries[(source, symbol)].argtypes = fn.argtypes
+        entries[(source, symbol)].restype = fn.restype
+    # K5's int32 rows go to the other version as 4-byte elements, which
+    # every version takes (the wrapper may hand them over as 16-byte ones).
+    k5 = (gather_sorted_cuda.SOURCE, "aesmc_gather_sorted")
+    raw = entries[k5]
+    entries[k5] = lambda value, idx, out, batch, k, kp, d, unit, *rest: raw(
+        value, idx, out, batch, k, kp, d * unit // 4, 4, *rest)
+    for label, name, fn in cases:
+        runs = {"this": [], "other": []}
+        calls = 10 if "4194304" in label else 50
+        for which in ("other", "this", "this", "other") * 2:
+            with (_launching(entries) if which == "other" else
+                  contextlib.nullcontext()):
+                ms = _device_ms(fn, KERNELS[name][2], calls)
+            runs[which].append(None if ms is None else round(ms * 1e3, 3))
+        print(f"compare {label}: device us a launch, this version "
+              f"{runs['this']}, the other {runs['other']}", flush=True)
+
+
 def main():
+    parser = argparse.ArgumentParser(
+        description="Smoke test of the PyTorch port on one NVIDIA GPU.")
+    parser.add_argument(
+        "--compare", type=pathlib.Path, metavar="DIR",
+        help="after phases 1 and 2, time each kernel against the version "
+             "whose sources are in DIR instead of driving the paths")
+    args = parser.parse_args()
     dev = device_phase()
     build_phase()
+    if args.compare is not None:
+        compare_phase(dev, args.compare)
+        return
     errors = {"resample_systematic": k1_phase(dev),
               "range_sum": k2_phase(dev),
               "resample_sorted": k3_phase(dev)}
@@ -1343,8 +1590,9 @@ def main():
     errors["gather_sorted"] = 0.0
     times["searchsorted_sorted"] = k4_phase(dev)
     errors["searchsorted_sorted"] = 0.0
-    # K6's error is the largest index distance from its plain version.
-    errors["searchsorted_cdf"], times["searchsorted_cdf"] = k6_phase(dev)
+    times["searchsorted_cdf"] = k6_phase(dev)
+    errors["searchsorted_cdf"] = 0.0
+    rows_phase(dev)
     filter_phase(dev)
     train_phase(dev)
     hmm_filter_phase(dev)

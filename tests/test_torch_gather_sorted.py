@@ -163,3 +163,51 @@ def _resampling_noise(key, batch, k, method):
             key, (batch, k + 1), dtype=jnp.float32)]}
     shape = (batch, 1) if method == "systematic" else (batch, k)
     return {"uniforms": [jax.random.uniform(key, shape, dtype=jnp.float32)]}
+
+
+@pytest.mark.parametrize("row_bytes,addresses,unit", [
+    (4, (0, 256), 4),           # D = 1 int32: one 4-byte element a row
+    (1, (0, 256), 1),           # D = 1 int8
+    (32, (0, 256), 16),         # D = 8 int32: two 16-byte elements
+    (256, (512, 1024), 16),     # D = 64 int32
+    (24, (0, 256), 8),          # D = 3 float64, or 6 int32
+    (12, (0, 256), 4),          # D = 3 int32
+    (3, (0, 256), 1),           # D = 3 int8
+    (32, (4, 256), 4),          # a value at an address 4 bytes off 16
+    (32, (0, 258), 2),          # an output 2 bytes off 16
+])
+def test_unit_is_the_widest_aligned_element(row_bytes, addresses, unit):
+    assert gather_sorted_cuda._unit(row_bytes, *addresses) == unit
+
+
+@pytest.mark.parametrize("dtype,trailing,columns,unit", [
+    (torch.int32, (), 1, 4),
+    (torch.int8, (), 1, 1),
+    (torch.int32, (8,), 2, 16),
+    (torch.float64, (2, 2), 2, 16),
+    (torch.bool, (3,), 3, 1),
+    (torch.int16, (2,), 1, 4),
+])
+def test_launch_passes_rows_as_wide_elements(dtype, trailing, columns, unit,
+                                             monkeypatch):
+    """What the wrapper hands the C entry: each row of D elements as
+    row bytes / unit elements of `unit` bytes (the kernel's template), on
+    CPU tensors with the launch stubbed."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(gather_sorted_cuda._launch, "entry",
+                        lambda *a: entry)
+    monkeypatch.setattr(gather_sorted_cuda._launch, "target",
+                        lambda t: (0, 0))
+    value = torch.zeros((3, 5) + trailing, dtype=dtype)
+    idx = torch.zeros((3, 7), dtype=torch.int32)
+    before = gather_sorted_cuda.LAUNCHES
+    out = gather_sorted_cuda._launch_kernel(value, idx)
+    assert out.shape == (3, 7) + trailing and out.dtype == dtype
+    assert gather_sorted_cuda.LAUNCHES == before + 1
+    (args,) = calls
+    assert args[3:9] == (3, 5, 7, columns, unit, 0)

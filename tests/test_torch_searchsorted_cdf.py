@@ -2,10 +2,11 @@
 and `sample_ancestral_index` against the JAX package's Pallas kernels, run
 through the interpreter.
 
-K6 builds its CDF in another summation order than either package's
-`_normalized_cumsum`, so its indices agree within the JAX package's own
-bound (`tests/test_resample_pallas.py:39-49`): fewer than 0.5% differ, each
-by at most 3. `sample_ancestral_index` is exact when it searches the JAX
+K6 builds its CDF from exact fixed-point prefix sums, not in float32 as
+either package's `_normalized_cumsum` does, so its indices agree within the
+JAX package's bound for CDFs summed in another order
+(`tests/test_resample_pallas.py:39-49`): fewer than 0.5% differ, each by at
+most 3. `sample_ancestral_index` is exact when it searches the JAX
 package's CDF, and within the same bound on its own.
 """
 
@@ -149,3 +150,53 @@ def test_index_only_search_matches_pallas(kc, kp):
             _t(cdf), _t(pos), value)
         assert torch.equal(idx, got) and out.shape == (batch, kp, 0)
     assert searchsorted_sorted_cuda.LAUNCHES == before
+
+
+def test_plain_k6_sums_fixed_point_weights_exactly():
+    """The plain version's CDF is built from exact int64 prefix sums of
+    the weights in 38-bit fixed point, in float32 times the total's
+    reciprocal, clamped to 1, its last entry 1: the CDF the kernel builds
+    in any summation order. A weight below 2^-39 of the row's largest
+    counts as 0."""
+    rng = np.random.default_rng(12)
+    batch, k = 3, 50000
+    logw = _t((rng.normal(size=(batch, k)) * 3).astype(np.float32))
+    pos = _t(_positions(batch, k, "stratified", 13))
+    w = torch.exp(logw - logw.max(dim=1, keepdim=True).values).numpy()
+    fixed = np.round(w.astype(np.float64) * 2.0 ** 38).astype(np.int64)
+    cum = np.cumsum(fixed, axis=1).astype(np.float32)
+    cdf = np.minimum(cum * (np.float32(1) / cum[:, -1:]), np.float32(1))
+    cdf[:, -1] = 1
+    assert (np.diff(cdf, axis=1) >= 0).all() and (cdf[:, -1] == 1).all()
+    want = np.minimum(
+        np.stack([np.searchsorted(c, p, side="right")
+                  for c, p in zip(cdf, pos.numpy())]), k - 1)
+    np.testing.assert_array_equal(
+        searchsorted_cdf_cuda.searchsorted_cdf(logw, pos).numpy(), want)
+    tiny = torch.tensor([[-30.0, 0.0]])     # exp(-30) < 2^-39
+    at_zero = torch.zeros(1, 1)
+    assert searchsorted_cdf_cuda.searchsorted_cdf(tiny, at_zero).item() == 1
+
+
+def test_plain_k6_against_jax_cdf_at_large_k():
+    """The fixed-point CDF against the JAX package's float32 CDF
+    (`_normalized_cumsum`, XLA) and search at K = 100,000, the largest K
+    at which float32 prefix sums stay within the JAX package's bound of an
+    exact sum on these weights. One deviation by design: a weight below
+    2^-39 of the row's largest counts as 0 in the port, so a position
+    below it picks the next particle, where the JAX package picks it."""
+    batch, k = 2, 100000
+    logw = _log_weights(k, batch, k)
+    pos = _positions(batch, k, "systematic", k + 1)
+    cdf = np.asarray(jax_resampling._normalized_cumsum(jnp.asarray(logw)))
+    want = np.minimum(np.stack([np.searchsorted(c, p, side="right")
+                                for c, p in zip(cdf, pos)]), k - 1)
+    _assert_within_bound(
+        searchsorted_cdf_cuda.searchsorted_cdf(_t(logw), _t(pos)).numpy(),
+        want)
+    tiny = np.array([[-30.0, 0.0]], np.float32)     # exp(-30) < 2^-39
+    at_zero = np.zeros((1, 1), np.float32)
+    jax_cdf = np.asarray(jax_resampling._normalized_cumsum(jnp.asarray(tiny)))
+    assert np.searchsorted(jax_cdf[0], 0.0, side="right") == 0
+    assert searchsorted_cdf_cuda.searchsorted_cdf(_t(tiny),
+                                                  _t(at_zero)).item() == 1
