@@ -70,7 +70,12 @@ class Normal(Distribution):
                                             _shape(self.scale)))
 
     def _param(self, x, like: torch.Tensor) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+        # A Python number becomes a fill on the device: `torch.as_tensor`
+        # would copy it from the host, which waits for the card and cannot
+        # be captured in a CUDA graph.
+        if isinstance(x, torch.Tensor):
+            return x.to(dtype=like.dtype, device=like.device)
+        return torch.full((), x, dtype=like.dtype, device=like.device)
 
     def rsample(self, sample_shape, eps):
         """``loc + scale * eps`` for standard-normal noise ``eps`` of shape

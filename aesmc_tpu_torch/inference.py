@@ -25,8 +25,10 @@ proposals: the HMM's int32 states, drawn detached); integer particles go
 through the time loop, resampling (K5 on the card), lineage tracing and
 the returned stacks in their own dtype.
 
-Not ported yet: ESS-adaptive resampling, `lookahead`, `history_window` > 1,
-soft and OT resampling, `remat` and `nan_check`.
+ESS-adaptive resampling (`resampling_criterion`), the NaN guard
+(`nan_check`) and rematerialization (`remat`, `torch.utils.checkpoint` per
+time step) follow the JAX package. Not ported yet: `lookahead`,
+`history_window` > 1, soft and OT resampling.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _checkpoint
 
 from . import device as _device
 from . import resampling, state
@@ -120,6 +123,9 @@ def _stack_time(values):
     return torch.stack(values, dim=0)
 
 
+NAN_MESSAGE = "log_weight contains nan element(s)"
+
+
 def infer(inference_algorithm: str,
           observations,
           initial,
@@ -130,6 +136,9 @@ def infer(inference_algorithm: str,
           noise: Optional[NoiseSource] = None,
           resampling_method: str = "systematic",
           resampling_implementation: str = "auto",
+          resampling_criterion="always",
+          nan_check: bool = False,
+          remat: bool = False,
           return_log_marginal_likelihood: bool = False,
           return_latents: bool = True,
           return_original_latents: bool = False,
@@ -152,14 +161,114 @@ def infer(inference_algorithm: str,
         resampling_method: 'systematic', 'stratified' or 'multinomial'.
         resampling_implementation: 'auto' | 'cuda' | 'torch' (see
             `resampling`).
+        resampling_criterion: 'always' (resample at every step) or a
+            float ``frac``: ESS-adaptive SMC ('smc' only). Every row goes
+            through the same resampling call at every step, so the noise
+            drawn does not depend on the weights; a row whose effective
+            sample size is below ``frac * K`` takes the resampled
+            particles and contributes one logmeanexp term to log-Z, the
+            other rows keep their particles, identity ancestors and
+            accumulated weights. frac = 0 never resamples (the IS
+            estimator), a huge frac always does.
+        nan_check: raise FloatingPointError after the time loop when any
+            pre-resampling log-weight was NaN ('smc' only): the steps OR
+            one flag on the device, read once at the end.
+        remat: recompute each time step on the backward pass
+            (`torch.utils.checkpoint`) instead of keeping its activations.
+            The step's noise is drawn once, in the forward, and handed to
+            the recompute.
         return_*: which outputs to materialize, as in the JAX package.
 
     Returns:
         dict with keys log_marginal_likelihood `[batch]`, latents
         `[T, batch, K, ...]`, original_latents, log_weight `[batch, K]`,
-        log_weights `[T, batch, K]`, ancestral_indices `[T-1, batch, K]`,
-        last_latent; entries are None unless requested.
+        log_weights `[T, batch, K]` (under 'smc' the carried weights),
+        ancestral_indices `[T-1, batch, K]`, last_latent; entries are None
+        unless requested.
     """
+    result, has_nan = _infer(
+        inference_algorithm, observations, initial, transition, emission,
+        proposal, num_particles, noise=noise,
+        resampling_method=resampling_method,
+        resampling_implementation=resampling_implementation,
+        resampling_criterion=resampling_criterion, nan_check=nan_check,
+        remat=remat,
+        return_log_marginal_likelihood=return_log_marginal_likelihood,
+        return_latents=return_latents,
+        return_original_latents=return_original_latents,
+        return_log_weight=return_log_weight,
+        return_log_weights=return_log_weights,
+        return_ancestral_indices=return_ancestral_indices)
+    _raise_if_nan(has_nan)
+    return result
+
+
+def _raise_if_nan(has_nan) -> None:
+    """FloatingPointError if the NaN flag of `_infer` is set; reads it from
+    the device (None: nothing was checked)."""
+    if has_nan is not None and bool(has_nan):
+        raise FloatingPointError(NAN_MESSAGE)
+
+
+class _NoiseTape:
+    """A noise source for one rematerialized time step: the forward draws
+    from ``noise`` and records each draw; after `rewind` the recompute of
+    `torch.utils.checkpoint` gets the same tensors back, in order.
+    (`preserve_rng_state` restores only PyTorch's default generators.)"""
+
+    def __init__(self, noise):
+        self._noise = noise
+        self._draws = []
+        self._next = 0
+
+    @property
+    def device(self):
+        return self._noise.device
+
+    def rewind(self):
+        self._next = 0
+
+    def _draw(self, kind, shape):
+        if self._next == len(self._draws):
+            self._draws.append(getattr(self._noise, kind)(shape))
+        self._next += 1
+        return self._draws[self._next - 1]
+
+    def uniform(self, shape):
+        return self._draw("uniform", shape)
+
+    def exponential(self, shape):
+        return self._draw("exponential", shape)
+
+    def normal(self, shape):
+        return self._draw("normal", shape)
+
+    def gumbel(self, shape):
+        return self._draw("gumbel", shape)
+
+
+def _where_rows(do, resampled, kept):
+    """Per batch row: ``resampled`` where ``do``, else ``kept`` (tensors or
+    dicts of them, of any dtype)."""
+    def select(res, orig):
+        return torch.where(do.reshape((-1,) + (1,) * (res.ndim - 1)), res,
+                           orig)
+
+    return resampling._unflatten(resampled, iter(
+        [select(res, orig) for res, orig in
+         zip(resampling._leaves(resampled), resampling._leaves(kept))]))
+
+
+def _infer(inference_algorithm, observations, initial, transition, emission,
+           proposal, num_particles, noise=None,
+           resampling_method="systematic", resampling_implementation="auto",
+           resampling_criterion="always", nan_check=False, remat=False,
+           return_log_marginal_likelihood=False, return_latents=True,
+           return_original_latents=False, return_log_weight=True,
+           return_log_weights=False, return_ancestral_indices=False):
+    """`infer`, returning (result, NaN flag) without reading the flag: a
+    device bool that is True when any pre-resampling log-weight was NaN,
+    or None when ``nan_check`` is off or the algorithm is 'is'."""
     if inference_algorithm not in ("is", "smc"):
         raise ValueError(
             "inference_algorithm must be either is or smc. currently = {}"
@@ -179,6 +288,9 @@ def infer(inference_algorithm: str,
     is_smc = inference_algorithm == "smc"
     implementation = resampling.resolve_implementation(
         first.device, resampling_method, resampling_implementation)
+    adaptive = is_smc and resampling_criterion != "always"
+    if adaptive:
+        ess_threshold = float(resampling_criterion) * num_particles
 
     # ---- t = 0 (hoisted: `time` is the int 0).
     proposal_dist = proposal(time=0, observations=obs_seq)
@@ -198,16 +310,12 @@ def infer(inference_algorithm: str,
     need_original = return_latents or (is_smc and return_original_latents)
     need_stacked_weights = return_log_weights or not is_smc
 
-    latents = [latent_0]
-    log_weights = [log_weight_0]
-    ancestors = []
-    contributions = []
-    prev_latent, prev_log_weight = latent_0, log_weight_0
-
-    # ---- t = 1 .. T-1.
-    for t in range(1, num_timesteps):
+    def step(t, prev_latent, prev_log_weight, noise):
+        """Time step t >= 1: (latent_t, log_weight_t, ancestral_index,
+        contribution to log-Z)."""
         time = TimeIndex(t)
         prev_obs_list = [obs_seq[t - 1]]
+        ancestral_index = contribution = None
         if is_smc:
             ancestral_index, previous_latent = resampling._resample(
                 prev_log_weight, noise, prev_latent, resampling_method,
@@ -215,11 +323,29 @@ def infer(inference_algorithm: str,
             if ancestral_index is None:
                 ancestral_index = torch.zeros(
                     (0,), dtype=torch.int32, device=first.device)
-            ancestors.append(ancestral_index)
-            contributions.append(
-                torch.logsumexp(prev_log_weight, dim=1) - log_num_particles)
+            log_sum = torch.logsumexp(prev_log_weight, dim=1)
+            contribution = log_sum - log_num_particles
         else:
             previous_latent = prev_latent
+        if adaptive:
+            # Per row, without a host-side branch: rows whose ESS is below
+            # the threshold take the resampled particles; the others keep
+            # theirs, with identity ancestors and accumulated weights.
+            ess = torch.exp(2 * log_sum -
+                            torch.logsumexp(2 * prev_log_weight, dim=1))
+            do = ess < ess_threshold                               # [B]
+            if ancestral_index.numel():
+                identity = torch.arange(
+                    num_particles, dtype=ancestral_index.dtype,
+                    device=ancestral_index.device).expand_as(ancestral_index)
+                ancestral_index = torch.where(do[:, None], ancestral_index,
+                                              identity)
+            contribution = torch.where(do, contribution,
+                                       torch.zeros_like(contribution))
+            base = torch.where(do[:, None],
+                               torch.zeros_like(prev_log_weight),
+                               prev_log_weight)
+            previous_latent = _where_rows(do, previous_latent, prev_latent)
 
         proposal_dist = proposal(previous_latents=[previous_latent],
                                  time=time, observations=obs_seq)
@@ -236,7 +362,38 @@ def infer(inference_algorithm: str,
             state.expand_observation(obs_seq[t], num_particles))
         # Under always-resampling the new weight is the increment alone.
         log_weight_t = transition_lp + emission_lp - proposal_lp
+        if adaptive:
+            log_weight_t = base + log_weight_t
+        return latent_t, log_weight_t, ancestral_index, contribution
 
+    def remat_step(t, prev_latent, prev_log_weight, tape):
+        tape.rewind()
+        return step(t, prev_latent, prev_log_weight, tape)
+
+    latents = [latent_0]
+    log_weights = [log_weight_0]
+    ancestors = []
+    contributions = []
+    has_nan = (torch.zeros((), dtype=torch.bool, device=first.device)
+               if nan_check and is_smc else None)
+    prev_latent, prev_log_weight = latent_0, log_weight_0
+
+    # ---- t = 1 .. T-1.
+    for t in range(1, num_timesteps):
+        if has_nan is not None:
+            has_nan = has_nan | torch.isnan(prev_log_weight).any()
+        if remat:
+            latent_t, log_weight_t, ancestral_index, contribution = \
+                _checkpoint.checkpoint(
+                    remat_step, t, prev_latent, prev_log_weight,
+                    _NoiseTape(noise), use_reentrant=False,
+                    preserve_rng_state=False)
+        else:
+            latent_t, log_weight_t, ancestral_index, contribution = step(
+                t, prev_latent, prev_log_weight, noise)
+        if is_smc:
+            ancestors.append(ancestral_index)
+            contributions.append(contribution)
         if need_original:
             latents.append(latent_t)
         if need_stacked_weights:
@@ -292,7 +449,7 @@ def infer(inference_algorithm: str,
             ancestral_indices if (is_smc and return_ancestral_indices)
             else None,
         "last_latent": last_latent,
-    }
+    }, has_nan
 
 
 def get_resampled_latents(latents, ancestral_indices):

@@ -5,6 +5,8 @@ sampling and 'aesmc' to SMC, runs `inference.infer` for the log marginal
 likelihood only, and returns ``-mean(log Z)`` over the batch, a scalar
 tensor to call `.backward()` on. `get_loss_and_metrics` adds the mean
 ELBO and the mean effective sample size of the final weights.
+`checked_loss` is `get_loss` with the NaN guard deferred: it returns an
+error value that reads the guard's device flag only when asked.
 
 Gradients flow through the reparameterized proposal samples and every
 log-probability, but not through ancestor indices (the engine detaches
@@ -13,8 +15,7 @@ resampling gradient is the range-sum kernel (K2).
 
 Not ported yet, and raising NotImplementedError until then: the 'tmc'
 algorithm and `gradient_estimator='score'` (slice C: `tmc.py`,
-`gradients.py`), and `nan_check` / `checked_loss` (slice B: the
-`inference` NaN guard).
+`gradients.py`).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from . import inference, statistics
 ALGORITHMS = ("iwae", "aesmc")
 
 
-def _check_later(algorithm, gradient_estimator, nan_check):
+def _check_later(algorithm, gradient_estimator):
     if algorithm == "tmc":
         raise NotImplementedError(
             "algorithm='tmc' (Tensor Monte Carlo) is not ported yet; it "
@@ -37,10 +38,6 @@ def _check_later(algorithm, gradient_estimator, nan_check):
         raise ValueError(
             "gradient_estimator must be 'pathwise' or 'score'. "
             f"currently = {gradient_estimator}")
-    if nan_check:
-        raise NotImplementedError(
-            "nan_check is not ported yet; it comes with slice B of the port "
-            "(the inference NaN guard)")
 
 
 def _inference_algorithm(algorithm):
@@ -52,10 +49,38 @@ def _inference_algorithm(algorithm):
         f"algorithm must be one of {ALGORITHMS}. currently = {algorithm}")
 
 
+def _objective(observations, num_particles, algorithm, initial, transition,
+               emission, proposal, noise=None,
+               resampling_method="systematic",
+               resampling_implementation="auto",
+               resampling_criterion="always", remat=False,
+               gradient_estimator="pathwise", nan_check=False,
+               with_metrics=False):
+    """(loss, metrics or None, NaN flag of `inference._infer`): the flag
+    is left on the device, unread."""
+    _check_later(algorithm, gradient_estimator)
+    result, has_nan = inference._infer(
+        _inference_algorithm(algorithm), observations, initial, transition,
+        emission, proposal, num_particles, noise=noise,
+        resampling_method=resampling_method,
+        resampling_implementation=resampling_implementation,
+        resampling_criterion=resampling_criterion, nan_check=nan_check,
+        remat=remat, return_log_marginal_likelihood=True,
+        return_latents=False, return_log_weight=with_metrics)
+    elbo = result["log_marginal_likelihood"].mean()
+    metrics = None
+    if with_metrics:
+        ess = statistics.ess(result["log_weight"]).mean()
+        metrics = {"elbo": elbo.detach(), "ess": ess.detach()}
+    return -elbo, metrics, has_nan
+
+
 def get_loss(observations, num_particles: int, algorithm: str, initial,
              transition, emission, proposal, noise=None,
              resampling_method: str = "systematic",
              resampling_implementation: str = "auto",
+             resampling_criterion="always",
+             remat: bool = False,
              gradient_estimator: str = "pathwise",
              nan_check: bool = False):
     """Scalar loss ``-mean(ELBO)`` for gradient descent.
@@ -67,34 +92,67 @@ def get_loss(observations, num_particles: int, algorithm: str, initial,
         algorithm: 'iwae' (IS estimator) or 'aesmc' (SMC estimator).
         initial, transition, emission, proposal: user components.
         noise: the `NoiseSource` of every draw (see `inference.infer`).
-        resampling_method, resampling_implementation: forwarded to
-            `infer` ('aesmc' only).
+        resampling_method, resampling_implementation,
+            resampling_criterion: forwarded to `infer` ('aesmc' only).
+        remat: forwarded to `infer`.
+        nan_check: raise FloatingPointError when a resampling step saw a
+            NaN log-weight ('aesmc'; one read of the device).
 
     Returns:
         scalar tensor.
     """
-    _check_later(algorithm, gradient_estimator, nan_check)
-    result = inference.infer(
-        _inference_algorithm(algorithm), observations, initial, transition,
-        emission, proposal, num_particles, noise=noise,
+    loss, _, has_nan = _objective(
+        observations, num_particles, algorithm, initial, transition,
+        emission, proposal, noise=noise,
         resampling_method=resampling_method,
         resampling_implementation=resampling_implementation,
-        return_log_marginal_likelihood=True, return_latents=False,
-        return_log_weight=False)
-    return -result["log_marginal_likelihood"].mean()
+        resampling_criterion=resampling_criterion, remat=remat,
+        gradient_estimator=gradient_estimator, nan_check=nan_check)
+    inference._raise_if_nan(has_nan)
+    return loss
 
 
-def checked_loss(*args, **kwargs):
-    """`get_loss` with the NaN guard: not ported yet."""
-    raise NotImplementedError(
-        "checked_loss is not ported yet; it comes with slice B of the port "
-        "(the inference NaN guard)")
+class CheckError:
+    """The error value of `checked_loss`: holds the NaN guard's device flag
+    and reads it only when `get` or `throw` is called."""
+
+    def __init__(self, has_nan):
+        self._has_nan = has_nan
+
+    def get(self):
+        """None, or the message of the NaN a resampling step saw."""
+        if self._has_nan is not None and bool(self._has_nan):
+            return inference.NAN_MESSAGE
+        return None
+
+    def throw(self) -> None:
+        """Raises FloatingPointError with `get`'s message, if any."""
+        inference._raise_if_nan(self._has_nan)
+
+
+def checked_loss(observations, num_particles: int, algorithm: str,
+                 initial, transition, emission, proposal, noise=None,
+                 **kwargs):
+    """`get_loss` with the NaN guard deferred: returns ``(error, loss)``.
+
+    ``error`` is a `CheckError`; ``error.get()`` gives None or a message
+    containing "nan", ``error.throw()`` raises FloatingPointError. Nothing
+    waits for the device until one of them is called. ``kwargs`` are
+    `get_loss`'s (``nan_check`` is always on).
+    """
+    kwargs.pop("nan_check", None)
+    loss, _, has_nan = _objective(
+        observations, num_particles, algorithm, initial, transition,
+        emission, proposal, noise=noise, nan_check=True, **kwargs)
+    return CheckError(has_nan), loss
 
 
 def get_loss_and_metrics(observations, num_particles: int, algorithm: str,
                          initial, transition, emission, proposal,
                          noise=None, resampling_method: str = "systematic",
                          resampling_implementation: str = "auto",
+                         resampling_criterion="always",
+                         remat: bool = False,
                          gradient_estimator: str = "pathwise",
                          nan_check: bool = False):
     """Like `get_loss`, and also a metrics dict of device scalars:
@@ -102,14 +160,13 @@ def get_loss_and_metrics(observations, num_particles: int, algorithm: str,
     - 'elbo': mean ELBO over the batch;
     - 'ess': mean effective sample size of the final particle weights.
     """
-    _check_later(algorithm, gradient_estimator, nan_check)
-    result = inference.infer(
-        _inference_algorithm(algorithm), observations, initial, transition,
-        emission, proposal, num_particles, noise=noise,
+    loss, metrics, has_nan = _objective(
+        observations, num_particles, algorithm, initial, transition,
+        emission, proposal, noise=noise,
         resampling_method=resampling_method,
         resampling_implementation=resampling_implementation,
-        return_log_marginal_likelihood=True, return_latents=False,
-        return_log_weight=True)
-    elbo = result["log_marginal_likelihood"].mean()
-    ess = statistics.ess(result["log_weight"]).mean()
-    return -elbo, {"elbo": elbo.detach(), "ess": ess.detach()}
+        resampling_criterion=resampling_criterion, remat=remat,
+        gradient_estimator=gradient_estimator, nan_check=nan_check,
+        with_metrics=True)
+    inference._raise_if_nan(has_nan)
+    return loss, metrics

@@ -1,7 +1,8 @@
 """Weighted-particle statistics and sampling from the model prior.
 
 Counterpart of `aesmc_tpu.statistics`: empirical mean and variance over
-weighted particles, (log) effective sample size, and ancestral sampling
+weighted particles (also per time step of a stacked sequence), (log)
+effective sample size, and ancestral sampling
 of (latents, observations) from the generative model.
 """
 
@@ -46,6 +47,21 @@ def empirical_variance(value, log_weight):
     """Weighted variance over particles -> `[batch, ...]`."""
     return (empirical_expectation(value, log_weight, lambda x: x ** 2) -
             empirical_mean(value, log_weight) ** 2)
+
+
+def empirical_mean_sequence(values, log_weight):
+    """Per-time-step weighted means of a stacked `[T, batch, particle, ...]`
+    tensor (e.g. `infer(...)["latents"]`) under one `[batch, particle]`
+    weight tensor -> `[T, batch, ...]`."""
+    return torch.func.vmap(empirical_mean, in_dims=(0, None))(values,
+                                                              log_weight)
+
+
+def empirical_variance_sequence(values, log_weight):
+    """Per-time-step weighted variances of a stacked sequence ->
+    `[T, batch, ...]` (see `empirical_mean_sequence`)."""
+    return torch.func.vmap(empirical_variance, in_dims=(0, None))(
+        values, log_weight)
 
 
 def log_ess(log_weight):

@@ -80,7 +80,31 @@ Phases, in order; any failure raises and the exit code is not 0:
    routes and prints a profile of one call;
 7. HMM training: the JAX package's emission-learning test on the card
    (the loss must fall by more than 0.5 and the learned means land near
-   the truth).
+   the truth);
+8. graphed train step: `train.train_on_device` on the bench's LGSSM at
+   (T, B, K) = (200, 10, 100), 600 steps in blocks of 100, one step
+   captured in a CUDA graph: its first 8 steps against 8 eager
+   `make_train_step` steps from the same seed (bit-equal), fresh noise at every replay (lr 0: every replay's loss
+   differs), the transition learned (|mult - 0.9| < 0.45, the last 30
+   losses below the first 30), ms/step from CUDA events around blocks
+   beside the eager step, the plain route graphed the same way, one
+   replay under torch.profiler (199 K1 and 199 K2 kernel events on the
+   kernel route, none on the plain route; the idle share against CUDA
+   events around the same profiled replay) and a few graphed steps at
+   K = 10,000 with peak memory;
+9. graphed filters: one `inference.infer` call of the LGSSM filter at
+   (200, 10, 10,000) and of the HMM filter (D = 8) captured in a CUDA
+   graph: a replay's log-Z equals an eager call's from the same generator
+   state, the next replay differs, one replay runs K1 199 times (and K5
+   199 times for the HMM) under torch.profiler, and replays are timed
+   against eager calls in turns;
+10. ESS-adaptive resampling (frac 0.5) on the LGSSM filter at
+   (200, 10, 10,000) against the Kalman filter (< 5% a row, K1 199
+   launches) and one adaptive train step at K = 100 (K1 and K2); the NaN
+   guard (a NaN step raises FloatingPointError and leaves the parameters
+   and Adam's state bit-identical); remat at (200, 10, 10,000): the loss
+   equals the plain step's, the gradients within 1e-5 relative, and both
+   peak memories.
 
 It prints a `{"kernels": [...]}` JSON line before the last, and, as the
 last line, `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -108,9 +132,11 @@ import time
 import numpy as np
 import torch
 
-from aesmc_tpu_torch import inference, losses, resampling, statistics, train
+from aesmc_tpu_torch import (distributions, inference, losses, resampling,
+                             statistics, train)
 from aesmc_tpu_torch.models import hmm, kalman, lgssm
 from aesmc_tpu_torch.noise import NoiseSource
+from aesmc_tpu_torch.state import BatchShapeMode
 from aesmc_tpu_torch.ops import (_build, _launch, gather_sorted_cuda,
                                  range_sum_cuda, resample_cuda,
                                  resample_sorted_cuda, searchsorted_cdf_cuda,
@@ -175,6 +201,9 @@ KERNELS = {
 
 # Kernel launches on each main path, read from the wrappers' counts.
 LAUNCHES = {name: {} for name in KERNELS}
+# Medians (ms) and peak memory (MiB) of the eager paths, for the graphed
+# ones to stand beside.
+EAGER_MS = {}
 
 
 def phase(name):
@@ -1235,6 +1264,7 @@ def train_phase(dev):
                                   warmup=2, repeat=6, each=True)
     for impl, label in (("cuda", "kernel route"), ("torch", "plain route")):
         q1, med, q3 = _quartiles(step_ms[impl])
+        EAGER_MS[f"train {impl}"] = med
         print(f"AESMC train step K={TRAIN_K}, {label}: median {med:.3f} "
               f"ms/step (quartiles {q1:.3f}, {q3:.3f}; n="
               f"{len(step_ms[impl])}) = {1e3 / med:.2f} steps/s", flush=True)
@@ -1267,6 +1297,8 @@ def train_phase(dev):
     for impl in ("torch", "cuda", "cuda", "torch"):
         big_ms[impl] += _cuda_ms(lambda: big_steps[impl](comps, obs, noise),
                                  warmup=1, repeat=2, each=True)
+    EAGER_MS["train K=10000"] = float(np.median(big_ms["cuda"]))
+    EAGER_MS["peak K=10000"] = peak_mb
     for impl, label in (("cuda", "kernel route"), ("torch", "plain route")):
         q1, med, q3 = _quartiles(big_ms[impl])
         print(f"AESMC train step K={K}, {label}: median {med:.3f} ms/step "
@@ -1463,6 +1495,461 @@ def hmm_train_phase(dev):
                              f"-> {last}, error {err}")
 
 
+# ---- Slice A3: the graphed train step, graphed filters, ESS-adaptive
+# resampling, the NaN guard and remat.
+
+# Graphed train step (phase 8): steps and steps a block of the main run,
+# and Adam's learning rate (bench.py:266).
+GRAPH_STEPS, GRAPH_BLOCK = 600, 100
+GRAPH_LR = 1e-2
+# The graphed plain route's run, twice (before and after the main run).
+GRAPH_PLAIN_STEPS, GRAPH_PLAIN_BLOCK = 300, 50
+# Steps compared with eager `make_train_step` steps from the same seed:
+# the losses must be bit-equal.
+GRAPH_EQUAL_STEPS = 8
+# Replays and eager calls a turn when timing the graphed filters.
+FILTER_REPLAYS, FILTER_EAGER_CALLS = 20, 4
+
+def _graph_learner(dev, lr):
+    """The bench's training components (bench.py:261-280): the learner's
+    transition from 0.5, emission and proposal trainable, Adam at ``lr``
+    capturable; and the generative model the observations come from."""
+    comps = (lgssm.Initial(0.0, 1.0),
+             lgssm.Transition(0.5, TRANSITION_SCALE).to(dev),
+             lgssm.Emission(EMISSION_MULT, EMISSION_SCALE).to(dev),
+             lgssm.Proposal.create(
+                 1.0, 1.0, torch.Generator().manual_seed(0)).to(dev))
+    optimizer = torch.optim.Adam(train.get_chained_params(*comps), lr=lr,
+                                 capturable=True)
+    gen = (lgssm.Initial(0.0, 1.0),
+           lgssm.Transition(TRANSITION_MULT, TRANSITION_SCALE).to(dev),
+           lgssm.Emission(EMISSION_MULT, EMISSION_SCALE).to(dev))
+    return comps, optimizer, gen
+
+
+class _BlockTimer:
+    """A `train_on_device` callback: a CUDA event at the end of each block
+    (after the block's loss is read), and the block's mean loss."""
+
+    def __init__(self):
+        self.events, self.steps, self.losses = [], [], []
+
+    def __call__(self, done, mean_loss, components):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.events.append(event)
+        self.steps.append(done)
+        self.losses.append(mean_loss)
+
+    def ms_per_step(self, first=1):
+        """ms a step of every block from block ``first`` on (0-based; the
+        blocks before it hold the warm-up and the capture)."""
+        torch.cuda.synchronize()
+        return [self.events[i - 1].elapsed_time(self.events[i]) /
+                (self.steps[i] - self.steps[i - 1])
+                for i in range(first, len(self.events))]
+
+
+def _on_device(dev, num_steps, block, k=None, lr=None, seed=21,
+               callback=None, **kwargs):
+    """`train.train_on_device` on the bench's LGSSM at (T, B) = (200, 10),
+    K = ``k`` (default `TRAIN_K`) and Adam at ``lr`` (default
+    `GRAPH_LR`); returns (components, losses)."""
+    comps, optimizer, gen = _graph_learner(
+        dev, GRAPH_LR if lr is None else lr)
+    return train.train_on_device(
+        *comps, k or TRAIN_K, "aesmc", gen, T, B, num_steps,
+        optimizer=optimizer,
+        noise=NoiseSource.seeded(seed, dev), steps_per_call=block,
+        callback=callback, **kwargs)
+
+
+def _eager_steps(dev, num_steps, seed=21):
+    """``num_steps`` eager `make_train_step` steps, each on observations
+    sampled from the generative model through the same noise source, as
+    `train_on_device` draws them; returns the losses."""
+    comps, optimizer, gen = _graph_learner(dev, GRAPH_LR)
+    noise = NoiseSource.seeded(seed, dev)
+    step = train.make_train_step(TRAIN_K, "aesmc", optimizer)
+    losses_ = []
+    for _ in range(num_steps):
+        with torch.no_grad():
+            _, obs = statistics.sample_from_prior(*gen, T, B, noise)
+        losses_.append(step(comps, obs, noise))
+    return torch.stack(losses_)
+
+
+def _kernel_events(prof):
+    """{profiler kernel name: launches} for the port's kernels, and the
+    device time of every kernel, copy and fill, in ms."""
+    from torch.autograd import DeviceType
+    events = prof.key_averages()
+    counts = {name: sum(e.count for e in events if name in e.key)
+              for name in sorted({n for _, _, n, _ in KERNELS.values()})}
+    on_card = [e for e in events
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    device_us = sum(getattr(e, "device_time_total",
+                            getattr(e, "cuda_time_total", 0.0))
+                    for e in on_card)
+    print(f"{sum(e.count for e in on_card)} kernels, copies and fills on the"
+          f" card", flush=True)
+    launch = [e for e in events if e.key == "cudaGraphLaunch"]
+    if launch:
+        print(f"cudaGraphLaunch: {launch[0].count} calls, "
+              f"{launch[0].cpu_time_total / launch[0].count / 1e3:.3f} ms "
+              f"of host time each", flush=True)
+    return counts, device_us / 1e3
+
+
+def _report_profile(prof, label, want, span_ms, wall_ms):
+    """Prints the device time of one profiled replay by kernel, checks the
+    port's kernels' launches against ``want`` ({profiler name:
+    launches}) and prints the idle share: against ``span_ms``, the CUDA
+    events' span around the same profiled replay, and against
+    ``wall_ms``, the median of runs without the profiler. Both ratios are
+    printed unclamped; a negative one means the busy time read by the
+    profiler exceeds that span."""
+    counts, device_ms = _kernel_events(prof)
+    print(f"profile of one replay, {label}: device time {device_ms:.3f} ms;"
+          f" the port's kernels {counts}", flush=True)
+    print(prof.key_averages().table(sort_by="cuda_time_total",
+                                    row_limit=12), flush=True)
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{label}: {counts[name]} {name} events in "
+                                 f"one replay, not {n}")
+    print(f"{label}: device busy {device_ms:.3f} ms in a profiled replay "
+          f"whose CUDA events span {span_ms:.3f} ms: idle share "
+          f"{1 - device_ms / span_ms:.2%} (same run); against the median "
+          f"{wall_ms:.3f} ms of replays without the profiler "
+          f"{1 - device_ms / wall_ms:.2%}", flush=True)
+    return counts, device_ms
+
+
+def _profile_replay(run, label, want, wall_ms):
+    """Runs ``run`` (one replay) under torch.profiler between two CUDA
+    events and reports it (`_report_profile`)."""
+    from torch.profiler import ProfilerActivity, profile
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+    return _report_profile(prof, label, want, start.elapsed_time(end),
+                           wall_ms)
+
+
+def _profiled_train_replay(dev, label, want, wall_ms, **kwargs):
+    """One replay of `train_on_device`'s graph under the profiler: the
+    first block is the warm-up, the capture and its first replay; the
+    profiler and a CUDA event start in its callback, and the second
+    block, one more replay, ends at a second event in the next callback
+    (after the block's loss is read)."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    events = []
+
+    def mark(done, mean_loss, components):
+        if not events:
+            torch.cuda.synchronize()
+            prof.start()
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    _on_device(dev, train.WARMUP_STEPS + 2, train.WARMUP_STEPS + 1,
+               callback=mark, **kwargs)
+    torch.cuda.synchronize()
+    prof.stop()
+    return _report_profile(prof, f"train step, {label}", want,
+                           events[0].elapsed_time(events[1]), wall_ms)
+
+
+def graph_train_phase(dev):
+    phase(f"8 graphed train step: train_on_device, T={T}, B={B}, "
+          f"K={TRAIN_K}, {GRAPH_STEPS} steps in blocks of {GRAPH_BLOCK}")
+    # The first steps against eager steps from the same seed and Adam.
+    _, graphed = _on_device(dev, GRAPH_EQUAL_STEPS, GRAPH_EQUAL_STEPS)
+    eager = _eager_steps(dev, GRAPH_EQUAL_STEPS)
+    exact = torch.equal(graphed, eager)
+    print(f"first {GRAPH_EQUAL_STEPS} steps ({train.WARMUP_STEPS} warm-up, "
+          f"{GRAPH_EQUAL_STEPS - train.WARMUP_STEPS} replays) against eager "
+          f"make_train_step steps from the same seed: bit-equal {exact}; "
+          f"losses {graphed.cpu().numpy()}", flush=True)
+    if not exact:
+        raise AssertionError(f"graphed losses differ from eager: "
+                             f"{graphed} vs {eager}")
+
+    # Fresh noise at every replay: with lr 0 the parameters stay, so the
+    # replays' losses differ only by their noise.
+    _, frozen = _on_device(dev, train.WARMUP_STEPS + 3, 10, lr=0.0)
+    replays = frozen[train.WARMUP_STEPS:].cpu().tolist()
+    print(f"lr 0: the replays' losses {replays}", flush=True)
+    if len(set(replays)) != len(replays):
+        raise AssertionError(f"two replays drew the same noise: {replays}")
+
+    # The plain route graphed, then the kernel route (the main path),
+    # then the plain route again.
+    timers = {"torch": _BlockTimer(), "cuda": _BlockTimer()}
+    _on_device(dev, GRAPH_PLAIN_STEPS, GRAPH_PLAIN_BLOCK,
+               callback=timers["torch"], resampling_implementation="torch")
+    reset_counts()
+    comps, hist = _on_device(dev, GRAPH_STEPS, GRAPH_BLOCK,
+                             callback=timers["cuda"])
+    counts = read_counts("graphed train K=100")
+    plain_again = _BlockTimer()
+    _on_device(dev, GRAPH_PLAIN_STEPS, GRAPH_PLAIN_BLOCK,
+               callback=plain_again, resampling_implementation="torch")
+    # The wrappers count at the warm-up steps and the capture; replays
+    # launch from the graph.
+    captured = (train.WARMUP_STEPS + 1) * (T - 1)
+    if (counts["resample_systematic"], counts["range_sum"]) != (captured,
+                                                                captured):
+        raise AssertionError(f"train_on_device launched {counts} through "
+                             f"the wrappers, not K1 and K2 {captured} times")
+    ms = {"cuda": timers["cuda"].ms_per_step(),
+          "torch": timers["torch"].ms_per_step() +
+          plain_again.ms_per_step()}
+    for impl, label in (("cuda", "kernel route"), ("torch", "plain route")):
+        q1, med, q3 = _quartiles(ms[impl])
+        EAGER_MS[f"graphed train {impl}"] = med
+        print(f"graphed AESMC train step K={TRAIN_K}, {label}: median "
+              f"{med:.3f} ms/step (quartiles {q1:.3f}, {q3:.3f}; blocks "
+              f"{np.round(ms[impl], 3).tolist()}) = {1e3 / med:.2f} "
+              f"steps/s; eager make_train_step "
+              f"{EAGER_MS.get(f'train {impl}', float('nan')):.3f} ms/step "
+              f"(phase 5)", flush=True)
+    mult = comps[1].mult.item()
+    first, last = float(hist[:30].mean()), float(hist[-30:].mean())
+    print(f"learning: transition {mult:.4f} (truth {TRANSITION_MULT}, "
+          f"bound 0.45), mean loss of the first 30 steps {first:.4f}, of "
+          f"the last 30 {last:.4f}", flush=True)
+    if not (abs(mult - TRANSITION_MULT) < 0.45 and last < first and
+            bool(torch.isfinite(hist).all())):
+        raise AssertionError(f"train_on_device did not learn: {mult}, "
+                             f"{first} -> {last}")
+
+    for impl, label in (("cuda", "kernel route"), ("torch", "plain route")):
+        n = T - 1 if impl == "cuda" else 0
+        _profiled_train_replay(
+            dev, label,
+            {"resample_systematic_kernel": n, "range_sum_kernel": n},
+            EAGER_MS[f"graphed train {impl}"],
+            resampling_implementation=impl)
+
+    # The filter's width: graphed steps at K=10,000, with and without
+    # remat, and peak memory. Blocks of 3 steps: the warm-up, the capture
+    # with two replays, then two blocks of three replays, timed.
+    block = train.WARMUP_STEPS
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        big = _BlockTimer()
+        _on_device(dev, 4 * block, block, k=K, callback=big, remat=remat)
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        print(f"graphed AESMC train step K={K}{', remat' if remat else ''}:"
+              f" {np.round(big.ms_per_step(first=2), 3).tolist()} ms/step "
+              f"(eager {EAGER_MS.get('train K=10000', float('nan')):.3f}); "
+              f"peak device memory {peak_mb:.1f} MiB (eager step "
+              f"{EAGER_MS.get('peak K=10000', float('nan')):.1f} MiB)",
+              flush=True)
+
+
+def _graphed_filter(dev, label, call, noise, want):
+    """Captures one filter call (``call`` returns its log-Z), checks a
+    replay against an eager call from the same generator state, times
+    replays against eager calls in turns, and profiles one replay."""
+    with torch.no_grad():
+        train._warm_up(call, 1)
+        reset_counts()
+        graph, log_z = train._capture(call, noise.generator)
+        read_counts(f"graphed {label} (capture)")
+        state = noise.generator.get_state()
+        graph.replay()
+        replayed = log_z.clone()
+        graph.replay()
+        second = log_z.clone()
+        noise.generator.set_state(state)
+        eager = call()
+        print(f"graphed {label}: replay log-Z {replayed.cpu().numpy()}; "
+              f"equal to an eager call from the same generator state "
+              f"{torch.equal(replayed, eager)}; the next replay differs "
+              f"{not torch.equal(replayed, second)}", flush=True)
+        if not torch.equal(replayed, eager):
+            raise AssertionError(f"graphed {label} differs from eager: "
+                                 f"{replayed} vs {eager}")
+        if torch.equal(replayed, second):
+            raise AssertionError(f"two replays of {label} drew the same "
+                                 f"noise")
+        runs = {"eager": [], "graph": []}
+        for which in ("eager", "graph", "graph", "eager"):
+            fn, n = ((call, FILTER_EAGER_CALLS) if which == "eager" else
+                     (graph.replay, FILTER_REPLAYS))
+            runs[which] += _cuda_ms(fn, warmup=1, repeat=n, each=True)
+        out = {}
+        for which in ("graph", "eager"):
+            q1, med, q3 = _quartiles(runs[which])
+            out[which] = med
+            print(f"{label}, {which}: median {med:.3f} ms/call (quartiles "
+                  f"{q1:.3f}, {q3:.3f}; n={len(runs[which])}) = "
+                  f"{B * K * T / med * 1e3:.4g} particle-steps/s",
+                  flush=True)
+        _profile_replay(graph.replay, label, want, out["graph"])
+
+
+def graph_filter_phase(dev):
+    phase(f"9 graphed filters: one infer call captured, LGSSM at (T, B, K) "
+          f"= ({T}, {B}, {K:,}), HMM with D={HMM_STATES}")
+    comps, obs = _bench_lgssm(dev, TRANSITION_MULT)
+    noise = NoiseSource.seeded(31, dev)
+
+    def lgssm_call():
+        return inference.infer(
+            "smc", obs, *comps, K, noise=noise,
+            return_log_marginal_likelihood=True, return_latents=False,
+            return_log_weight=False)["log_marginal_likelihood"]
+
+    _graphed_filter(dev, "LGSSM filter", lgssm_call, noise,
+                    {"resample_systematic_kernel": T - 1})
+    hcomps, hobs = _hmm_data(dev, T, B, 0, num_states=HMM_STATES)
+    hnoise = NoiseSource.seeded(32, dev)
+
+    def hmm_call():
+        return inference.infer(
+            "smc", hobs, *hcomps, K, noise=hnoise,
+            return_log_marginal_likelihood=True, return_latents=False,
+            return_log_weight=False)["log_marginal_likelihood"]
+
+    _graphed_filter(dev, "HMM filter", hmm_call, hnoise,
+                    {"resample_systematic_kernel": T - 1,
+                     "gather_sorted_kernel": T - 1})
+
+
+class _NanEmission:
+    """The bench's emission with a NaN scale from time step 2 on."""
+
+    def __call__(self, latents=None, time=None, previous_observations=None):
+        scale = float("nan") if time >= 2 else EMISSION_SCALE
+        return distributions.Normal(
+            latents[-1], scale,
+            batch_shape_mode=BatchShapeMode.FULLY_EXPANDED)
+
+
+def adaptive_phase(dev):
+    phase(f"10 ESS-adaptive resampling, the NaN guard and remat, T={T}, "
+          f"B={B}")
+    # The adaptive filter at K=10,000 against the Kalman filter.
+    comps, obs = _bench_lgssm(dev, TRANSITION_MULT)
+    optimal = lgssm.optimal_proposal(
+        0.0, 1.0, TRANSITION_MULT, TRANSITION_SCALE, EMISSION_MULT,
+        EMISSION_SCALE).to(dev)
+    reset_counts()
+    with torch.no_grad():
+        out = inference.infer(
+            "smc", obs, *comps[:3], optimal, K,
+            noise=NoiseSource.seeded(41, dev), resampling_criterion=0.5,
+            return_log_marginal_likelihood=True, return_latents=False,
+            return_ancestral_indices=True)
+    counts = read_counts("adaptive filter")
+    if counts["resample_systematic"] != T - 1:
+        raise AssertionError(f"the adaptive filter launched {counts}")
+    anc = out["ancestral_indices"]
+    kept = (anc == torch.arange(K, device=dev)).all(dim=-1)
+    params = kalman.KalmanParams(
+        initial_mean=0.0, initial_variance=1.0,
+        transition_mult=TRANSITION_MULT, transition_offset=0.0,
+        transition_variance=TRANSITION_SCALE ** 2,
+        emission_mult=EMISSION_MULT, emission_offset=0.0,
+        emission_variance=EMISSION_SCALE ** 2)
+    obs_np = obs.cpu().numpy()
+    exact = np.array([kalman.kalman_filter(obs_np[:, b], params)[4]
+                      for b in range(B)])
+    rel = np.abs(out["log_marginal_likelihood"].cpu().numpy() - exact) / \
+        np.abs(exact)
+    print(f"adaptive filter (frac 0.5) at K={K:,}: {T - 1} K1 launches; "
+          f"{int((~kept).sum())} of {kept.numel()} row-steps resampled; "
+          f"log-Z vs Kalman: max relative error {rel.max():.3e} (bound "
+          f"{LOG_Z_REL_TOL})", flush=True)
+    if not np.all(rel < LOG_Z_REL_TOL):
+        raise AssertionError(f"adaptive log-Z off the Kalman filter: {rel}")
+
+    # One adaptive train step at K=100: K1 forward, K2 backward.
+    tcomps, tobs = _bench_lgssm(dev, 0.5)
+    optimizer = torch.optim.Adam(train.get_chained_params(*tcomps), lr=1e-2)
+    step = train.make_train_step(TRAIN_K, "aesmc", optimizer,
+                                 resampling_criterion=0.5)
+    reset_counts()
+    loss = step(tcomps, tobs, NoiseSource.seeded(42, dev))
+    counts = read_counts("adaptive train K=100")
+    if (counts["resample_systematic"], counts["range_sum"]) != (T - 1,
+                                                                T - 1):
+        raise AssertionError(f"the adaptive step launched {counts}")
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"adaptive step loss {loss}")
+    print(f"adaptive train step K={TRAIN_K}: loss {float(loss):.4f}, K1 and "
+          f"K2 {T - 1} launches each", flush=True)
+
+    # The NaN guard: a NaN step raises before the optimizer step.
+    step = train.make_train_step(TRAIN_K, "aesmc", optimizer,
+                                 nan_check=True)
+    step(tcomps, tobs, NoiseSource.seeded(43, dev))
+    params = [p.detach().clone() for p in train.get_chained_params(*tcomps)]
+    adam = [{k: v.clone() for k, v in s.items()}
+            for s in optimizer.state.values()]
+    nan_comps = (tcomps[0], tcomps[1], _NanEmission(), tcomps[3])
+    try:
+        step(nan_comps, tobs, NoiseSource.seeded(44, dev))
+    except FloatingPointError as err:
+        print(f"NaN step raised FloatingPointError: {err}", flush=True)
+    else:
+        raise AssertionError("a NaN step did not raise")
+    same = all(torch.equal(a, p) for a, p in
+               zip(params, train.get_chained_params(*tcomps)))
+    same_adam = all(torch.equal(v, s[k]) for a, s in
+                    zip(adam, optimizer.state.values())
+                    for k, v in a.items())
+    print(f"after the NaN step: parameters bit-identical {same}, Adam "
+          f"state bit-identical {same_adam}", flush=True)
+    if not (same and same_adam):
+        raise AssertionError("the NaN step changed the parameters or Adam")
+
+    # remat at the filter's width: loss and gradients against the plain
+    # step, and both peak memories.
+    rcomps, robs = _bench_lgssm(dev, 0.5)
+    params = train.get_chained_params(*rcomps)
+    results = {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        loss = losses.get_loss(robs, K, "aesmc", *rcomps,
+                               noise=NoiseSource.seeded(45, dev),
+                               remat=remat)
+        grads = torch.autograd.grad(loss, params)
+        counts = read_counts(f"{'remat' if remat else 'plain'} loss+grad "
+                             f"K={K}")
+        results[remat] = (loss.detach(), grads,
+                          torch.cuda.max_memory_allocated() / 2 ** 20,
+                          counts)
+    (loss_p, grads_p, peak_p, _), (loss_r, grads_r, peak_r, counts_r) = \
+        results[False], results[True]
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(grads_r, grads_p))
+    k1, k2 = counts_r["resample_systematic"], counts_r["range_sum"]
+    print(f"remat at K={K:,}: loss {float(loss_r):.6f}, equal to the plain "
+          f"step's {torch.equal(loss_r, loss_p)}; gradients within relative "
+          f"error {worst:.3g} (bound {GRAD_RTOL}); K1 {k1} launches "
+          f"(forward and recompute), K2 {k2}; peak device memory "
+          f"{peak_r:.1f} MiB "
+          f"with remat, {peak_p:.1f} MiB without (766.9 MiB: eager "
+          f"train step, PERF.md section 2)", flush=True)
+    if not torch.equal(loss_r, loss_p) or worst > GRAD_RTOL:
+        raise AssertionError(f"remat differs: loss {loss_r} vs {loss_p}, "
+                             f"gradients {worst}")
+
+
 def _build_other(other, sources):
     """Builds each of ``sources`` from directory ``other`` with `_build`'s
     flags, one nvcc each, all started together, into `compare/` of the
@@ -1597,6 +2084,9 @@ def main():
     train_phase(dev)
     hmm_filter_phase(dev)
     hmm_train_phase(dev)
+    graph_train_phase(dev)
+    graph_filter_phase(dev)
+    adaptive_phase(dev)
     kernels = []
     for name, (module, _, _, replaces) in KERNELS.items():
         launches = sum(LAUNCHES[name].values())

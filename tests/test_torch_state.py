@@ -170,3 +170,19 @@ def test_default_noise_source_shapes_and_reproducibility():
     assert torch.equal(a, b) and a.dtype == torch.float32
     u = NoiseSource.seeded(7, device="cpu").uniform((B, 1))
     assert u.shape == (B, 1) and bool(((u >= 0) & (u < 1)).all())
+
+
+def test_normal_with_python_number_parameters():
+    """A Python-number loc or scale becomes a fill on the value's device
+    (not a copy from the host): the same numbers as a float32 tensor."""
+    rng = np.random.RandomState(4)
+    value = rng.randn(B, K).astype(np.float32)
+    want = np.asarray(jax_dists.Normal(0.3, 0.7).log_prob(jnp.asarray(value)))
+    got = distributions.Normal(0.3, 0.7).log_prob(_t(value))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    same = distributions.Normal(torch.tensor(0.3), torch.tensor(0.7))
+    assert torch.equal(same.log_prob(_t(value)), got)
+    eps = rng.randn(B, K).astype(np.float32)
+    assert torch.equal(distributions.Normal(0.3, 0.7).rsample((B, K),
+                                                              _t(eps)),
+                       0.3 + torch.tensor(0.7) * _t(eps))

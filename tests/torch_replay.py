@@ -24,7 +24,10 @@ def tensor(x):
 
 
 class ReplayNoise:
-    """A noise source that hands out given draws, each kind in order."""
+    """A noise source on the CPU that hands out given draws, each kind in
+    order."""
+
+    device = torch.device("cpu")
 
     def __init__(self, uniforms=(), normals=(), exponentials=(),
                  gumbels=()):
