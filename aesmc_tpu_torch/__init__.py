@@ -3,14 +3,16 @@ one NVIDIA H100.
 
 The port of `aesmc_tpu` (JAX, TPU), which stays beside it as the
 reference. Module names mirror the JAX package. Ported so far: the SMC
-filtering path (`inference.infer` with systematic, stratified and
-multinomial resampling, at every step or ESS-adaptive, with an optional
-NaN guard and rematerialization) and the AESMC/IWAE training path
-(`losses`, `train` with `checkpoint`, and `train.train_on_device`, one
-train step captured in a CUDA graph), on the LGSSM, the
-conjugate-Gaussian model and the discrete-latent HMM (int32 particles),
-with every resampling kernel of the JAX package, and the backward, as
-hand-written CUDA (`ops`).
+filtering path (`inference.infer` with systematic, stratified,
+multinomial, residual and soft resampling, at every step or
+ESS-adaptive, the auxiliary particle filter, history windows, an
+optional NaN guard and rematerialization) and the AESMC/IWAE training
+path (`losses`, `train` with `checkpoint`, and `train.train_on_device`,
+one train step captured in a CUDA graph), on the LGSSM, the
+D-dimensional LGSSM, stochastic volatility, the conjugate-Gaussian model
+and the discrete-latent HMM (int32 particles), with every distribution
+of the JAX package, and every resampling kernel of the JAX package, and
+the backward, as hand-written CUDA (`ops`).
 Entry points put their tensors on the card unless the caller asks for
 the CPU (`device`). This package never imports JAX.
 """

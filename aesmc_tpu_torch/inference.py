@@ -1,12 +1,12 @@
 """SMC / importance-sampling inference engine.
 
-Counterpart of the Markov branch of `aesmc_tpu.inference.infer`: one
-`infer` entry point for 'is' and for 'smc' with systematic, stratified or
-multinomial resampling at every step, the same return-dict vocabulary,
-detached ancestor indices and backward lineage tracing
-(`get_resampled_latents`). Gradients flow through the resampled particle
-values, never through ancestor indices or the resampling weights, as in
-the JAX package.
+Counterpart of `aesmc_tpu.inference.infer`: one `infer` entry point for
+'is' and for 'smc' with systematic, stratified, multinomial, residual or
+soft resampling at every step, the same return-dict vocabulary, detached
+ancestor indices and backward lineage tracing (`get_resampled_latents`).
+Gradients flow through the resampled particle values, never through
+ancestor indices or the resampling weights, as in the JAX package; soft
+resampling's corrected weights also carry the gradient of the weights.
 
 The time loop is a plain Python loop (PyTorch runs eagerly); the t = 0 step
 stays hoisted, with `time` the int 0, so that user components can branch on
@@ -16,19 +16,22 @@ host.
 
 User-component contract (as in the JAX package): four callables returning
 `distributions.Distribution`s (or dicts of them). `previous_latents` and
-`latents` are length-1 lists holding the previous / current latent;
-`previous_observations` is a length-1 list holding y_{t-1};
-`observations` is an `ObservationSequence`.
+`latents` are lists holding the last W latents (W = `history_window`, 1
+by default: the Markov path) and the current one; `previous_observations`
+holds the last W observations, y_{t-1} last; `observations` is an
+`ObservationSequence`.
 
 Latents may be float32 (reparameterized proposals) or integer (categorical
 proposals: the HMM's int32 states, drawn detached); integer particles go
 through the time loop, resampling (K5 on the card), lineage tracing and
 the returned stacks in their own dtype.
 
-ESS-adaptive resampling (`resampling_criterion`), the NaN guard
-(`nan_check`) and rematerialization (`remat`, `torch.utils.checkpoint` per
-time step) follow the JAX package. Not ported yet: `lookahead`,
-`history_window` > 1, soft and OT resampling.
+ESS-adaptive resampling (`resampling_criterion`), the auxiliary particle
+filter (`lookahead`), history windows (`history_window`), the NaN guard
+(`nan_check`) and rematerialization (`remat`, `torch.utils.checkpoint`
+per time step) follow the JAX package. Not ported yet: OT resampling
+(slice C of the port), `mesh` and the callable (distributed)
+`resampling_implementation` (slice E).
 """
 
 from __future__ import annotations
@@ -134,9 +137,12 @@ def infer(inference_algorithm: str,
           proposal,
           num_particles: int,
           noise: Optional[NoiseSource] = None,
+          lookahead=None,
           resampling_method: str = "systematic",
           resampling_implementation: str = "auto",
           resampling_criterion="always",
+          soft_resampling_alpha: float = 0.5,
+          history_window: int = 1,
           nan_check: bool = False,
           remat: bool = False,
           return_log_marginal_likelihood: bool = False,
@@ -158,18 +164,42 @@ def infer(inference_algorithm: str,
         num_particles: number of particles K.
         noise: the source of all random draws; defaults to
             `NoiseSource.seeded(0)` on the observations' device.
-        resampling_method: 'systematic', 'stratified' or 'multinomial'.
+        lookahead: optional callable ``(previous_latents, time,
+            observations) -> [batch, K]`` log-scores, which make SMC an
+            auxiliary particle filter: each step resamples from the
+            first-stage weights ``w exp(nu)`` (the scores ride the
+            resampling launch as one more column) and starts the next
+            weights from ``lse(logw + nu) - lse(logw) - nu[a]``, so that
+            log-Z stays unbiased for any score. It sees the
+            pre-resampling latents. With nu = 0 the filter equals the
+            plain one bit for bit. 'smc' with a discrete method only.
+        resampling_method: 'systematic', 'stratified', 'multinomial',
+            'residual' or 'soft'. 'soft' draws the ancestors from the
+            tempered mixture alpha w + (1 - alpha) / K and starts the next
+            weights from the corrected log(w[a] / q[a]), differentiable in
+            the weights (``soft_resampling_alpha`` is alpha; at alpha = 1
+            it is 'multinomial').
         resampling_implementation: 'auto' | 'cuda' | 'torch' (see
             `resampling`).
         resampling_criterion: 'always' (resample at every step) or a
-            float ``frac``: ESS-adaptive SMC ('smc' only). Every row goes
-            through the same resampling call at every step, so the noise
-            drawn does not depend on the weights; a row whose effective
-            sample size is below ``frac * K`` takes the resampled
-            particles and contributes one logmeanexp term to log-Z, the
-            other rows keep their particles, identity ancestors and
-            accumulated weights. frac = 0 never resamples (the IS
-            estimator), a huge frac always does.
+            float ``frac``: ESS-adaptive SMC ('smc' only; not with
+            'soft'). Every row goes through the same resampling call at
+            every step, so the noise drawn does not depend on the
+            weights; a row whose effective sample size is below ``frac *
+            K`` takes the resampled particles and contributes one
+            logmeanexp term to log-Z, the other rows keep their
+            particles, identity ancestors and accumulated weights. frac =
+            0 never resamples (the IS estimator), a huge frac always
+            does.
+        soft_resampling_alpha: alpha of 'soft'.
+        history_window: W >= 1. Components see length-W
+            ``previous_latents``/``previous_observations`` lists ([-1]
+            the most recent), padded before t = 0 with copies of the
+            t = 0 values. With W > 1 the engine carries the last W
+            original latents, regathers them with each step's ancestors
+            (a torch gather; the resampling launch finds only the
+            indices), and the emission sees the un-resampled originals
+            plus the new latent, as the JAX package does.
         nan_check: raise FloatingPointError after the time loop when any
             pre-resampling log-weight was NaN ('smc' only): the steps OR
             one flag on the device, read once at the end.
@@ -188,11 +218,12 @@ def infer(inference_algorithm: str,
     """
     result, has_nan = _infer(
         inference_algorithm, observations, initial, transition, emission,
-        proposal, num_particles, noise=noise,
+        proposal, num_particles, noise=noise, lookahead=lookahead,
         resampling_method=resampling_method,
         resampling_implementation=resampling_implementation,
-        resampling_criterion=resampling_criterion, nan_check=nan_check,
-        remat=remat,
+        resampling_criterion=resampling_criterion,
+        soft_resampling_alpha=soft_resampling_alpha,
+        history_window=history_window, nan_check=nan_check, remat=remat,
         return_log_marginal_likelihood=return_log_marginal_likelihood,
         return_latents=return_latents,
         return_original_latents=return_original_latents,
@@ -259,16 +290,10 @@ def _where_rows(do, resampled, kept):
          zip(resampling._leaves(resampled), resampling._leaves(kept))]))
 
 
-def _infer(inference_algorithm, observations, initial, transition, emission,
-           proposal, num_particles, noise=None,
-           resampling_method="systematic", resampling_implementation="auto",
-           resampling_criterion="always", nan_check=False, remat=False,
-           return_log_marginal_likelihood=False, return_latents=True,
-           return_original_latents=False, return_log_weight=True,
-           return_log_weights=False, return_ancestral_indices=False):
-    """`infer`, returning (result, NaN flag) without reading the flag: a
-    device bool that is True when any pre-resampling log-weight was NaN,
-    or None when ``nan_check`` is off or the algorithm is 'is'."""
+def _check_options(inference_algorithm, resampling_method,
+                   resampling_criterion, lookahead, history_window,
+                   return_original_latents, return_ancestral_indices):
+    """The JAX package's ValueErrors on combinations `infer` refuses."""
     if inference_algorithm not in ("is", "smc"):
         raise ValueError(
             "inference_algorithm must be either is or smc. currently = {}"
@@ -277,7 +302,41 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
         raise ValueError("return_original_latents shouldn't be True for is")
     if inference_algorithm == "is" and return_ancestral_indices:
         raise ValueError("return_ancestral_indices shouldn't be True for is")
+    if history_window < 1:
+        raise ValueError(
+            f"history_window must be >= 1. currently = {history_window}")
+    if resampling_method == "soft" and resampling_criterion != "always":
+        raise ValueError(
+            "soft resampling does not combine with ESS-adaptive "
+            "criteria (resample-or-not is already softened)")
+    if lookahead is not None:
+        if inference_algorithm != "smc":
+            raise ValueError(
+                "lookahead (auxiliary particle filter) requires "
+                "inference_algorithm='smc' - importance sampling never "
+                "resamples, so there is nothing to steer")
+        if resampling_method == "soft":
+            raise ValueError(
+                "lookahead does not combine with differentiable "
+                f"resampling_method={resampling_method!r}; use a "
+                "discrete method (systematic/stratified/multinomial/"
+                "residual)")
 
+
+def _infer(inference_algorithm, observations, initial, transition, emission,
+           proposal, num_particles, noise=None, lookahead=None,
+           resampling_method="systematic", resampling_implementation="auto",
+           resampling_criterion="always", soft_resampling_alpha=0.5,
+           history_window=1, nan_check=False, remat=False,
+           return_log_marginal_likelihood=False, return_latents=True,
+           return_original_latents=False, return_log_weight=True,
+           return_log_weights=False, return_ancestral_indices=False):
+    """`infer`, returning (result, NaN flag) without reading the flag: a
+    device bool that is True when any pre-resampling log-weight was NaN,
+    or None when ``nan_check`` is off or the algorithm is 'is'."""
+    _check_options(inference_algorithm, resampling_method,
+                   resampling_criterion, lookahead, history_window,
+                   return_original_latents, return_ancestral_indices)
     stacked_obs = stack_observations(observations)
     obs_seq = ObservationSequence(stacked_obs)
     num_timesteps = len(obs_seq)
@@ -288,9 +347,11 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
     is_smc = inference_algorithm == "smc"
     implementation = resampling.resolve_implementation(
         first.device, resampling_method, resampling_implementation)
+    soft = resampling_method == "soft"
     adaptive = is_smc and resampling_criterion != "always"
     if adaptive:
         ess_threshold = float(resampling_criterion) * num_particles
+    window = history_window
 
     # ---- t = 0 (hoisted: `time` is the int 0).
     proposal_dist = proposal(time=0, observations=obs_seq)
@@ -305,28 +366,46 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
     log_num_particles = _stdmath.log(num_particles)
     # Ancestor indices feed lineage tracing and the ancestral-indices output
     # only; without either the kernel skips computing them (and the stacked
-    # indices are then [T-1, 0]).
-    need_ancestors = bool(return_latents or return_ancestral_indices)
+    # indices are then [T-1, 0]). The windowed branch gathers its history
+    # with them, so it always needs them.
+    need_ancestors = bool(return_latents or return_ancestral_indices or
+                          window > 1)
     need_original = return_latents or (is_smc and return_original_latents)
     need_stacked_weights = return_log_weights or not is_smc
 
-    def step(t, prev_latent, prev_log_weight, noise):
-        """Time step t >= 1: (latent_t, log_weight_t, ancestral_index,
-        contribution to log-Z)."""
-        time = TimeIndex(t)
-        prev_obs_list = [obs_seq[t - 1]]
-        ancestral_index = contribution = None
-        if is_smc:
-            ancestral_index, previous_latent = resampling._resample(
-                prev_log_weight, noise, prev_latent, resampling_method,
+    def resample(prev_log_weight, values, noise, time, prev_latents):
+        """The resampling of a step ('smc'): (ancestral_index or None,
+        ``values`` resampled (None for None: then only the indices are
+        drawn), the base of the next log-weights or None for zeros, the
+        step's contribution to log-Z)."""
+        log_sum = torch.logsumexp(prev_log_weight, dim=1)
+        contribution = log_sum - log_num_particles
+        base = None
+        if soft:
+            idx, base, out = resampling._soft_resample(
+                prev_log_weight, noise, values, soft_resampling_alpha,
                 implementation, need_ancestors)
-            if ancestral_index is None:
-                ancestral_index = torch.zeros(
-                    (0,), dtype=torch.int32, device=first.device)
-            log_sum = torch.logsumexp(prev_log_weight, dim=1)
-            contribution = log_sum - log_num_particles
+        elif lookahead is not None:
+            # Auxiliary PF: the scores ride the launch as one more column.
+            log_nu = lookahead(previous_latents=prev_latents, time=time,
+                               observations=obs_seq)
+            first_stage = prev_log_weight + log_nu
+            wrapped = ({"nu": log_nu} if values is None else
+                       {"latent": values, "nu": log_nu})
+            idx, out = resampling._resample(
+                first_stage, noise, wrapped, resampling_method,
+                implementation, need_ancestors)
+            base = (torch.logsumexp(first_stage, dim=1, keepdim=True) -
+                    log_sum[:, None] - out["nu"])
+            out = out.get("latent")
+        elif values is None:
+            idx = resampling._sample_indices(
+                prev_log_weight, noise, resampling_method, implementation)
+            out = None
         else:
-            previous_latent = prev_latent
+            idx, out = resampling._resample(
+                prev_log_weight, noise, values, resampling_method,
+                implementation, need_ancestors)
         if adaptive:
             # Per row, without a host-side branch: rows whose ESS is below
             # the threshold take the resampled particles; the others keep
@@ -334,41 +413,65 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
             ess = torch.exp(2 * log_sum -
                             torch.logsumexp(2 * prev_log_weight, dim=1))
             do = ess < ess_threshold                               # [B]
-            if ancestral_index.numel():
+            if idx is not None:
                 identity = torch.arange(
-                    num_particles, dtype=ancestral_index.dtype,
-                    device=ancestral_index.device).expand_as(ancestral_index)
-                ancestral_index = torch.where(do[:, None], ancestral_index,
-                                              identity)
+                    num_particles, dtype=idx.dtype,
+                    device=idx.device).expand_as(idx)
+                idx = torch.where(do[:, None], idx, identity)
             contribution = torch.where(do, contribution,
                                        torch.zeros_like(contribution))
-            base = torch.where(do[:, None],
-                               torch.zeros_like(prev_log_weight),
-                               prev_log_weight)
-            previous_latent = _where_rows(do, previous_latent, prev_latent)
+            base = torch.where(
+                do[:, None],
+                torch.zeros_like(prev_log_weight) if base is None else base,
+                prev_log_weight)
+            if out is not None:
+                out = _where_rows(do, out, values)
+        return idx, out, base, contribution
 
-        proposal_dist = proposal(previous_latents=[previous_latent],
+    def step(t, prev_latents, prev_log_weight, noise):
+        """Time step t >= 1 from the last W original latents: (latent_t,
+        log_weight_t, ancestral_index, contribution to log-Z)."""
+        time = TimeIndex(t)
+        prev_obs_list = [obs_seq[max(t - window + i, 0)]
+                         for i in range(window)]
+        ancestral_index = contribution = base = None
+        if is_smc:
+            ancestral_index, resampled, base, contribution = resample(
+                prev_log_weight, prev_latents[-1] if window == 1 else None,
+                noise, time, prev_latents)
+            if window == 1:
+                previous_latents = [resampled]
+            else:
+                previous_latents = [state.resample(x, ancestral_index)
+                                    for x in prev_latents]
+            if ancestral_index is None:
+                ancestral_index = torch.zeros(
+                    (0,), dtype=torch.int32, device=first.device)
+        else:
+            previous_latents = prev_latents
+        proposal_dist = proposal(previous_latents=previous_latents,
                                  time=time, observations=obs_seq)
         latent_t = state.sample(proposal_dist, batch_size, num_particles,
                                 noise)
         proposal_lp = state.log_prob(proposal_dist, latent_t)
         transition_lp = state.log_prob(
-            transition(previous_latents=[previous_latent], time=time,
+            transition(previous_latents=previous_latents, time=time,
                        previous_observations=prev_obs_list),
             latent_t)
+        # The emission sees the un-resampled history and the new latent.
         emission_lp = state.log_prob(
-            emission(latents=[latent_t], time=time,
+            emission(latents=prev_latents[1:] + [latent_t], time=time,
                      previous_observations=prev_obs_list),
             state.expand_observation(obs_seq[t], num_particles))
-        # Under always-resampling the new weight is the increment alone.
+        # With no base (always-resampling) the new weight is the increment.
         log_weight_t = transition_lp + emission_lp - proposal_lp
-        if adaptive:
+        if base is not None:
             log_weight_t = base + log_weight_t
         return latent_t, log_weight_t, ancestral_index, contribution
 
-    def remat_step(t, prev_latent, prev_log_weight, tape):
+    def remat_step(t, prev_latents, prev_log_weight, tape):
         tape.rewind()
-        return step(t, prev_latent, prev_log_weight, tape)
+        return step(t, prev_latents, prev_log_weight, tape)
 
     latents = [latent_0]
     log_weights = [log_weight_0]
@@ -376,7 +479,8 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
     contributions = []
     has_nan = (torch.zeros((), dtype=torch.bool, device=first.device)
                if nan_check and is_smc else None)
-    prev_latent, prev_log_weight = latent_0, log_weight_0
+    # The last W original latents, padded with copies of latent_0.
+    prev_latents, prev_log_weight = [latent_0] * window, log_weight_0
 
     # ---- t = 1 .. T-1.
     for t in range(1, num_timesteps):
@@ -385,12 +489,12 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
         if remat:
             latent_t, log_weight_t, ancestral_index, contribution = \
                 _checkpoint.checkpoint(
-                    remat_step, t, prev_latent, prev_log_weight,
+                    remat_step, t, prev_latents, prev_log_weight,
                     _NoiseTape(noise), use_reentrant=False,
                     preserve_rng_state=False)
         else:
             latent_t, log_weight_t, ancestral_index, contribution = step(
-                t, prev_latent, prev_log_weight, noise)
+                t, prev_latents, prev_log_weight, noise)
         if is_smc:
             ancestors.append(ancestral_index)
             contributions.append(contribution)
@@ -398,9 +502,11 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
             latents.append(latent_t)
         if need_stacked_weights:
             log_weights.append(log_weight_t)
-        prev_latent, prev_log_weight = latent_t, log_weight_t
+        prev_latents = prev_latents[1:] + [latent_t]
+        prev_log_weight = log_weight_t
 
-    last_latent, last_log_weight = prev_latent, prev_log_weight
+    last_latent, last_log_weight = prev_latents[-1], prev_log_weight
+
     original_latents = _stack_time(latents) if need_original else None
     stacked_log_weights = (_stack_time(log_weights)
                            if need_stacked_weights else None)

@@ -10,8 +10,10 @@ error value that reads the guard's device flag only when asked.
 
 Gradients flow through the reparameterized proposal samples and every
 log-probability, but not through ancestor indices (the engine detaches
-them): the reference's AESMC gradient semantics. On the card the
-resampling gradient is the range-sum kernel (K2).
+them): the reference's AESMC gradient semantics. Soft resampling
+(``resampling_method='soft'``) also carries the gradient of the weights
+through its corrected log-weights. On the card the resampling gradient is
+the range-sum kernel (K2).
 
 Not ported yet, and raising NotImplementedError until then: the 'tmc'
 algorithm and `gradient_estimator='score'` (slice C: `tmc.py`,
@@ -53,7 +55,8 @@ def _objective(observations, num_particles, algorithm, initial, transition,
                emission, proposal, noise=None,
                resampling_method="systematic",
                resampling_implementation="auto",
-               resampling_criterion="always", remat=False,
+               resampling_criterion="always", soft_resampling_alpha=0.5,
+               lookahead=None, history_window=1, remat=False,
                gradient_estimator="pathwise", nan_check=False,
                with_metrics=False):
     """(loss, metrics or None, NaN flag of `inference._infer`): the flag
@@ -61,10 +64,12 @@ def _objective(observations, num_particles, algorithm, initial, transition,
     _check_later(algorithm, gradient_estimator)
     result, has_nan = inference._infer(
         _inference_algorithm(algorithm), observations, initial, transition,
-        emission, proposal, num_particles, noise=noise,
+        emission, proposal, num_particles, noise=noise, lookahead=lookahead,
         resampling_method=resampling_method,
         resampling_implementation=resampling_implementation,
-        resampling_criterion=resampling_criterion, nan_check=nan_check,
+        resampling_criterion=resampling_criterion,
+        soft_resampling_alpha=soft_resampling_alpha,
+        history_window=history_window, nan_check=nan_check,
         remat=remat, return_log_marginal_likelihood=True,
         return_latents=False, return_log_weight=with_metrics)
     elbo = result["log_marginal_likelihood"].mean()
@@ -80,6 +85,9 @@ def get_loss(observations, num_particles: int, algorithm: str, initial,
              resampling_method: str = "systematic",
              resampling_implementation: str = "auto",
              resampling_criterion="always",
+             soft_resampling_alpha: float = 0.5,
+             lookahead=None,
+             history_window: int = 1,
              remat: bool = False,
              gradient_estimator: str = "pathwise",
              nan_check: bool = False):
@@ -93,8 +101,10 @@ def get_loss(observations, num_particles: int, algorithm: str, initial,
         initial, transition, emission, proposal: user components.
         noise: the `NoiseSource` of every draw (see `inference.infer`).
         resampling_method, resampling_implementation,
-            resampling_criterion: forwarded to `infer` ('aesmc' only).
-        remat: forwarded to `infer`.
+            resampling_criterion, soft_resampling_alpha, lookahead:
+            forwarded to `infer` ('aesmc' only; 'soft' is differentiable
+            resampling).
+        history_window, remat: forwarded to `infer`.
         nan_check: raise FloatingPointError when a resampling step saw a
             NaN log-weight ('aesmc'; one read of the device).
 
@@ -106,7 +116,9 @@ def get_loss(observations, num_particles: int, algorithm: str, initial,
         emission, proposal, noise=noise,
         resampling_method=resampling_method,
         resampling_implementation=resampling_implementation,
-        resampling_criterion=resampling_criterion, remat=remat,
+        resampling_criterion=resampling_criterion,
+        soft_resampling_alpha=soft_resampling_alpha, lookahead=lookahead,
+        history_window=history_window, remat=remat,
         gradient_estimator=gradient_estimator, nan_check=nan_check)
     inference._raise_if_nan(has_nan)
     return loss
@@ -152,6 +164,9 @@ def get_loss_and_metrics(observations, num_particles: int, algorithm: str,
                          noise=None, resampling_method: str = "systematic",
                          resampling_implementation: str = "auto",
                          resampling_criterion="always",
+                         soft_resampling_alpha: float = 0.5,
+                         lookahead=None,
+                         history_window: int = 1,
                          remat: bool = False,
                          gradient_estimator: str = "pathwise",
                          nan_check: bool = False):
@@ -165,7 +180,9 @@ def get_loss_and_metrics(observations, num_particles: int, algorithm: str,
         emission, proposal, noise=noise,
         resampling_method=resampling_method,
         resampling_implementation=resampling_implementation,
-        resampling_criterion=resampling_criterion, remat=remat,
+        resampling_criterion=resampling_criterion,
+        soft_resampling_alpha=soft_resampling_alpha, lookahead=lookahead,
+        history_window=history_window, remat=remat,
         gradient_estimator=gradient_estimator, nan_check=nan_check,
         with_metrics=True)
     inference._raise_if_nan(has_nan)

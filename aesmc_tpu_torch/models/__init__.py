@@ -1,10 +1,15 @@
 """Model families of the PyTorch port: the scalar LGSSM and its exact
-Kalman oracle, the conjugate-Gaussian test model, and the discrete-latent
+Kalman oracle, the D-dimensional LGSSM and its exact oracle, stochastic
+volatility, the conjugate-Gaussian test model, and the discrete-latent
 HMM with its exact forward-backward oracles."""
 
 from . import gaussian
 from . import hmm
 from . import kalman
+from . import kalman_nd
 from . import lgssm
+from . import lgssm_nd
+from . import stochastic_volatility
 
-__all__ = ["gaussian", "hmm", "kalman", "lgssm"]
+__all__ = ["gaussian", "hmm", "kalman", "kalman_nd", "lgssm", "lgssm_nd",
+           "stochastic_volatility"]

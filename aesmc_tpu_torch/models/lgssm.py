@@ -1,9 +1,10 @@
 """1-D linear-Gaussian SSM (the flagship workload), as `nn.Module`s.
 
 Counterpart of `aesmc_tpu.models.lgssm` (`Initial`, `Transition`,
-`Emission`, `Proposal`) with the same call contract: each module's
-`forward` returns a `distributions.Normal` tagged with its batch-shape
-mode. `from_numpy` builds the four modules from the JAX components' fields,
+`Emission`, `Proposal`, and `Lookahead` for the auxiliary particle
+filter) with the same call contract: each component's `forward` returns
+a `distributions.Normal` tagged with its batch-shape mode (the
+lookahead its `[B, K]` log-scores). `from_numpy` builds the four modules from the JAX components' fields,
 so that both packages compute the same model in the tests.
 """
 
@@ -106,6 +107,30 @@ class Proposal(nn.Module):
                self.lin_t_bias)
         return Normal(loc, self.scale_t,
                       batch_shape_mode=BatchShapeMode.FULLY_EXPANDED)
+
+
+class Lookahead(nn.Module):
+    """The exact one-step predictive log p(y_t | x_{t-1}), the score of the
+    fully adapted auxiliary particle filter on this model
+    (``infer(..., lookahead=Lookahead(...))``): y_t | x_{t-1} ~
+    N(em tr x_{t-1}, em^2 tr_scale^2 + em_scale^2). The multipliers are
+    trainable."""
+
+    def __init__(self, transition_mult: float, transition_scale: float,
+                 emission_mult: float, emission_scale: float):
+        super().__init__()
+        self.transition_mult = _param(transition_mult)
+        self.emission_mult = _param(emission_mult)
+        self.transition_scale = float(transition_scale)
+        self.emission_scale = float(emission_scale)
+
+    def forward(self, previous_latents=None, time=None, observations=None):
+        loc = (self.emission_mult * self.transition_mult *
+               previous_latents[-1])                        # [B, K]
+        scale = torch.sqrt((self.emission_mult * self.transition_scale) ** 2
+                           + self.emission_scale ** 2)
+        obs_t = observations[time]                          # [B]
+        return Normal(loc, scale).log_prob(obs_t[:, None])
 
 
 def optimal_proposal(initial_loc: float, initial_scale: float,

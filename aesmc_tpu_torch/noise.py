@@ -3,17 +3,20 @@
 The JAX package threads an explicit PRNG key and splits it per step
 (`aesmc_tpu.inference.infer` splits `key` into `(T, 2)` streams: stream 0
 resamples, stream 1 proposes). Here every draw goes through a
-`NoiseSource` instead, which hands out three kinds of noise:
+`NoiseSource` instead, which hands out four kinds of noise:
 
 - `uniform(shape)`: the resampling uniforms (`[B, 1]` systematic, `[B, K]`
-  stratified);
+  stratified and residual), and the uniforms in [0, 1) of `Laplace`,
+  `Uniform` and `Bernoulli` draws (see `distributions`);
 - `exponential(shape)`: the `[B, K + 1]` Exp(1) draws whose spacings give
-  the sorted multinomial positions;
-- `normal(shape)`: standard-normal `eps` for reparameterized samples,
-  in the `[batch, particle, ...]` layout of the sample it makes;
+  the sorted multinomial positions (multinomial and soft resampling);
+- `normal(shape)`: standard-normal `eps` for reparameterized samples of
+  the normal family, in the `[batch, particle, ...]` layout of the
+  sample it makes;
 - `gumbel(shape)`: standard Gumbel draws ``-log(-log(U))``, U uniform in
-  (tiny, 1), for categorical samples, in the layout in which
-  `jax.random.categorical` draws them (see `state.sample`).
+  (tiny, 1), for categorical and one-hot categorical samples, in the
+  layout in which `jax.random.categorical` draws them (see
+  `state.sample`).
 
 The default source is backed by a `torch.Generator` on the card. Tests
 pass a source with the same methods that replays the reference's draws,

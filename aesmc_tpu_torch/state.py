@@ -70,12 +70,13 @@ def get_batch_shape_mode(distribution,
 def sample(distribution, batch_size: int, num_particles: int, noise):
     """Samples `[batch_size, num_particles, ...]` tensors (or dicts).
 
-    Reparameterized distributions sample pathwise (`rsample`), with
-    standard-normal noise from ``noise.normal`` drawn in the output's
-    `[batch, particle, ...]` layout. Categorical distributions (discrete
-    latents) sample detached, from ``noise.gumbel`` drawn as the JAX
-    package's `jax.random.categorical` draws it: ``sample_shape +
-    batch_shape + (D,)``, so `[num_particles, batch, D]` for a
+    Each distribution takes one draw of its `noise_kind` from ``noise``
+    (none for `Deterministic`). Reparameterized distributions sample
+    pathwise (`rsample`), with their noise drawn in the output's
+    `[batch, particle, ...]` layout. The others (discrete latents) sample
+    detached, from noise drawn as the JAX package's `jax.random` draws it
+    (`Distribution.noise_shape`): ``sample_shape + batch_shape (+ (D,) for
+    the categoricals)``, so `[num_particles, batch, ...]` for a
     BATCH_EXPANDED distribution, whose draw is then swapped to `[batch,
     particle]`. A raw tensor passes through.
     """
@@ -89,40 +90,35 @@ def sample(distribution, batch_size: int, num_particles: int, noise):
             "distribution must be a dict or a Distribution. Got: {}".format(
                 distribution))
     mode = get_batch_shape_mode(distribution, batch_size, num_particles)
+    if mode not in _SAMPLE_SHAPES:
+        raise ValueError(f"batch_shape_mode {mode} not supported")
+    sample_shape = _SAMPLE_SHAPES[mode](batch_size, num_particles)
+    kind = distribution.noise_kind
     if not distribution.has_rsample:
-        return _sample_categorical(distribution, mode, batch_size,
-                                   num_particles, noise)
+        draw = getattr(noise, kind)(distribution.noise_shape(sample_shape))
+        with torch.no_grad():
+            result = distribution.sample(sample_shape, draw)
+        if mode == BatchShapeMode.BATCH_EXPANDED:
+            return result.transpose(0, 1).contiguous()
+        return result
     tail = tuple(distribution.batch_shape) + tuple(distribution.event_shape)
-    if mode == BatchShapeMode.NOT_EXPANDED:
-        return distribution.rsample(
-            (batch_size, num_particles),
-            eps=noise.normal((batch_size, num_particles) + tail))
     if mode == BatchShapeMode.BATCH_EXPANDED:
         # The distribution samples [num_particles, batch_size, ...]; the
         # noise is drawn as [batch, particle, ...] and swapped to match.
-        eps = noise.normal((tail[0], num_particles) + tail[1:])
-        return distribution.rsample(
-            (num_particles,), eps=eps.transpose(0, 1)).transpose(0, 1)
-    if mode == BatchShapeMode.FULLY_EXPANDED:
-        return distribution.rsample((), eps=noise.normal(tail))
-    raise ValueError(f"batch_shape_mode {mode} not supported")
+        eps = (None if kind is None else getattr(noise, kind)(
+            (tail[0], num_particles) + tail[1:]).transpose(0, 1))
+        return distribution.rsample(sample_shape, eps).transpose(0, 1)
+    eps = (None if kind is None else
+           getattr(noise, kind)(tuple(sample_shape) + tail))
+    return distribution.rsample(sample_shape, eps)
 
 
-def _sample_categorical(distribution, mode, batch_size, num_particles,
-                        noise):
-    if not isinstance(distribution, dists.Categorical):
-        raise ValueError(f"{type(distribution).__name__} is not "
-                         f"reparameterizable and not a Categorical")
-    sample_shape = {BatchShapeMode.NOT_EXPANDED: (batch_size, num_particles),
-                    BatchShapeMode.BATCH_EXPANDED: (num_particles,),
-                    BatchShapeMode.FULLY_EXPANDED: ()}[mode]
-    gumbel = noise.gumbel(sample_shape + tuple(distribution.batch_shape) +
-                          (distribution.num_categories,))
-    with torch.no_grad():
-        result = distribution.sample(sample_shape, gumbel=gumbel)
-    if mode == BatchShapeMode.BATCH_EXPANDED:
-        return result.transpose(0, 1).contiguous()
-    return result
+# The sample shape a distribution is drawn at in each mode.
+_SAMPLE_SHAPES = {
+    BatchShapeMode.NOT_EXPANDED: lambda b, k: (b, k),
+    BatchShapeMode.BATCH_EXPANDED: lambda b, k: (k,),
+    BatchShapeMode.FULLY_EXPANDED: lambda b, k: (),
+}
 
 
 def log_prob(distribution, value):

@@ -78,35 +78,46 @@ def ess(log_weight):
 
 def sample_from_prior(initial, transition, emission, num_timesteps: int,
                       batch_size: int,
-                      noise: Optional[NoiseSource] = None):
+                      noise: Optional[NoiseSource] = None,
+                      history_window: int = 1):
     """Ancestral sampling of (latents, observations) from the model prior.
 
-    The components see the contract of `inference.infer`; categorical
-    components (the HMM) draw their integer states through `state.sample`.
-    Draws come from ``noise`` (default `NoiseSource.seeded(0)` on the card,
-    which raises without one; pass a CPU source to sample on the CPU).
+    The components see the contract of `inference.infer`: length-W
+    ``previous_latents`` / ``latents`` / ``previous_observations`` lists
+    (W = ``history_window``), padded before t = 0 with copies of the t = 0
+    values; categorical components (the HMM) draw their integer states
+    through `state.sample`. Draws come from ``noise`` (default
+    `NoiseSource.seeded(0)` on the card, which raises without one; pass a
+    CPU source to sample on the CPU), in the order x_0, y_0, x_1, y_1, ...
 
     Returns:
         (latents, observations): stacked `[T, batch, ...]` tensors.
     """
+    if history_window < 1:
+        raise ValueError(
+            f"history_window must be >= 1. currently = {history_window}")
     if noise is None:
         noise = NoiseSource.seeded(0)
     latent = state.sample(initial(), batch_size, 1, noise)
     obs = state.sample(emission(latents=[latent], time=0), batch_size, 1,
                        noise)
     latents, observations = [latent], [obs]
+    prev_latents = [latent] * history_window
+    prev_obs = [obs] * history_window
     for t in range(1, num_timesteps):
         time = TimeIndex(t)
         latent = state.sample(
-            transition(previous_latents=[latent], time=time,
-                       previous_observations=[obs]),
+            transition(previous_latents=prev_latents, time=time,
+                       previous_observations=prev_obs),
             batch_size, 1, noise)
         obs = state.sample(
-            emission(latents=[latent], time=time,
-                     previous_observations=[obs]),
+            emission(latents=prev_latents[1:] + [latent], time=time,
+                     previous_observations=prev_obs),
             batch_size, 1, noise)
         latents.append(latent)
         observations.append(obs)
+        prev_latents = prev_latents[1:] + [latent]
+        prev_obs = prev_obs[1:] + [obs]
 
     def squeeze_particles(value):
         return state.tree_map(lambda x: x.squeeze(2), value)

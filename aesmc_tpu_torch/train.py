@@ -60,6 +60,7 @@ def make_train_step(num_particles: int, algorithm: str,
                     resampling_method: str = "systematic",
                     resampling_implementation: str = "auto",
                     resampling_criterion="always",
+                    soft_resampling_alpha: float = 0.5,
                     remat: bool = False,
                     nan_check: bool = False,
                     with_metrics: bool = False) -> Callable:
@@ -78,7 +79,8 @@ def make_train_step(num_particles: int, algorithm: str,
     backward pass (one wait for the device a step): when a resampling
     step saw a NaN log-weight it clears the gradients and raises
     FloatingPointError before ``optimizer.step()``, so the parameters and
-    the optimizer's state are left as they were.
+    the optimizer's state are left as they were. ``resampling_method``
+    may be 'soft' (differentiable resampling at ``soft_resampling_alpha``).
     """
     def step(components, observations, noise):
         initial, transition, emission, proposal = components
@@ -88,7 +90,8 @@ def make_train_step(num_particles: int, algorithm: str,
             emission, proposal, noise=noise,
             resampling_method=resampling_method,
             resampling_implementation=resampling_implementation,
-            resampling_criterion=resampling_criterion, remat=remat,
+            resampling_criterion=resampling_criterion,
+            soft_resampling_alpha=soft_resampling_alpha, remat=remat,
             nan_check=nan_check, with_metrics=with_metrics)
         loss.backward()
         if has_nan is not None and bool(has_nan):
@@ -133,6 +136,7 @@ def train(dataloader: Iterable,
           resampling_method: str = "systematic",
           resampling_implementation: str = "auto",
           resampling_criterion="always",
+          soft_resampling_alpha: float = 0.5,
           remat: bool = False,
           checkpoint_dir=None,
           checkpoint_interval: Optional[int] = None,
@@ -168,7 +172,8 @@ def train(dataloader: Iterable,
         num_particles, algorithm, optimizer,
         resampling_method=resampling_method,
         resampling_implementation=resampling_implementation,
-        resampling_criterion=resampling_criterion, remat=remat)
+        resampling_criterion=resampling_criterion,
+        soft_resampling_alpha=soft_resampling_alpha, remat=remat)
 
     def save():
         checkpoint.save(checkpoint_dir, checkpoint.TrainState(
@@ -252,8 +257,10 @@ def _capture(fn: Callable, generator: torch.Generator):
             f"torch {torch.__version__} cannot register a generator with a "
             "CUDA graph (CUDAGraph.register_generator_state)")
     graph.register_generator_state(generator)
+    _release_blas_workspaces()
     with torch.cuda.graph(graph):
         out = fn()
+    _release_blas_workspaces()
     return graph, out
 
 
@@ -266,6 +273,17 @@ def _warm_up(fn: Callable, calls: int) -> None:
         for _ in range(calls):
             fn()
     torch.cuda.current_stream().wait_stream(side)
+    _release_blas_workspaces()
+
+
+def _release_blas_workspaces() -> None:
+    """Drops the cuBLAS workspaces PyTorch caches, one a stream (64 MiB
+    on an H100) for the life of the process: a step with a matmul (the
+    dense resampling route, a D-dim model) would otherwise leave one
+    behind on every warm-up stream and capture. A workspace the capture
+    needs stays in the graph's own pool. PyTorch's compiled CUDA graphs
+    release them the same way around warm-up and capture."""
+    torch._C._cuda_clearCublasWorkspaces()
 
 
 def train_on_device(initial, transition, emission, proposal,
@@ -278,6 +296,7 @@ def train_on_device(initial, transition, emission, proposal,
                     resampling_method: str = "systematic",
                     resampling_implementation: str = "auto",
                     resampling_criterion="always",
+                    soft_resampling_alpha: float = 0.5,
                     remat: bool = False,
                     callback: Optional[Callable] = None):
     """Trains on synthetic observations with no host round trip a step:
@@ -307,7 +326,8 @@ def train_on_device(initial, transition, emission, proposal,
         steps_per_call: steps a block; ``callback`` runs once a block, as
             ``callback(steps_done, mean_loss_of_block, components)``, and
             reads the block's losses from the device (the only read).
-        resampling_*, remat: as in `make_train_step`.
+        resampling_*, soft_resampling_alpha, remat: as in
+            `make_train_step` ('soft' steps are captured too).
 
     Returns:
         (components, losses `[num_steps]` on the noise source's device).
@@ -323,7 +343,8 @@ def train_on_device(initial, transition, emission, proposal,
         num_particles, algorithm, optimizer,
         resampling_method=resampling_method,
         resampling_implementation=resampling_implementation,
-        resampling_criterion=resampling_criterion, remat=remat)
+        resampling_criterion=resampling_criterion,
+        soft_resampling_alpha=soft_resampling_alpha, remat=remat)
     losses_out = torch.empty((num_steps,), device=noise.device)
     # The next step's index, on the device, so that a replay writes its
     # loss to its own slot.

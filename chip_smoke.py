@@ -104,7 +104,30 @@ Phases, in order; any failure raises and the exit code is not 0:
    guard (a NaN step raises FloatingPointError and leaves the parameters
    and Adam's state bit-identical); remat at (200, 10, 10,000): the loss
    equals the plain step's, the gradients within 1e-5 relative, and both
-   peak memories.
+   peak memories;
+11. soft train step, the bench's config 5 (`bench.py:303-322`): (T, B, K)
+   = (10, 2, 1,000,000), alpha 0.5, Adam at lr 1e-2. K3 and K2 against
+   their plain versions on the step's own inputs at (2, 1,000,000, D = 3:
+   the latent, log w and log q; K3 exact, K2 exact on integer cotangents,
+   each source within 1e-5 x its sum of |g| and bit-identical on two
+   launches) and timed there; the kernel route's loss equal to the plain
+   route's and its gradients within 1e-5 relative; one step launches K3
+   and K2 9 times each (peak memory); eager steps on both routes, then
+   `train_on_device` graphed (ms/step, peak memory, one replay profiled:
+   9 K3 and 9 K2 kernel events);
+12. `lgssm_nd` filter, `make_model(dim=10)` with the exact proposal
+   (`MultivariateNormalTriL`) at (200, 10, 10,000): K1 with D = 10
+   columns 199 times, log-Z within 5% of `kalman_nd` in every row, equal
+   on both routes; eager and graphed (phase 9's checks);
+13. the auxiliary particle filter (`lgssm.Lookahead`, the scores riding
+   K1 as a second column) and residual resampling (torch ops, no kernel)
+   on the bench's LGSSM with the exact proposal at (200, 10, 10,000):
+   log-Z within 5% of the Kalman filter in every row, the APF equal on
+   both routes; eager times beside the plain filter's;
+14. the dense-route sweep: `train_on_device` graphed at (200, 10, K) for
+   K in {100, 256, 512, 1,024}, kernel route against the dense one-hot
+   route ('torch' at K <= 1,024), in turns; the dense gather bit for bit
+   under TF32.
 
 It prints a `{"kernels": [...]}` JSON line before the last, and, as the
 last line, `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -134,7 +157,7 @@ import torch
 
 from aesmc_tpu_torch import (distributions, inference, losses, resampling,
                              statistics, train)
-from aesmc_tpu_torch.models import hmm, kalman, lgssm
+from aesmc_tpu_torch.models import hmm, kalman, kalman_nd, lgssm, lgssm_nd
 from aesmc_tpu_torch.noise import NoiseSource
 from aesmc_tpu_torch.state import BatchShapeMode
 from aesmc_tpu_torch.ops import (_build, _launch, gather_sorted_cuda,
@@ -357,6 +380,48 @@ def _bits(x):
     return x.view(torch.int32)
 
 
+def _k2_case(cdf, pos, d, generator, label):
+    """K2 against its plain version on one case: exactly equal with
+    integer cotangents, each source within `RANGE_SUM_REL_TOL` of its
+    segment's sum of |g| with float ones, and the same bits on two
+    launches; returns (max abs error with float cotangents, largest
+    bound)."""
+    batch, kp = pos.shape
+    if not bool((pos[:, 1:] >= pos[:, :-1]).all()):
+        raise AssertionError(f"{label}: positions are not sorted")
+    g = torch.randint(-5, 6, (batch, kp, d), generator=generator,
+                      device=cdf.device).float()
+    got = range_sum_cuda.range_sum(cdf, pos, g)
+    again = range_sum_cuda.range_sum(cdf, pos, g)
+    want = range_sum_cuda.range_sum_torch(cdf, pos, g)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"K2 with integer cotangents differs from the plain version at "
+            f"{label}: max abs error {float((got - want).abs().max())}")
+    if not torch.equal(_bits(got), _bits(again)):
+        raise AssertionError(f"K2 gave other bits on a second launch at "
+                             f"{label}")
+    g = torch.randn(batch, kp, d, generator=generator, device=cdf.device)
+    got = range_sum_cuda.range_sum(cdf, pos, g)
+    again = range_sum_cuda.range_sum(cdf, pos, g)
+    want = range_sum_cuda.range_sum_torch(cdf, pos, g)
+    # Each source's bound: the fraction of its segment's sum of |g|.
+    bound = RANGE_SUM_REL_TOL * range_sum_cuda.range_sum_torch(
+        cdf, pos, g.abs())
+    diff = (got - want).abs()
+    err = float(diff.max())
+    if not bool((diff <= bound).all()):
+        raise AssertionError(
+            f"K2 with float cotangents at {label}: "
+            f"{int((diff > bound).sum())} sources above their bound, max "
+            f"abs error {err}")
+    if not torch.equal(_bits(got), _bits(again)):
+        raise AssertionError(f"K2 gave other bits on a second launch at "
+                             f"{label}")
+    return err, float(bound.max())
+
+
 def k2_phase(dev):
     """K2 against its plain version; returns the max abs error with float
     cotangents."""
@@ -365,43 +430,9 @@ def k2_phase(dev):
     generator.manual_seed(1)
     worst = 0.0
     for shape, kind, method, cdf, pos, _ in _sorted_cases(generator, dev):
-        batch, k, kp, d = shape
-        if not bool((pos[:, 1:] >= pos[:, :-1]).all()):
-            raise AssertionError(f"{method} positions are not sorted at "
-                                 f"{shape}")
-        g = torch.randint(-5, 6, (batch, kp, d), generator=generator,
-                          device=dev).float()
-        got = range_sum_cuda.range_sum(cdf, pos, g)
-        again = range_sum_cuda.range_sum(cdf, pos, g)
-        want = range_sum_cuda.range_sum_torch(cdf, pos, g)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"K2 with integer cotangents differs from the plain version "
-                f"at {shape} {kind} {method}: max abs error "
-                f"{float((got - want).abs().max())}")
-        if not torch.equal(_bits(got), _bits(again)):
-            raise AssertionError(f"K2 gave other bits on a second launch "
-                                 f"at {shape} {kind} {method}")
-        g = torch.randn(batch, kp, d, generator=generator, device=dev)
-        got = range_sum_cuda.range_sum(cdf, pos, g)
-        again = range_sum_cuda.range_sum(cdf, pos, g)
-        want = range_sum_cuda.range_sum_torch(cdf, pos, g)
-        # Each source's bound: the fraction of its segment's sum of |g|.
-        bound = RANGE_SUM_REL_TOL * range_sum_cuda.range_sum_torch(
-            cdf, pos, g.abs())
-        diff = (got - want).abs()
-        err = float(diff.max())
+        err, bound = _k2_case(cdf, pos, shape[3], generator,
+                              f"{shape} {kind} {method}")
         worst = max(worst, err)
-        if not bool((diff <= bound).all()):
-            raise AssertionError(
-                f"K2 with float cotangents at {shape} {kind} {method}: "
-                f"{int((diff > bound).sum())} sources above their bound, max "
-                f"abs error {err}")
-        bound = float(bound.max())
-        if not torch.equal(_bits(got), _bits(again)):
-            raise AssertionError(f"K2 gave other bits on a second launch "
-                                 f"at {shape} {kind} {method}")
         print(f"(B, K, Kp, D) = {shape} {kind:12s} {method:11s}: integer "
               f"cotangents exact, float max abs error {err:.3g} (each source "
               f"within {RANGE_SUM_REL_TOL:g} x its sum of |g|, largest bound "
@@ -1642,12 +1673,15 @@ def _profile_replay(run, label, want, wall_ms):
                            wall_ms)
 
 
-def _profiled_train_replay(dev, label, want, wall_ms, **kwargs):
+def _profiled_train_replay(dev, label, want, wall_ms, runner=None,
+                           **kwargs):
     """One replay of `train_on_device`'s graph under the profiler: the
     first block is the warm-up, the capture and its first replay; the
     profiler and a CUDA event start in its callback, and the second
     block, one more replay, ends at a second event in the next callback
-    (after the block's loss is read)."""
+    (after the block's loss is read). ``runner(dev, num_steps, block,
+    callback=..., **kwargs)`` runs `train_on_device` (default
+    `_on_device`, the bench's LGSSM at (T, B))."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     events = []
@@ -1659,8 +1693,8 @@ def _profiled_train_replay(dev, label, want, wall_ms, **kwargs):
         events.append(torch.cuda.Event(enable_timing=True))
         events[-1].record()
 
-    _on_device(dev, train.WARMUP_STEPS + 2, train.WARMUP_STEPS + 1,
-               callback=mark, **kwargs)
+    (runner or _on_device)(dev, train.WARMUP_STEPS + 2,
+                           train.WARMUP_STEPS + 1, callback=mark, **kwargs)
     torch.cuda.synchronize()
     prof.stop()
     return _report_profile(prof, f"train step, {label}", want,
@@ -1950,6 +1984,369 @@ def adaptive_phase(dev):
                              f"gradients {worst}")
 
 
+# ---- Slice B2: soft resampling at the bench's config 5, the D-dim LGSSM,
+# the auxiliary particle filter, residual resampling and the dense route.
+
+# The bench's config-5 row (bench.py:303-322): the soft train step at
+# (T, B, K) = (10, 2, 1,000,000), alpha 0.5, Adam at lr 1e-2.
+SOFT_T, SOFT_B, SOFT_K = 10, 2, 1_000_000
+SOFT_ALPHA, SOFT_LR = 0.5, 1e-2
+# Graphed soft steps a block: the first block holds the warm-up and the
+# capture, the next two are timed.
+SOFT_BLOCK = 5
+# The D-dim LGSSM of the JAX bench's configuration 2 (`lgssm_nd`).
+ND_DIM = 10
+# The dense-route sweep: graphed train steps at (T, B) = (200, 10).
+DENSE_KS = (100, 256, 512, 1024)
+DENSE_BLOCK = 5
+
+
+def _soft_components(dev):
+    """bench.py's config-5 components (the learner's transition from 0.5,
+    Adam at lr 1e-2, capturable), the generative model and observations
+    of it at (SOFT_T, SOFT_B)."""
+    comps, optimizer, gen = _graph_learner(dev, SOFT_LR)
+    with torch.no_grad():
+        _, obs = statistics.sample_from_prior(*gen, SOFT_T, SOFT_B,
+                                              NoiseSource.seeded(0, dev))
+    return comps, optimizer, gen, obs
+
+
+def _soft_on_device(dev, num_steps, block, callback=None, seed=55):
+    """`train.train_on_device` on the config-5 soft step."""
+    comps, optimizer, gen, _ = _soft_components(dev)
+    return train.train_on_device(
+        *comps, SOFT_K, "aesmc", gen, SOFT_T, SOFT_B, num_steps,
+        optimizer=optimizer, noise=NoiseSource.seeded(seed, dev),
+        steps_per_call=block, callback=callback, resampling_method="soft",
+        soft_resampling_alpha=SOFT_ALPHA)
+
+
+def _soft_kernels(dev, comps, obs):
+    """K3 and K2 against their plain versions on the soft step's own
+    inputs at (2, 1,000,000): the first step's weights, their tempered
+    mixture's CDF, multinomial positions and the three columns (latent,
+    log w, log q); then their times at that shape."""
+    with torch.no_grad():
+        first = inference.infer("smc", obs[:1], *comps, SOFT_K,
+                                noise=NoiseSource.seeded(1, dev))
+    log_w, log_q = resampling._soft_tempered_log_weights(
+        first["log_weight"], SOFT_ALPHA)
+    generator = torch.Generator(device=dev).manual_seed(51)
+    cdf = resampling._normalized_cumsum(log_q)
+    pos = resampling.resampling_positions(log_q, NoiseSource(generator),
+                                          "multinomial")
+    flat = torch.stack([first["latents"][0], log_w, log_q],
+                       dim=-1).contiguous()
+    idx, out = resample_sorted_cuda.resample_and_gather_sorted(cdf, pos,
+                                                               flat)
+    want_idx, want = resample_sorted_cuda.resample_and_gather_sorted_torch(
+        cdf, pos, flat)
+    torch.cuda.synchronize()
+    if not (torch.equal(idx, want_idx) and _same_bits(out, want)):
+        raise AssertionError(
+            f"K3 differs from its plain version on the soft step's inputs: "
+            f"{int((idx != want_idx).sum())} indices")
+    label = f"({SOFT_B}, {SOFT_K:,}, 3), soft"
+    err, bound = _k2_case(cdf, pos, 3, generator, label)
+    print(f"K3 at {label}: indices and the three gathered columns exact "
+          f"(tolerance 0); K2 there: integer cotangents exact, float max abs "
+          f"error {err:.3g} (each source within {RANGE_SUM_REL_TOL:g} x its "
+          f"sum of |g|, largest bound {bound:.3g}), two launches "
+          f"bit-identical", flush=True)
+    n, d = SOFT_B * SOFT_K, 3
+    steps = _search_steps(SOFT_K)
+    g = torch.randn(SOFT_B, SOFT_K, d, generator=generator, device=dev)
+    ancestors = want_idx.long().unsqueeze(-1).expand(g.shape)
+    shape = (SOFT_B, SOFT_K, SOFT_K, d)
+    _kernel_row("resample_sorted", shape,
+                lambda: resample_sorted_cuda.resample_and_gather_sorted(
+                    cdf, pos, flat, False),
+                lambda: resample_sorted_cuda.resample_and_gather_sorted_torch(
+                    cdf, pos, flat, False),
+                None, 4 * n * (2 + 2 * d), n * steps)
+    _kernel_row("range_sum", shape,
+                lambda: range_sum_cuda.range_sum(cdf, pos, g),
+                lambda: range_sum_cuda.range_sum_torch(cdf, pos, g),
+                lambda: torch.zeros_like(g).scatter_add_(1, ancestors, g),
+                4 * n * (2 + 2 * d), n * steps + n * d,
+                "scatter_add_ over the given ancestors (non-deterministic)")
+
+
+def soft_phase(dev):
+    phase(f"11 soft train step: the bench's config 5, (T, B, K) = "
+          f"({SOFT_T}, {SOFT_B}, {SOFT_K:,}), alpha {SOFT_ALPHA}")
+    comps, optimizer, _, obs = _soft_components(dev)
+    steps = SOFT_T - 1
+    _soft_kernels(dev, comps, obs)
+    _compare_routes(comps, obs, SOFT_K, "soft", 52, dev)
+
+    # The main path: one soft train step as a user calls it.
+    step = train.make_train_step(SOFT_K, "aesmc", optimizer,
+                                 resampling_method="soft",
+                                 soft_resampling_alpha=SOFT_ALPHA)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loss = step(comps, obs, NoiseSource.seeded(53, dev))
+    counts = read_counts("soft train step")
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    others = {name: n for name, n in counts.items()
+              if name not in ("resample_sorted", "range_sum") and n}
+    if (counts["resample_sorted"], counts["range_sum"]) != (steps, steps) \
+            or others:
+        raise AssertionError(f"one soft step launched {counts}, not K3 and "
+                             f"K2 {steps} times each")
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"soft step loss {loss}")
+    print(f"one soft step: K3 and K2 {steps} launches each, loss "
+          f"{float(loss):.4f}; peak device memory {peak_mb:.1f} MiB",
+          flush=True)
+
+    # Eager step times, plain route against kernel route.
+    routes = {impl: train.make_train_step(
+        SOFT_K, "aesmc", optimizer, resampling_method="soft",
+        soft_resampling_alpha=SOFT_ALPHA, resampling_implementation=impl)
+        for impl in ("cuda", "torch")}
+    noise = NoiseSource.seeded(54, dev)
+    step_ms = {"cuda": [], "torch": []}
+    for impl in ("torch", "cuda", "cuda", "torch"):
+        step_ms[impl] += _cuda_ms(lambda: routes[impl](comps, obs, noise),
+                                  warmup=1, repeat=4, each=True)
+    for impl, label in (("cuda", "kernel route"), ("torch", "plain route")):
+        q1, med, q3 = _quartiles(step_ms[impl])
+        EAGER_MS[f"soft {impl}"] = med
+        print(f"soft train step, eager, {label}: median {med:.3f} ms/step "
+              f"(quartiles {q1:.3f}, {q3:.3f}; n={len(step_ms[impl])}) = "
+              f"{SOFT_B * SOFT_K * SOFT_T / med * 1e3:.4g} particle-steps/s",
+              flush=True)
+
+    # Graphed: train_on_device captures the soft step.
+    timer = _BlockTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _, hist = _soft_on_device(dev, 3 * SOFT_BLOCK, SOFT_BLOCK, timer)
+    counts = read_counts("graphed soft train step")
+    graph_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    captured = (train.WARMUP_STEPS + 1) * steps
+    if (counts["resample_sorted"], counts["range_sum"]) != (captured,
+                                                            captured):
+        raise AssertionError(f"the graphed soft run launched {counts} "
+                             f"through the wrappers, not K3 and K2 "
+                             f"{captured} times")
+    if not bool(torch.isfinite(hist).all()):
+        raise AssertionError(f"graphed soft losses {hist}")
+    ms = timer.ms_per_step()
+    med = float(np.median(ms))
+    print(f"graphed soft train step: {np.round(ms, 3).tolist()} ms/step "
+          f"(median {med:.3f} = {SOFT_B * SOFT_K * SOFT_T / med * 1e3:.4g} "
+          f"particle-steps/s; eager {EAGER_MS['soft cuda']:.3f}); peak "
+          f"device memory {graph_peak_mb:.1f} MiB; losses "
+          f"{np.round(hist.cpu().numpy(), 3).tolist()}", flush=True)
+    _profiled_train_replay(
+        dev, "soft step", {"resample_sorted_kernel": steps,
+                           "range_sum_kernel": steps}, med,
+        runner=lambda dev, num_steps, block, callback: _soft_on_device(
+            dev, num_steps, block, callback))
+
+
+def _lgssm_exact(obs):
+    """The Kalman filter's log-likelihood of each batch row of the bench's
+    LGSSM."""
+    params = kalman.KalmanParams(
+        initial_mean=0.0, initial_variance=1.0,
+        transition_mult=TRANSITION_MULT, transition_offset=0.0,
+        transition_variance=TRANSITION_SCALE ** 2,
+        emission_mult=EMISSION_MULT, emission_offset=0.0,
+        emission_variance=EMISSION_SCALE ** 2)
+    obs_np = obs.cpu().numpy()
+    return np.array([kalman.kalman_filter(obs_np[:, b], params)[4]
+                     for b in range(obs_np.shape[1])])
+
+
+def _check_log_z(label, est, exact):
+    rel = np.abs(est.cpu().numpy() - exact) / np.abs(exact)
+    print(f"{label}: log-Z vs the exact filter, max relative error "
+          f"{rel.max():.3e} (bound {LOG_Z_REL_TOL})", flush=True)
+    if not np.all(rel < LOG_Z_REL_TOL):
+        raise AssertionError(f"{label}: log-Z off the exact filter: {rel}")
+
+
+def _eager_turns(calls):
+    """CUDA-event times of each of ``calls`` ({label: fn}), 4 calls each
+    in turns, forwards then backwards; prints and returns the medians."""
+    runs = {label: [] for label in calls}
+    for label in list(calls) + list(calls)[::-1]:
+        runs[label] += _cuda_ms(calls[label], warmup=1, repeat=2, each=True)
+    medians = {}
+    for label, times in runs.items():
+        q1, medians[label], q3 = _quartiles(times)
+        print(f"{label}: median {medians[label]:.3f} ms/call (quartiles "
+              f"{q1:.3f}, {q3:.3f}; n={len(times)}) = "
+              f"{B * K * T / medians[label] * 1e3:.4g} particle-steps/s",
+              flush=True)
+    return medians
+
+
+@torch.no_grad()
+def lgssm_nd_phase(dev):
+    phase(f"12 lgssm_nd filter: make_model(dim={ND_DIM}), the exact "
+          f"proposal, (T, B, K) = ({T}, {B}, {K:,})")
+    comps = lgssm_nd.make_model(dim=ND_DIM, device=dev)
+    optimal = lgssm_nd.optimal_proposal(*comps[:3])
+    _, obs = statistics.sample_from_prior(*comps[:3], T, B,
+                                          NoiseSource.seeded(0, dev))
+
+    def smc(noise, implementation="auto"):
+        return inference.infer(
+            "smc", obs, *comps[:3], optimal, K, noise=noise,
+            resampling_implementation=implementation,
+            return_log_marginal_likelihood=True, return_latents=False,
+            return_log_weight=False)["log_marginal_likelihood"]
+
+    reset_counts()
+    log_z = smc(NoiseSource.seeded(61, dev))
+    counts = read_counts(f"lgssm_nd filter D={ND_DIM}")
+    if counts["resample_systematic"] != T - 1 or \
+            sum(counts.values()) != T - 1:
+        raise AssertionError(f"the lgssm_nd filter launched {counts}")
+    params = lgssm_nd.kalman_params(*comps[:3])
+    obs_np = obs.cpu().numpy()
+    exact = np.array([kalman_nd.kalman_filter_nd(obs_np[:, b], params)[4]
+                      for b in range(B)])
+    _check_log_z(f"lgssm_nd filter (K1 with D = {ND_DIM} columns)", log_z,
+                 exact)
+    plain = smc(NoiseSource.seeded(61, dev), "torch")
+    if not torch.equal(log_z, plain):
+        raise AssertionError(f"lgssm_nd log-Z differs between the routes: "
+                             f"{log_z} vs {plain}")
+    print("kernel route's log-Z equals the plain route's exactly",
+          flush=True)
+    medians = _eager_turns({
+        "lgssm_nd filter, eager, kernel route":
+            lambda: smc(NoiseSource.seeded(63, dev), "cuda"),
+        "lgssm_nd filter, eager, plain route":
+            lambda: smc(NoiseSource.seeded(63, dev), "torch")})
+    EAGER_MS["lgssm_nd"] = medians["lgssm_nd filter, eager, kernel route"]
+    noise = NoiseSource.seeded(62, dev)
+    _graphed_filter(dev, "lgssm_nd filter", lambda: smc(noise), noise,
+                    {"resample_systematic_kernel": T - 1})
+
+
+@torch.no_grad()
+def apf_residual_phase(dev):
+    phase(f"13 auxiliary particle filter and residual resampling: the "
+          f"bench's LGSSM, exact proposal, (T, B, K) = ({T}, {B}, {K:,})")
+    comps, obs = _bench_lgssm(dev, TRANSITION_MULT)
+    optimal = lgssm.optimal_proposal(
+        0.0, 1.0, TRANSITION_MULT, TRANSITION_SCALE, EMISSION_MULT,
+        EMISSION_SCALE).to(dev)
+    lookahead = lgssm.Lookahead(TRANSITION_MULT, TRANSITION_SCALE,
+                                EMISSION_MULT, EMISSION_SCALE).to(dev)
+    exact = _lgssm_exact(obs)
+
+    def smc(seed, implementation="auto", **kwargs):
+        return inference.infer(
+            "smc", obs, *comps[:3], optimal, K,
+            noise=NoiseSource.seeded(seed, dev),
+            resampling_implementation=implementation,
+            return_log_marginal_likelihood=True, return_latents=False,
+            return_log_weight=False, **kwargs)["log_marginal_likelihood"]
+
+    # The APF: K1 with the scores as a second column.
+    reset_counts()
+    apf = smc(71, lookahead=lookahead)
+    counts = read_counts("APF filter")
+    if counts["resample_systematic"] != T - 1 or \
+            sum(counts.values()) != T - 1:
+        raise AssertionError(f"the APF filter launched {counts}")
+    _check_log_z("APF filter (K1, D = 2: latent and score)", apf, exact)
+    if not torch.equal(apf, smc(71, "torch", lookahead=lookahead)):
+        raise AssertionError("APF log-Z differs between the routes")
+    _check_log_z("plain filter, same noise", smc(71), exact)
+
+    # Residual resampling: torch ops on the card, no kernel.
+    reset_counts()
+    res = smc(72, resampling_method="residual")
+    counts = read_counts("residual filter")
+    if sum(counts.values()):
+        raise AssertionError(f"the residual filter launched {counts}")
+    _check_log_z("residual filter (torch ops)", res, exact)
+    _eager_turns({
+        "plain filter (exact proposal), eager": lambda: smc(73),
+        "APF filter, eager": lambda: smc(73, lookahead=lookahead),
+        "residual filter, eager":
+            lambda: smc(73, resampling_method="residual")})
+
+
+def dense_phase(dev):
+    phase(f"14 dense-route sweep: graphed train step at (T, B) = ({T}, "
+          f"{B}), K in {DENSE_KS}, kernel route (K1 + K2) against the dense "
+          f"one-hot route")
+    # The dense gather passes values through bit for bit under TF32.
+    generator = torch.Generator(device=dev).manual_seed(81)
+    k = DENSE_KS[-1]
+    logw = torch.randn(B, k, generator=generator, device=dev) * 3.0
+    pos = resampling.resampling_positions(logw, NoiseSource(generator),
+                                          "stratified")
+    value = torch.randn(B, k, 3, generator=generator, device=dev) * 1e3
+    previous = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        idx, out = resampling.dense_indices_and_gather(logw, pos, value)
+    finally:
+        torch.set_float32_matmul_precision(previous)
+    want = torch.take_along_dim(value, idx.long().unsqueeze(-1), dim=1)
+    if not _same_bits(out, want):
+        raise AssertionError("the dense gather rounded values under TF32")
+    print(f"dense gather at ({B}, {k}, 3) under TF32 ('high'): values bit "
+          f"for bit", flush=True)
+
+    # The 'torch' route takes the dense gather at these K.
+    calls = []
+    real = resampling.dense_indices_and_gather
+
+    def count(*args):
+        calls.append(1)
+        return real(*args)
+
+    comps, obs = _bench_lgssm(dev, 0.5)
+    resampling.dense_indices_and_gather = count
+    try:
+        losses.get_loss(obs, DENSE_KS[0], "aesmc", *comps,
+                        noise=NoiseSource.seeded(82, dev),
+                        resampling_implementation="torch").backward()
+    finally:
+        resampling.dense_indices_and_gather = real
+    if len(calls) != T - 1:
+        raise AssertionError(f"the dense route ran {len(calls)} times")
+
+    faster = []
+    for k in DENSE_KS:
+        ms, peak = {"cuda": [], "torch": []}, {}
+        for impl in ("torch", "cuda", "cuda", "torch"):
+            timer = _BlockTimer()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _on_device(dev, 3 * DENSE_BLOCK, DENSE_BLOCK, k=k,
+                       callback=timer, resampling_implementation=impl)
+            ms[impl] += timer.ms_per_step()
+            peak[impl] = torch.cuda.max_memory_allocated() / 2 ** 20
+        med = {impl: float(np.median(times)) for impl, times in ms.items()}
+        if med["torch"] < med["cuda"]:
+            faster.append(k)
+        print(f"dense sweep K={k}: graphed ms/step kernel route "
+              f"{np.round(ms['cuda'], 3).tolist()} (median "
+              f"{med['cuda']:.3f}, peak {peak['cuda']:.1f} MiB), dense route "
+              f"{np.round(ms['torch'], 3).tolist()} (median "
+              f"{med['torch']:.3f}, peak {peak['torch']:.1f} MiB): "
+              f"{'dense' if k in faster else 'kernel'} faster", flush=True)
+    print(f"dense route faster at K = {faster}; 'auto' on the card takes "
+          f"{resampling.resolve_implementation(dev, 'systematic', 'auto')!r}"
+          f" at every K", flush=True)
+
+
 def _build_other(other, sources):
     """Builds each of ``sources`` from directory ``other`` with `_build`'s
     flags, one nvcc each, all started together, into `compare/` of the
@@ -2087,6 +2484,10 @@ def main():
     graph_train_phase(dev)
     graph_filter_phase(dev)
     adaptive_phase(dev)
+    soft_phase(dev)
+    lgssm_nd_phase(dev)
+    apf_residual_phase(dev)
+    dense_phase(dev)
     kernels = []
     for name, (module, _, _, replaces) in KERNELS.items():
         launches = sum(LAUNCHES[name].values())

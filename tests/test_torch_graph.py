@@ -7,8 +7,10 @@ imports JAX, hence `--noconftest`):
     python -m pytest --noconftest -o addopts= tests/test_torch_graph.py
 
 8 steps, 3 of them the warm-up and 5 graph replays, equal 8 eager
-`make_train_step` steps from the same seed bit for bit, and with lr 0
-every replay draws fresh noise (every replay's loss differs).
+`make_train_step` steps from the same seed bit for bit (also with soft
+resampling, K3 and K2, and on the dense route, a matmul a step), and
+with lr 0 every replay draws fresh noise (every replay's loss differs).
+Graphed runs with a matmul leave no cuBLAS workspace behind.
 """
 
 import pytest
@@ -29,7 +31,7 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _run(dev, fused, lr):
+def _run(dev, fused, lr, **kwargs):
     comps = tuple(m.to(dev) for m in (
         lgssm.Initial(0.0, 1.0), lgssm.Transition(0.0, 1.0),
         lgssm.Emission(0.3, 0.1),
@@ -43,8 +45,8 @@ def _run(dev, fused, lr):
     if fused:
         return train.train_on_device(
             *comps, K, "aesmc", generative, T, B, STEPS, optimizer=optimizer,
-            noise=noise, steps_per_call=4)[1]
-    step = train.make_train_step(K, "aesmc", optimizer)
+            noise=noise, steps_per_call=4, **kwargs)[1]
+    step = train.make_train_step(K, "aesmc", optimizer, **kwargs)
     losses = []
     for _ in range(STEPS):
         with torch.no_grad():
@@ -58,3 +60,23 @@ def test_graphed_steps_equal_eager(card):
     assert torch.equal(_run(card, True, 1e-2), _run(card, False, 1e-2))
     replays = _run(card, True, 0.0)[train.WARMUP_STEPS:].tolist()
     assert len(set(replays)) == len(replays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kwargs", [
+    dict(resampling_method="soft", soft_resampling_alpha=0.5),
+    dict(resampling_implementation="torch")])
+def test_graphed_soft_and_dense_steps_equal_eager(card, kwargs):
+    assert torch.equal(_run(card, True, 1e-2, **kwargs),
+                       _run(card, False, 1e-2, **kwargs))
+
+
+@pytest.mark.cuda
+def test_graphed_matmul_steps_keep_no_blas_workspace(card):
+    _run(card, True, 1e-2, resampling_implementation="torch")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for _ in range(3):
+        _run(card, True, 1e-2, resampling_implementation="torch")
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - before < 2 ** 20

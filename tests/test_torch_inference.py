@@ -123,6 +123,8 @@ def test_return_vocabulary_and_empty_ancestors(models, monkeypatch):
     monkeypatch.setattr(resampling, "_check_nan_eager", no_sync)
     seen = []
     real = resample_cuda.resample_and_gather_systematic_torch
+    # Above the dense route's K, the 'torch' route runs K1's plain version.
+    k = resampling.DENSE_GATHER_MAX_K + 1
 
     def spy(cdf, u, value, emit_idx=True):
         seen.append(emit_idx)
@@ -131,28 +133,28 @@ def test_return_vocabulary_and_empty_ancestors(models, monkeypatch):
     monkeypatch.setattr(resample_cuda,
                         "resample_and_gather_systematic_torch", spy)
     with torch.no_grad():
-        out = inference.infer("smc", obs, *torch_comps, 7,
+        out = inference.infer("smc", obs, *torch_comps, k,
                               return_log_marginal_likelihood=True,
                               return_latents=False)
     assert seen == [False] * 3
     assert out["latents"] is None and out["ancestral_indices"] is None
     assert out["log_marginal_likelihood"].shape == (2,)
     with torch.no_grad():
-        out = inference.infer("smc", [o for o in obs], *torch_comps, 7,
+        out = inference.infer("smc", [o for o in obs], *torch_comps, k,
                               return_ancestral_indices=True,
                               return_log_weights=True)
     assert seen[3:] == [True] * 3
-    assert out["ancestral_indices"].shape == (3, 2, 7)
+    assert out["ancestral_indices"].shape == (3, 2, k)
     assert out["ancestral_indices"].dtype == torch.int32
-    assert out["log_weights"].shape == (4, 2, 7)
-    assert out["last_latent"].shape == (2, 7)
+    assert out["log_weights"].shape == (4, 2, k)
+    assert out["last_latent"].shape == (2, k)
     with pytest.raises(ValueError):
-        inference.infer("bogus", obs, *torch_comps, 7)
+        inference.infer("bogus", obs, *torch_comps, k)
     with pytest.raises(ValueError):
-        inference.infer("is", obs, *torch_comps, 7,
+        inference.infer("is", obs, *torch_comps, k,
                         return_ancestral_indices=True)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        inference.infer("smc", obs, *torch_comps, 7,
+        inference.infer("smc", obs, *torch_comps, k,
                         resampling_implementation="cuda")
 
 

@@ -166,8 +166,15 @@ def test_cuda_implementation_on_cpu_tensors_raises():
     assert resampling.resolve_implementation(
         torch.device("cuda", 0), "systematic", "auto") == "cuda"
     with pytest.raises(ValueError, match="method"):
-        resampling.resolve_implementation(torch.device("cpu"), "residual",
+        resampling.resolve_implementation(torch.device("cpu"), "bogus",
                                           "auto")
+    # Residual resampling has no kernel: 'auto' is 'torch' on every device.
+    for device in ("cpu", "cuda"):
+        assert resampling.resolve_implementation(
+            torch.device(device), "residual", "auto") == "torch"
+    with pytest.raises(ValueError, match="no fused kernel"):
+        resampling.resolve_implementation(torch.device("cuda", 0),
+                                          "residual", "cuda")
 
 
 def test_nan_log_weight_raises_at_public_entry():

@@ -108,10 +108,11 @@ def replayed_noise(proposal, obs, key, latents, ancestors,
 
 def resampling_draws(key, num_timesteps, batch, k, method):
     """`ReplayNoise` keyword arguments holding the resampling noise that
-    `aesmc_tpu.inference.infer` draws at t = 1 .. T-1 from ``key``."""
+    `aesmc_tpu.inference.infer` draws at t = 1 .. T-1 from ``key``: soft
+    resampling draws as multinomial does, residual as stratified."""
     step_keys = jax.random.split(key, (num_timesteps, 2))
     keys = [step_keys[t, 0] for t in range(1, num_timesteps)]
-    if method == "multinomial":
+    if method in ("multinomial", "soft"):
         return {"exponentials": [
             np.asarray(jax.random.exponential(kk, (batch, k + 1),
                                               dtype=jnp.float32))
@@ -136,3 +137,36 @@ def categorical_gumbels(key, num_timesteps, batch, k, num_states,
     return [np.asarray(jax.random.gumbel(step_keys[t, 1], shape,
                                          dtype=jnp.float32))
             for t, shape in enumerate(shapes)]
+
+
+def proposal_eps(proposal, obs, latents, ancestors):
+    """The standard-normal draws that make the port's ``proposal`` (a
+    `Normal` or `MultivariateNormalDiag` proposal module) reproduce the
+    JAX run's ``latents`` `[T, B, K, ...]`: eps = (x - loc) / scale, with
+    loc and scale from the port's proposal on the JAX run's latents,
+    gathered by its ``ancestors`` (None for 'is')."""
+    from aesmc_tpu_torch import inference, state
+    from aesmc_tpu_torch.state import BatchShapeMode
+
+    obs_seq = inference.ObservationSequence(tensor(obs))
+    x = tensor(latents)
+    eps = []
+    with torch.no_grad():
+        for t in range(len(obs_seq)):
+            if t == 0:
+                dist = proposal(time=0, observations=obs_seq)
+            else:
+                prev = (x[t - 1] if ancestors is None else state.resample(
+                    x[t - 1], tensor(ancestors[t - 1])))
+                dist = proposal(previous_latents=[prev],
+                                time=inference.TimeIndex(t),
+                                observations=obs_seq)
+            loc = dist.loc
+            scale = getattr(dist, "scale_diag", getattr(dist, "scale", None))
+            scale = torch.as_tensor(scale, dtype=torch.float32)
+            if dist.batch_shape_mode == BatchShapeMode.BATCH_EXPANDED:
+                loc = loc.unsqueeze(1)
+                if scale.ndim:
+                    scale = scale.unsqueeze(1)
+            eps.append(((x[t] - loc) / scale).numpy())
+    return eps
