@@ -22,19 +22,27 @@ __version__ = "0.3.0"
 from . import checkpoint
 from . import device
 from . import distributions
+from . import forecast
+from . import gradients
 from . import inference
 from . import losses
 from . import math
 from . import models
 from . import noise
 from . import ops
+from . import profiling
 from . import resampling
+from . import smoothing
 from . import state
 from . import statistics
+from . import tmc
 from . import train
+from . import utils
+from . import variance
 
 __all__ = [
-    "checkpoint", "device", "distributions", "inference", "losses", "math",
-    "models", "noise", "ops", "resampling", "state", "statistics", "train",
-    "__version__",
+    "checkpoint", "device", "distributions", "forecast", "gradients",
+    "inference", "losses", "math", "models", "noise", "ops", "profiling",
+    "resampling", "smoothing", "state", "statistics", "tmc", "train",
+    "utils", "variance", "__version__",
 ]

@@ -3,43 +3,66 @@
 Counterpart of `aesmc_tpu.losses`: `get_loss` maps 'iwae' to importance
 sampling and 'aesmc' to SMC, runs `inference.infer` for the log marginal
 likelihood only, and returns ``-mean(log Z)`` over the batch, a scalar
-tensor to call `.backward()` on. `get_loss_and_metrics` adds the mean
-ELBO and the mean effective sample size of the final weights.
-`checked_loss` is `get_loss` with the NaN guard deferred: it returns an
-error value that reads the guard's device flag only when asked.
+tensor to call `.backward()` on; 'tmc' is the Tensor Monte Carlo
+estimator (`tmc`: every K^T path, no resampling). `get_loss_and_metrics`
+adds the mean ELBO and the mean effective sample size of the final
+weights (NaN for 'tmc', which has no particle weights). `checked_loss`
+is `get_loss` with the NaN guard deferred: it returns an error value that
+reads the guard's device flag only when asked.
 
 Gradients flow through the reparameterized proposal samples and every
 log-probability, but not through ancestor indices (the engine detaches
 them): the reference's AESMC gradient semantics. Soft resampling
 (``resampling_method='soft'``) also carries the gradient of the weights
 through its corrected log-weights. On the card the resampling gradient is
-the range-sum kernel (K2).
-
-Not ported yet, and raising NotImplementedError until then: the 'tmc'
-algorithm and `gradient_estimator='score'` (slice C: `tmc.py`,
-`gradients.py`).
+the range-sum kernel (K2). ``gradient_estimator='score'`` ('aesmc' with
+multinomial resampling) adds the score-function term of the ancestor
+draws, which makes the gradient of E[log Z] unbiased (`gradients`); the
+loss value stays the same.
 """
 
 from __future__ import annotations
 
-from . import inference, statistics
+import torch
 
-ALGORITHMS = ("iwae", "aesmc")
+from . import gradients, inference, statistics, tmc
+
+ALGORITHMS = ("iwae", "aesmc", "tmc")
 
 
-def _check_later(algorithm, gradient_estimator):
-    if algorithm == "tmc":
-        raise NotImplementedError(
-            "algorithm='tmc' (Tensor Monte Carlo) is not ported yet; it "
-            "comes with slice C of the port (tmc.py)")
-    if gradient_estimator == "score":
-        raise NotImplementedError(
-            "gradient_estimator='score' is not ported yet; it comes with "
-            "slice C of the port (gradients.py)")
-    if gradient_estimator != "pathwise":
+def _check_estimator(algorithm, gradient_estimator, resampling_method,
+                     resampling_criterion, lookahead, with_metrics):
+    """The JAX package's ValueErrors for ``gradient_estimator``: those of
+    `get_loss` (`gradients.score_gradient_loss`'s), or those of
+    `get_loss_and_metrics` with ``with_metrics``."""
+    if gradient_estimator not in ("pathwise", "score"):
         raise ValueError(
             "gradient_estimator must be 'pathwise' or 'score'. "
             f"currently = {gradient_estimator}")
+    if gradient_estimator == "pathwise":
+        return
+    if with_metrics:
+        if algorithm != "aesmc":
+            raise ValueError(
+                "gradient_estimator='score' only applies to "
+                f"algorithm='aesmc' (currently = {algorithm})")
+        if resampling_method != "multinomial":
+            raise ValueError(
+                "gradient_estimator='score' requires "
+                "resampling_method='multinomial' (see "
+                "aesmc_tpu_torch.gradients)")
+        if resampling_criterion != "always":
+            raise ValueError(
+                "gradient_estimator='score' requires "
+                "resampling_criterion='always'")
+    elif algorithm != "aesmc":
+        raise ValueError(
+            "gradient_estimator='score' corrects the RESAMPLING "
+            "gradient; it only applies to algorithm='aesmc' "
+            f"(currently = {algorithm}). IWAE's pathwise gradient "
+            "is already unbiased.")
+    gradients._check_options(resampling_method, resampling_criterion,
+                             lookahead)
 
 
 def _inference_algorithm(algorithm):
@@ -57,13 +80,34 @@ def _objective(observations, num_particles, algorithm, initial, transition,
                resampling_implementation="auto",
                resampling_criterion="always", soft_resampling_alpha=0.5,
                lookahead=None, history_window=1, remat=False,
-               gradient_estimator="pathwise", nan_check=False,
+               gradient_estimator="pathwise", score_baseline="batch",
+               pairwise="auto", block_size=None, nan_check=False,
                with_metrics=False):
-    """(loss, metrics or None, NaN flag of `inference._infer`): the flag
-    is left on the device, unread."""
-    _check_later(algorithm, gradient_estimator)
+    """(loss, metrics or None, NaN flag): the flag is a device bool left
+    unread (None when nothing was checked): `inference._infer`'s, or for
+    'tmc' whether the loss is NaN."""
+    if algorithm == "tmc":
+        # Tensor Monte Carlo: no resampling, so the resampling_* options
+        # and the estimator do not apply; always rematerialized (the
+        # backward would otherwise keep T [B, K, K] tiles).
+        elbo = tmc.tmc_log_marginal_likelihood(
+            observations, initial, transition, emission, proposal,
+            num_particles, noise=noise, remat=True, pairwise=pairwise,
+            block_size=block_size).mean()
+        metrics = None
+        if with_metrics:
+            # No particle weights: the ESS is NaN (a fill on the device).
+            metrics = {"elbo": elbo.detach(), "ess": torch.full(
+                (), float("nan"), dtype=elbo.dtype, device=elbo.device)}
+        # TMC has no resampling step to guard: one check of the loss.
+        has_nan = torch.isnan(elbo.detach()) if nan_check else None
+        return -elbo, metrics, has_nan
+    inference_algorithm = _inference_algorithm(algorithm)
+    _check_estimator(algorithm, gradient_estimator, resampling_method,
+                     resampling_criterion, lookahead, with_metrics)
+    score = gradient_estimator == "score"
     result, has_nan = inference._infer(
-        _inference_algorithm(algorithm), observations, initial, transition,
+        inference_algorithm, observations, initial, transition,
         emission, proposal, num_particles, noise=noise, lookahead=lookahead,
         resampling_method=resampling_method,
         resampling_implementation=resampling_implementation,
@@ -71,12 +115,16 @@ def _objective(observations, num_particles, algorithm, initial, transition,
         soft_resampling_alpha=soft_resampling_alpha,
         history_window=history_window, nan_check=nan_check,
         remat=remat, return_log_marginal_likelihood=True,
-        return_latents=False, return_log_weight=with_metrics)
+        return_latents=False, return_log_weight=with_metrics,
+        return_log_weights=score, return_ancestral_indices=score)
     elbo = result["log_marginal_likelihood"].mean()
     metrics = None
     if with_metrics:
         ess = statistics.ess(result["log_weight"]).mean()
         metrics = {"elbo": elbo.detach(), "ess": ess.detach()}
+    if score:
+        return (gradients.score_surrogate_from_result(result, score_baseline),
+                metrics, has_nan)
     return -elbo, metrics, has_nan
 
 
@@ -90,6 +138,9 @@ def get_loss(observations, num_particles: int, algorithm: str, initial,
              history_window: int = 1,
              remat: bool = False,
              gradient_estimator: str = "pathwise",
+             score_baseline: str = "batch",
+             pairwise: str = "auto",
+             block_size=None,
              nan_check: bool = False):
     """Scalar loss ``-mean(ELBO)`` for gradient descent.
 
@@ -97,7 +148,10 @@ def get_loss(observations, num_particles: int, algorithm: str, initial,
         observations: list of `[batch, ...]` values or stacked
             `[T, batch, ...]` value (see `inference.infer`).
         num_particles: int.
-        algorithm: 'iwae' (IS estimator) or 'aesmc' (SMC estimator).
+        algorithm: 'iwae' (IS estimator), 'aesmc' (SMC estimator) or
+            'tmc' (Tensor Monte Carlo, `tmc`: every K^T path, fully
+            differentiable; always rematerialized, the resampling_*
+            options ignored).
         initial, transition, emission, proposal: user components.
         noise: the `NoiseSource` of every draw (see `inference.infer`).
         resampling_method, resampling_implementation,
@@ -105,8 +159,17 @@ def get_loss(observations, num_particles: int, algorithm: str, initial,
             forwarded to `infer` ('aesmc' only; 'soft' is differentiable
             resampling).
         history_window, remat: forwarded to `infer`.
+        gradient_estimator: 'pathwise' (the reference's semantics:
+            gradients stop at the ancestor indices) or 'score' ('aesmc'
+            with ``resampling_method='multinomial'`` and
+            ``resampling_criterion='always'`` only, no lookahead): adds the
+            score-function term of the ancestor draws (`gradients`). The
+            loss value is the same either way.
+        score_baseline: the score term's baseline, 'batch' or 'none'.
+        pairwise, block_size: the 'tmc' estimator's (see `tmc`).
         nan_check: raise FloatingPointError when a resampling step saw a
-            NaN log-weight ('aesmc'; one read of the device).
+            NaN log-weight ('aesmc'), or the 'tmc' loss is NaN (one read
+            of the device).
 
     Returns:
         scalar tensor.
@@ -119,7 +182,8 @@ def get_loss(observations, num_particles: int, algorithm: str, initial,
         resampling_criterion=resampling_criterion,
         soft_resampling_alpha=soft_resampling_alpha, lookahead=lookahead,
         history_window=history_window, remat=remat,
-        gradient_estimator=gradient_estimator, nan_check=nan_check)
+        gradient_estimator=gradient_estimator, score_baseline=score_baseline,
+        pairwise=pairwise, block_size=block_size, nan_check=nan_check)
     inference._raise_if_nan(has_nan)
     return loss
 
@@ -169,11 +233,19 @@ def get_loss_and_metrics(observations, num_particles: int, algorithm: str,
                          history_window: int = 1,
                          remat: bool = False,
                          gradient_estimator: str = "pathwise",
+                         score_baseline: str = "batch",
+                         pairwise: str = "auto",
+                         block_size=None,
                          nan_check: bool = False):
     """Like `get_loss`, and also a metrics dict of device scalars:
 
     - 'elbo': mean ELBO over the batch;
-    - 'ess': mean effective sample size of the final particle weights.
+    - 'ess': mean effective sample size of the final particle weights
+      (NaN for 'tmc', which has no particle weights).
+
+    With ``gradient_estimator='score'`` the loss is the score-function
+    surrogate (`gradients`), whose value equals the plain loss; the
+    metrics are unchanged.
     """
     loss, metrics, has_nan = _objective(
         observations, num_particles, algorithm, initial, transition,
@@ -183,7 +255,8 @@ def get_loss_and_metrics(observations, num_particles: int, algorithm: str,
         resampling_criterion=resampling_criterion,
         soft_resampling_alpha=soft_resampling_alpha, lookahead=lookahead,
         history_window=history_window, remat=remat,
-        gradient_estimator=gradient_estimator, nan_check=nan_check,
+        gradient_estimator=gradient_estimator, score_baseline=score_baseline,
+        pairwise=pairwise, block_size=block_size, nan_check=nan_check,
         with_metrics=True)
     inference._raise_if_nan(has_nan)
     return loss, metrics

@@ -1,7 +1,8 @@
 """Model families of the PyTorch port: the scalar LGSSM and its exact
 Kalman oracle, the D-dimensional LGSSM and its exact oracle, stochastic
-volatility, the conjugate-Gaussian test model, and the discrete-latent
-HMM with its exact forward-backward oracles."""
+volatility, the conjugate-Gaussian test model, the discrete-latent
+HMM with its exact forward-backward oracles, and the VRNN (a GRU over the
+observations and MLP transition, emission and proposal)."""
 
 from . import gaussian
 from . import hmm
@@ -10,6 +11,7 @@ from . import kalman_nd
 from . import lgssm
 from . import lgssm_nd
 from . import stochastic_volatility
+from . import vrnn
 
 __all__ = ["gaussian", "hmm", "kalman", "kalman_nd", "lgssm", "lgssm_nd",
-           "stochastic_volatility"]
+           "stochastic_volatility", "vrnn"]

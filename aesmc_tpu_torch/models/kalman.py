@@ -1,7 +1,7 @@
 """Exact scalar Kalman filter (test oracle), in numpy float64.
 
 Counterpart of `aesmc_tpu.models.kalman` (`KalmanParams`,
-`kalman_filter`) for the scalar linear-Gaussian SSM
+`kalman_filter`, `kalman_smoother`) for the scalar linear-Gaussian SSM
 
     x_0 ~ N(mu_0, P_0)
     x_t = a x_{t-1} + b + N(0, Q)
@@ -69,3 +69,21 @@ def kalman_filter(observations: Sequence[float], params: KalmanParams
         loglik += -0.5 * (np.log(2.0 * np.pi * s) + innovation ** 2 / s)
 
     return m, p, m_pred, p_pred, float(loglik)
+
+
+def kalman_smoother(observations: Sequence[float], params: KalmanParams
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Rauch-Tung-Striebel smoothing pass: returns (smoothed_means,
+    smoothed_variances), the exact oracle of the particle smoothers."""
+    m, p, m_pred, p_pred, _ = kalman_filter(observations, params)
+    num_timesteps = m.shape[0]
+    a = params.transition_mult
+    ms = np.zeros(num_timesteps)
+    ps = np.zeros(num_timesteps)
+    ms[-1] = m[-1]
+    ps[-1] = p[-1]
+    for t in range(num_timesteps - 2, -1, -1):
+        gain = p[t] * a / p_pred[t + 1]
+        ms[t] = m[t] + gain * (ms[t + 1] - m_pred[t + 1])
+        ps[t] = p[t] + gain * gain * (ps[t + 1] - p_pred[t + 1])
+    return ms, ps

@@ -63,7 +63,8 @@ def make_train_step(num_particles: int, algorithm: str,
                     soft_resampling_alpha: float = 0.5,
                     remat: bool = False,
                     nan_check: bool = False,
-                    with_metrics: bool = False) -> Callable:
+                    with_metrics: bool = False,
+                    **loss_kwargs) -> Callable:
     """Builds ``step(components, observations, noise)``: one optimization
     step (loss, backward pass, ``optimizer.step()``) on the parameters
     ``optimizer`` holds.
@@ -81,6 +82,10 @@ def make_train_step(num_particles: int, algorithm: str,
     FloatingPointError before ``optimizer.step()``, so the parameters and
     the optimizer's state are left as they were. ``resampling_method``
     may be 'soft' (differentiable resampling at ``soft_resampling_alpha``).
+    ``algorithm`` may be 'tmc'. ``loss_kwargs`` go to the objective
+    (`losses.get_loss`'s ``gradient_estimator``, ``score_baseline``,
+    ``lookahead``, ``history_window``, and TMC's ``pairwise`` and
+    ``block_size``).
     """
     def step(components, observations, noise):
         initial, transition, emission, proposal = components
@@ -92,7 +97,7 @@ def make_train_step(num_particles: int, algorithm: str,
             resampling_implementation=resampling_implementation,
             resampling_criterion=resampling_criterion,
             soft_resampling_alpha=soft_resampling_alpha, remat=remat,
-            nan_check=nan_check, with_metrics=with_metrics)
+            nan_check=nan_check, with_metrics=with_metrics, **loss_kwargs)
         loss.backward()
         if has_nan is not None and bool(has_nan):
             optimizer.zero_grad(set_to_none=True)
@@ -140,7 +145,8 @@ def train(dataloader: Iterable,
           remat: bool = False,
           checkpoint_dir=None,
           checkpoint_interval: Optional[int] = None,
-          resume: bool = False):
+          resume: bool = False,
+          **loss_kwargs):
     """Trains the four components in place; returns the tuple
     (initial, transition, emission, proposal).
 
@@ -154,7 +160,8 @@ def train(dataloader: Iterable,
     ``checkpoint_interval`` steps, if given, and once at the end. With
     ``resume`` and an existing ``checkpoint_dir`` the state saved there is
     restored into the components, the optimizer and the noise first, and
-    the step count continues from it.
+    the step count continues from it. ``loss_kwargs`` go to
+    `make_train_step`.
     """
     components = (initial, transition, emission, proposal)
     if optimizer is None:
@@ -173,7 +180,8 @@ def train(dataloader: Iterable,
         resampling_method=resampling_method,
         resampling_implementation=resampling_implementation,
         resampling_criterion=resampling_criterion,
-        soft_resampling_alpha=soft_resampling_alpha, remat=remat)
+        soft_resampling_alpha=soft_resampling_alpha, remat=remat,
+        **loss_kwargs)
 
     def save():
         checkpoint.save(checkpoint_dir, checkpoint.TrainState(
@@ -298,7 +306,8 @@ def train_on_device(initial, transition, emission, proposal,
                     resampling_criterion="always",
                     soft_resampling_alpha: float = 0.5,
                     remat: bool = False,
-                    callback: Optional[Callable] = None):
+                    callback: Optional[Callable] = None,
+                    **loss_kwargs):
     """Trains on synthetic observations with no host round trip a step:
     each step samples fresh observations from ``generative_components``
     and runs `make_train_step`'s step on them.
@@ -326,8 +335,9 @@ def train_on_device(initial, transition, emission, proposal,
         steps_per_call: steps a block; ``callback`` runs once a block, as
             ``callback(steps_done, mean_loss_of_block, components)``, and
             reads the block's losses from the device (the only read).
-        resampling_*, soft_resampling_alpha, remat: as in
-            `make_train_step` ('soft' steps are captured too).
+        resampling_*, soft_resampling_alpha, remat, loss_kwargs: as in
+            `make_train_step` ('soft', 'tmc' and score-gradient steps are
+            captured too).
 
     Returns:
         (components, losses `[num_steps]` on the noise source's device).
@@ -344,7 +354,8 @@ def train_on_device(initial, transition, emission, proposal,
         resampling_method=resampling_method,
         resampling_implementation=resampling_implementation,
         resampling_criterion=resampling_criterion,
-        soft_resampling_alpha=soft_resampling_alpha, remat=remat)
+        soft_resampling_alpha=soft_resampling_alpha, remat=remat,
+        **loss_kwargs)
     losses_out = torch.empty((num_steps,), device=noise.device)
     # The next step's index, on the device, so that a replay writes its
     # loss to its own slot.

@@ -19,7 +19,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    - K1, the fused systematic resample+gather: exactly equal (indices and
      gathered values), index output on and off, at the edges of its tiles
      (K = 1,024, 1,025, 2,049) and of its shared-memory window (K = 8,192,
-     8,193), and at D = 1, 13 and 300;
+     8,193), at D = 1, 13 and 300, and at the VRNN step's (16, 4,096, 64);
    - K2, the range sum (the backward of K1 and K3): exactly equal with
      integer cotangents in [-5, 5] (every sum is then exact in float32),
      each source within 1e-5 x its segment's sum of |g| with float
@@ -55,7 +55,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    one particle and on runs of -inf weight, K4 and K5 also against the
    one PyTorch call that computes their function and K2 against
    `scatter_add_` over the forward's ancestors, and its device time read
-   from torch.profiler (the library call's too, over all its kernels);
+   from torch.profiler (the library call's too, over all its kernels); K1
+   and K2 also at the VRNN step's (16, 4,096, 64);
    the host cost of K4's wrapper is broken down into its pieces;
 4. filter: the LGSSM SMC filter at the bench's shape (T=200, B=10,
    K=10,000) through `inference.infer`: the log-Z-only call launches K1
@@ -127,7 +128,32 @@ Phases, in order; any failure raises and the exit code is not 0:
 14. the dense-route sweep: `train_on_device` graphed at (200, 10, K) for
    K in {100, 256, 512, 1,024}, kernel route against the dense one-hot
    route ('torch' at K <= 1,024), in turns; the dense gather bit for bit
-   under TF32.
+   under TF32;
+15. the TMC train step, the bench's row (`bench.py:281-295`), at (200, 10,
+   100): TMC log-Z with the exact proposal within 5% of the Kalman filter
+   in every row and closer to it than IWAE on the same draws; no kernel
+   launched; the loss equal under 'high' and 'highest' matmul precision;
+   the first 8 graphed `train_on_device` steps bit-equal to eager ones;
+   eager and graphed ms/step, one replay profiled (no K1-K6 event); peak
+   memory with and without remat at K = 100 and 1,000;
+16. the VRNN AESMC train step at the JAX ablation width (latent 64, GRU
+   256, observations 64, MLP 256; T = 64, B = 16, K = 4,096; data from
+   `vrnn.generate`): the kernel route's loss equal to the plain route's,
+   gradients within 1e-5 relative; one step launches K1 (D = 64) and K2
+   63 times each; eager with and without remat, graphed through
+   `train_on_device` with remat, peak memories; one replay profiled and
+   split into matrix products, K1/K2 and the rest; bf16 products, eager
+   and graphed;
+17. the score-function gradient step at (200, 10, 100), multinomial: 199
+   K3 and 199 K2 launches, the loss equal across routes (gradients within
+   1e-5 relative) and within 1e-5 of the pathwise loss on the same noise;
+   eager and graphed ms/step;
+18. smoothing on the bench's LGSSM with the exact proposal: FFBS at (200,
+   10, 10,000) with M = 128 trajectories and PaRIS at (200, 10, 2,048)
+   with N = 2, 'pairwise' and 'rejection', against the RTS smoother at the
+   JAX tests' bounds; the genealogy variance estimators on a graphed
+   filter (exact proposal, multinomial) against the spread of 256
+   replays at the JAX test's band, and printed for phase 9's filter.
 
 It prints a `{"kernels": [...]}` JSON line before the last, and, as the
 last line, `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -156,8 +182,9 @@ import numpy as np
 import torch
 
 from aesmc_tpu_torch import (distributions, inference, losses, resampling,
-                             statistics, train)
-from aesmc_tpu_torch.models import hmm, kalman, kalman_nd, lgssm, lgssm_nd
+                             smoothing, statistics, tmc, train, variance)
+from aesmc_tpu_torch.models import (hmm, kalman, kalman_nd, lgssm, lgssm_nd,
+                                    vrnn)
 from aesmc_tpu_torch.noise import NoiseSource
 from aesmc_tpu_torch.state import BatchShapeMode
 from aesmc_tpu_torch.ops import (_build, _launch, gather_sorted_cuda,
@@ -168,6 +195,11 @@ from aesmc_tpu_torch.ops import (_build, _launch, gather_sorted_cuda,
 T, B, K = 200, 10, 10000
 # The reference training shape (bench.py:264).
 TRAIN_K = 100
+# The VRNN at the JAX package's ablation width
+# (benchmarks/vrnn_ablation_r5.py:42-43): T=64, B=16, K=4,096, latent 64,
+# GRU hidden 256, observations 64, MLP hidden 256.
+VRNN_T, VRNN_B, VRNN_K = 64, 16, 4096
+VRNN_LATENT, VRNN_HIDDEN, VRNN_OBS, VRNN_MLP = 64, 256, 64, 256
 # The bench's LGSSM (bench.py): x_0 ~ N(0, 1), x_t = 0.9 x_{t-1} + N(0, 1),
 # y_t = x_t + N(0, 0.2^2).
 TRANSITION_MULT, TRANSITION_SCALE = 0.9, 1.0
@@ -315,7 +347,8 @@ CASES = [(10, 10000, 1, "normal"), (3, 1000, 3, "normal"),
          (3, 10000, 2, "hot_first"), (3, 10000, 2, "hot_last"),
          (2, 1024, 1, "normal"), (2, 2049, 13, "normal"),
          (2, 8192, 1, "normal"), (2, 8193, 3, "normal"),
-         (3, 10000, 13, "normal"), (2, 1025, 300, "normal")]
+         (3, 10000, 13, "normal"), (2, 1025, 300, "normal"),
+         (VRNN_B, VRNN_K, VRNN_LATENT, "normal")]
 
 
 def k1_phase(dev):
@@ -684,7 +717,33 @@ def kernel_times(dev):
                 print(f"{name} at ({B}, {k}, 1), {label}: {ms * 1e3:.2f} "
                       f"us/call, device {_us(device_ms)} a launch",
                       flush=True)
+    _vrnn_kernel_times(dev)
     return out
+
+
+def _vrnn_kernel_times(dev):
+    """K1 (no index output, as the VRNN step launches it) and K2 at the
+    VRNN step's shape, (B, K, D) = (16, 4,096, 64)."""
+    generator = torch.Generator(device=dev).manual_seed(7)
+    b, k, d = VRNN_B, VRNN_K, VRNN_LATENT
+    cdf, u, value = _case_inputs(b, k, d, "normal", generator, dev)
+    pos = resample_cuda.systematic_positions(u, k)
+    g = torch.randn(b, k, d, generator=generator, device=dev)
+    ancestors = torch.searchsorted(cdf, pos, right=True).clamp_(
+        max=k - 1).unsqueeze(-1).expand(g.shape)
+    n, f, steps = b * k, 4, _search_steps(k)
+    _kernel_row("resample_systematic", (b, k, k, d),
+                lambda: resample_cuda.resample_and_gather_systematic(
+                    cdf, u, value, False),
+                lambda: resample_cuda.resample_and_gather_systematic_torch(
+                    cdf, u, value, False),
+                None, f * (n + b + 2 * n * d), n * steps)
+    _kernel_row("range_sum", (b, k, k, d),
+                lambda: range_sum_cuda.range_sum(cdf, pos, g),
+                lambda: range_sum_cuda.range_sum_torch(cdf, pos, g),
+                lambda: torch.zeros_like(g).scatter_add_(1, ancestors, g),
+                f * (2 * n + 2 * n * d), n * steps + n * d,
+                "scatter_add_ over the given ancestors (non-deterministic)")
 
 
 def _host_us(fn, calls=300):
@@ -1236,7 +1295,7 @@ def _bench_lgssm(dev, transition_mult):
     return (initial, transition, emission, proposal), obs
 
 
-def _compare_routes(comps, obs, k, method, seed, dev):
+def _compare_routes(comps, obs, k, method, seed, dev, **loss_kwargs):
     """The loss and gradients of the kernel route against the plain route
     on the same noise; returns the worst relative gradient error."""
     params = train.get_chained_params(*comps)
@@ -1245,7 +1304,8 @@ def _compare_routes(comps, obs, k, method, seed, dev):
         loss = losses.get_loss(obs, k, "aesmc", *comps,
                                noise=NoiseSource.seeded(seed, dev),
                                resampling_method=method,
-                               resampling_implementation=implementation)
+                               resampling_implementation=implementation,
+                               **loss_kwargs)
         results[implementation] = (loss.detach(),
                                    torch.autograd.grad(loss, params))
     (loss_k, grads_k), (loss_t, grads_t) = results["cuda"], results["torch"]
@@ -1582,26 +1642,26 @@ class _BlockTimer:
 
 
 def _on_device(dev, num_steps, block, k=None, lr=None, seed=21,
-               callback=None, **kwargs):
+               callback=None, algorithm="aesmc", **kwargs):
     """`train.train_on_device` on the bench's LGSSM at (T, B) = (200, 10),
     K = ``k`` (default `TRAIN_K`) and Adam at ``lr`` (default
     `GRAPH_LR`); returns (components, losses)."""
     comps, optimizer, gen = _graph_learner(
         dev, GRAPH_LR if lr is None else lr)
     return train.train_on_device(
-        *comps, k or TRAIN_K, "aesmc", gen, T, B, num_steps,
+        *comps, k or TRAIN_K, algorithm, gen, T, B, num_steps,
         optimizer=optimizer,
         noise=NoiseSource.seeded(seed, dev), steps_per_call=block,
         callback=callback, **kwargs)
 
 
-def _eager_steps(dev, num_steps, seed=21):
+def _eager_steps(dev, num_steps, seed=21, algorithm="aesmc"):
     """``num_steps`` eager `make_train_step` steps, each on observations
     sampled from the generative model through the same noise source, as
     `train_on_device` draws them; returns the losses."""
     comps, optimizer, gen = _graph_learner(dev, GRAPH_LR)
     noise = NoiseSource.seeded(seed, dev)
-    step = train.make_train_step(TRAIN_K, "aesmc", optimizer)
+    step = train.make_train_step(TRAIN_K, algorithm, optimizer)
     losses_ = []
     for _ in range(num_steps):
         with torch.no_grad():
@@ -1697,8 +1757,10 @@ def _profiled_train_replay(dev, label, want, wall_ms, runner=None,
                            train.WARMUP_STEPS + 1, callback=mark, **kwargs)
     torch.cuda.synchronize()
     prof.stop()
-    return _report_profile(prof, f"train step, {label}", want,
-                           events[0].elapsed_time(events[1]), wall_ms)
+    counts, device_ms = _report_profile(
+        prof, f"train step, {label}", want,
+        events[0].elapsed_time(events[1]), wall_ms)
+    return counts, device_ms, prof
 
 
 def graph_train_phase(dev):
@@ -2347,6 +2409,541 @@ def dense_phase(dev):
           f" at every K", flush=True)
 
 
+# ---- Slice B3/C1: Tensor Monte Carlo, the VRNN, the score-function
+# gradient and the smoothers.
+
+# Graphed TMC steps a block (phase 15): the first block holds the warm-up
+# and the capture, the next ones are timed.
+TMC_BLOCK, TMC_BLOCKS = 10, 4
+# The larger K at which phase 15 also reads the peak memory with and
+# without remat.
+TMC_MEMORY_K = 1000
+# VRNN steps a block when graphed (phase 16): the first block holds the
+# warm-up and the capture.
+VRNN_BLOCK = train.WARMUP_STEPS
+# FFBS trajectories (the JAX probe's FFBS_M, benchmarks/
+# smoothing_probe_r4.py:44) and the PaRIS shape of phase 18.
+FFBS_M = 128
+PARIS_K, PARIS_N = 2048, 2
+# Replays of a graphed filter for the spread of log-Z and of the filtered
+# mean, and the JAX package's band for a genealogy estimate against the
+# replicate variance (tests/test_variance.py:150-176).
+VARIANCE_REPLAYS = 256
+VARIANCE_BAND = (0.35, 1.5)
+# The JAX tests' bounds against the RTS smoother: FFBS means RMSE and
+# mean relative variance deviation (tests/test_smoothing.py:36-50), the
+# PaRIS sum of states a row (tests/test_paris.py:71-80).
+FFBS_RMSE, FFBS_VAR_DEV, PARIS_SUM_TOL = 0.06, 0.25, 0.35
+# The kernels' names in the profiler, for "none of them" checks.
+NO_KERNELS = {name: 0 for name in sorted({n for _, _, n, _ in
+                                          KERNELS.values()})}
+
+
+def _optimal_lgssm(dev):
+    """The bench's LGSSM (transition 0.9), its exact proposal and
+    observations of it at (T, B)."""
+    comps, obs = _bench_lgssm(dev, TRANSITION_MULT)
+    optimal = lgssm.optimal_proposal(
+        0.0, 1.0, TRANSITION_MULT, TRANSITION_SCALE, EMISSION_MULT,
+        EMISSION_SCALE).to(dev)
+    return comps[:3] + (optimal,), obs
+
+
+def _peak_mib():
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def tmc_phase(dev):
+    phase(f"15 TMC train step: the bench's row (bench.py:281-295), (T, B, K) "
+          f"= ({T}, {B}, {TRAIN_K})")
+    # Accuracy on the true model with its exact proposal: TMC's and
+    # IWAE's log-Z from the same proposal draws against Kalman.
+    comps, obs = _optimal_lgssm(dev)
+    exact = _lgssm_exact(obs)
+    with torch.no_grad():
+        est = tmc.tmc_log_marginal_likelihood(
+            obs, *comps, TRAIN_K, noise=NoiseSource.seeded(60, dev))
+        iwae = inference.infer(
+            "is", obs, *comps, TRAIN_K, noise=NoiseSource.seeded(60, dev),
+            return_log_marginal_likelihood=True,
+            return_latents=False)["log_marginal_likelihood"]
+    _check_log_z(f"TMC K={TRAIN_K}, exact proposal", est, exact)
+    tmc_err = np.abs(est.cpu().numpy() - exact)
+    iwae_err = np.abs(iwae.cpu().numpy() - exact)
+    print(f"|log-Z - Kalman| a row: TMC {np.round(tmc_err, 3).tolist()}, "
+          f"IWAE on the same draws {np.round(iwae_err, 3).tolist()}; means "
+          f"{tmc_err.mean():.4f} against {iwae_err.mean():.4f}", flush=True)
+    if not tmc_err.mean() < iwae_err.mean():
+        raise AssertionError("TMC is not closer to Kalman than IWAE")
+    mode = tmc._resolve_pairwise_mode(comps[1], torch.zeros(
+        B, TRAIN_K, device=dev), obs[0])
+    print(f"pairwise 'auto' resolves to {mode!r} on the LGSSM", flush=True)
+    if mode != "broadcast":
+        raise AssertionError(f"'auto' resolved to {mode}")
+
+    # The main path: one TMC train step as a user calls it; it reaches no
+    # resampling kernel.
+    comps, obs = _bench_lgssm(dev, 0.5)
+    optimizer = torch.optim.Adam(train.get_chained_params(*comps), lr=1e-2)
+    step = train.make_train_step(TRAIN_K, "tmc", optimizer)
+    reset_counts()
+    loss = step(comps, obs, NoiseSource.seeded(61, dev))
+    counts = read_counts("TMC train step")
+    if any(counts.values()) or not bool(torch.isfinite(loss)):
+        raise AssertionError(f"TMC step: launches {counts}, loss {loss}")
+
+    # The exp-matmul runs at full float32 whatever the matmul precision.
+    previous = torch.get_float32_matmul_precision()
+    values = {}
+    try:
+        for precision in ("high", "highest"):
+            torch.set_float32_matmul_precision(precision)
+            values[precision] = losses.get_loss(
+                obs, TRAIN_K, "tmc", *comps,
+                noise=NoiseSource.seeded(62, dev)).detach()
+    finally:
+        torch.set_float32_matmul_precision(previous)
+    print(f"TMC loss under 'high' {float(values['high']):.6f}, 'highest' "
+          f"{float(values['highest']):.6f}: equal "
+          f"{torch.equal(values['high'], values['highest'])}", flush=True)
+    if not torch.equal(values["high"], values["highest"]):
+        raise AssertionError("the TMC loss moved with the matmul precision")
+
+    # Graphed against eager: the first steps bit for bit.
+    _, graphed = _on_device(dev, GRAPH_EQUAL_STEPS, GRAPH_EQUAL_STEPS,
+                            algorithm="tmc")
+    eager = _eager_steps(dev, GRAPH_EQUAL_STEPS, algorithm="tmc")
+    print(f"first {GRAPH_EQUAL_STEPS} graphed TMC steps against eager "
+          f"make_train_step steps from the same seed: bit-equal "
+          f"{torch.equal(graphed, eager)}; losses {graphed.cpu().numpy()}",
+          flush=True)
+    if not torch.equal(graphed, eager):
+        raise AssertionError(f"graphed TMC losses differ from eager: "
+                             f"{graphed} vs {eager}")
+
+    # Times: eager steps, then graphed blocks.
+    noise = NoiseSource.seeded(63, dev)
+    eager_ms = _cuda_ms(lambda: step(comps, obs, noise), warmup=1, repeat=6,
+                        each=True)
+    timer = _BlockTimer()
+    _, hist = _on_device(dev, TMC_BLOCKS * TMC_BLOCK, TMC_BLOCK,
+                         callback=timer, algorithm="tmc")
+    graph_ms = timer.ms_per_step()
+    med = float(np.median(graph_ms))
+    q1, eager_med, q3 = _quartiles(eager_ms)
+    print(f"TMC train step K={TRAIN_K}: eager median {eager_med:.3f} ms/step "
+          f"(quartiles {q1:.3f}, {q3:.3f}; n={len(eager_ms)}); graphed "
+          f"{np.round(graph_ms, 3).tolist()} ms/step (median {med:.3f} = "
+          f"{1e3 / med:.2f} steps/s); losses finite "
+          f"{bool(torch.isfinite(hist).all())}", flush=True)
+    if not bool(torch.isfinite(hist).all()):
+        raise AssertionError(f"graphed TMC losses {hist}")
+    _profiled_train_replay(dev, "TMC step", NO_KERNELS, med,
+                           algorithm="tmc")
+
+    # Peak memory of loss and backward, with and without remat.
+    params = train.get_chained_params(*comps)
+    for k in (TRAIN_K, TMC_MEMORY_K):
+        peaks = {}
+        for remat in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            lml = tmc.tmc_log_marginal_likelihood(
+                obs, *comps, k, noise=NoiseSource.seeded(64, dev),
+                remat=remat)
+            torch.autograd.grad(-lml.mean(), params)
+            peaks[remat] = _peak_mib()
+        print(f"TMC loss and gradients K={k}: peak device memory "
+              f"{peaks[True]:.1f} MiB with remat, {peaks[False]:.1f} MiB "
+              f"without", flush=True)
+
+
+def _vrnn_model(dev, seed, compute_dtype=None):
+    return vrnn.make_model(VRNN_LATENT, VRNN_HIDDEN, VRNN_OBS, seed=seed,
+                           mlp_hidden=VRNN_MLP, compute_dtype=compute_dtype,
+                           device=dev)
+
+
+def _vrnn_data(dev):
+    """The data model (seed 1) and observations of it at (VRNN_T,
+    VRNN_B), from `vrnn.generate`."""
+    data_model = _vrnn_model(dev, 1)
+    initial, encoder, transition, emission, _ = data_model
+    with torch.no_grad():
+        _, obs = vrnn.generate(encoder, initial, transition, emission,
+                               VRNN_T, VRNN_B, NoiseSource.seeded(80, dev))
+    return data_model, obs
+
+
+def _vrnn_on_device(dev, num_steps, block, callback=None, remat=True,
+                    seed=85, compute_dtype=None):
+    """`train.train_on_device` of a VRNN learner (seed 0, products in
+    ``compute_dtype``) on observations that each step draws from the data
+    model's generative components."""
+    data_model, _ = _vrnn_data(dev)
+    initial, encoder, transition, emission, _ = data_model
+    comps = vrnn.bind_on_call(*_vrnn_model(dev, 0, compute_dtype))
+    optimizer = torch.optim.Adam(train.get_chained_params(*comps), lr=1e-3,
+                                 capturable=True)
+    return train.train_on_device(
+        *comps, VRNN_K, "aesmc",
+        vrnn.generative_components(encoder, initial, transition, emission),
+        VRNN_T, VRNN_B, num_steps, optimizer=optimizer,
+        noise=NoiseSource.seeded(seed, dev), steps_per_call=block,
+        callback=callback, remat=remat)
+
+
+def _gemm_split(prof):
+    """Device ms of one profiled replay: matrix products (cuBLAS and
+    CUTLASS kernels), the port's K1 and K2, and everything else."""
+    from torch.autograd import DeviceType
+    split = {"gemm": 0.0, "K1/K2": 0.0, "rest": 0.0}
+    names = (KERNELS["resample_systematic"][2], KERNELS["range_sum"][2])
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total",
+                     getattr(e, "cuda_time_total", 0.0))
+        key = e.key.lower()
+        if any(n in e.key for n in names):
+            split["K1/K2"] += us / 1e3
+        elif any(w in key for w in ("gemm", "gemv", "xmma", "cutlass")):
+            split["gemm"] += us / 1e3
+        else:
+            split["rest"] += us / 1e3
+    return split
+
+
+def vrnn_phase(dev):
+    phase(f"16 VRNN AESMC train step at the ablation width: latent "
+          f"{VRNN_LATENT}, GRU {VRNN_HIDDEN}, obs {VRNN_OBS}, MLP {VRNN_MLP}, "
+          f"(T, B, K) = ({VRNN_T}, {VRNN_B}, {VRNN_K:,})")
+    _, obs = _vrnn_data(dev)
+    model = _vrnn_model(dev, 0)
+    params = train.get_chained_params(*model[1:])
+    steps = VRNN_T - 1
+
+    # Routes: the kernel route's loss and gradients against the plain
+    # route's on the same noise.
+    results = {}
+    for impl in ("cuda", "torch"):
+        loss = vrnn.vrnn_loss(obs, VRNN_K, "aesmc", *model,
+                              noise=NoiseSource.seeded(81, dev),
+                              resampling_implementation=impl)
+        results[impl] = (loss.detach(), torch.autograd.grad(loss, params))
+        del loss
+    (loss_k, grads_k), (loss_t, grads_t) = results["cuda"], results["torch"]
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(grads_k, grads_t))
+    print(f"VRNN loss {float(loss_k):.6f} on the kernel route, equal to the "
+          f"plain route's {torch.equal(loss_k, loss_t)}; gradients within "
+          f"relative error {worst:.3g} (bound {GRAD_RTOL})", flush=True)
+    if not torch.equal(loss_k, loss_t) or worst > GRAD_RTOL:
+        raise AssertionError(f"VRNN routes differ: {float(loss_k)} vs "
+                             f"{float(loss_t)}, gradients {worst}")
+    del results, grads_k, grads_t
+
+    # The main path: one train step as a user calls it, without remat.
+    comps = vrnn.bind_on_call(*model)
+    optimizer = torch.optim.Adam(train.get_chained_params(*comps), lr=1e-3)
+    step = train.make_train_step(VRNN_K, "aesmc", optimizer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loss = step(comps, obs, NoiseSource.seeded(82, dev))
+    counts = read_counts("VRNN train step")
+    eager_peak = _peak_mib()
+    others = {n: c for n, c in counts.items()
+              if n not in ("resample_systematic", "range_sum") and c}
+    if (counts["resample_systematic"], counts["range_sum"]) != (
+            steps, steps) or others or not bool(torch.isfinite(loss)):
+        raise AssertionError(f"one VRNN step launched {counts}, loss {loss}")
+    noise = NoiseSource.seeded(83, dev)
+    eager_ms = _cuda_ms(lambda: step(comps, obs, noise), warmup=1, repeat=3,
+                        each=True)
+    remat_step = train.make_train_step(VRNN_K, "aesmc", optimizer,
+                                       remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    remat_step(comps, obs, noise)
+    remat_peak = _peak_mib()
+    remat_ms = _cuda_ms(lambda: remat_step(comps, obs, noise), warmup=0,
+                        repeat=3, each=True)
+    # GEMM operations of a step: the prior net (T - 1 steps) and the
+    # decoder (T steps) on every particle, forward and twice that
+    # backward; the GRU and the proposal net run on B rows only.
+    rows = VRNN_B * VRNN_K
+    d_in = VRNN_LATENT + VRNN_HIDDEN
+    flops = 3 * 2 * rows * (
+        steps * (d_in * VRNN_MLP + VRNN_MLP * 2 * VRNN_LATENT) +
+        VRNN_T * (d_in * VRNN_MLP + VRNN_MLP * VRNN_OBS))
+    med = float(np.median(eager_ms))
+    remat_med = float(np.median(remat_ms))
+    print(f"VRNN train step, eager: {np.round(eager_ms, 3).tolist()} ms "
+          f"(median {med:.3f}), peak device memory {eager_peak:.1f} MiB; "
+          f"with remat {np.round(remat_ms, 3).tolist()} ms (median "
+          f"{remat_med:.3f}), peak {remat_peak:.1f} MiB; K1 (D = "
+          f"{VRNN_LATENT}) and K2 {steps} launches each; the MLP products "
+          f"{flops / 1e12:.3f} TFLOP a step = {flops / med / 1e9:.2f} "
+          f"TFLOP/s eager", flush=True)
+    del step, remat_step, optimizer, comps
+    torch.cuda.empty_cache()
+
+    # Graphed through train_on_device, with remat (the graph's pool keeps
+    # the captured step's activations beside the warm-up's cache).
+    timer = _BlockTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _, hist = _vrnn_on_device(dev, 4 * VRNN_BLOCK, VRNN_BLOCK, timer)
+    counts = read_counts("graphed VRNN train step")
+    graph_peak = _peak_mib()
+    # Block 0 is the warm-up, block 1 the capture and its replays.
+    graph_ms = timer.ms_per_step(first=2)
+    graph_med = float(np.median(graph_ms))
+    print(f"graphed VRNN train step (train_on_device, remat): "
+          f"{np.round(graph_ms, 3).tolist()} ms/step (median "
+          f"{graph_med:.3f}; eager with remat {remat_med:.3f}); peak device "
+          f"memory {graph_peak:.1f} MiB; losses "
+          f"{np.round(hist.cpu().numpy(), 3).tolist()}", flush=True)
+    if not bool(torch.isfinite(hist).all()):
+        raise AssertionError(f"graphed VRNN losses {hist}")
+    torch.cuda.empty_cache()
+    # With remat, K1 runs in the forward and again in the recompute.
+    *_, prof = _profiled_train_replay(
+        dev, "VRNN step", {KERNELS["resample_systematic"][2]: 2 * steps,
+                           KERNELS["range_sum"][2]: steps}, graph_med,
+        runner=lambda dev, num_steps, block, callback: _vrnn_on_device(
+            dev, num_steps, block, callback))
+    split = _gemm_split(prof)
+    total = sum(split.values())
+    print("VRNN replay by kind: " + ", ".join(
+        f"{kind} {ms:.3f} ms ({ms / total:.1%})"
+        for kind, ms in split.items()) +
+        f"; the products at {flops / split['gemm'] / 1e9:.2f} TFLOP/s "
+        f"(with the recompute's forward, {flops * 4 / 3 / split['gemm'] / 1e9:.2f})",
+        flush=True)
+    torch.cuda.empty_cache()
+
+    # bf16 products (`torch.mm` with a float32 ``out_dtype``): one eager
+    # step, finite, and its time; then graphed.
+    bf16_comps = vrnn.bind_on_call(*_vrnn_model(dev, 0, "bfloat16"))
+    bf16_step = train.make_train_step(VRNN_K, "aesmc", torch.optim.Adam(
+        train.get_chained_params(*bf16_comps), lr=1e-3))
+    loss = bf16_step(bf16_comps, obs, NoiseSource.seeded(84, dev))
+    bf16_ms = _cuda_ms(lambda: bf16_step(bf16_comps, obs, noise), warmup=0,
+                       repeat=3, each=True)
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"bf16 VRNN loss {loss}")
+    del bf16_comps, bf16_step
+    torch.cuda.empty_cache()
+    timer = _BlockTimer()
+    _, hist = _vrnn_on_device(dev, 4 * VRNN_BLOCK, VRNN_BLOCK, timer,
+                              compute_dtype="bfloat16")
+    bf16_graph = timer.ms_per_step(first=2)
+    print(f"VRNN train step with compute_dtype='bfloat16': loss "
+          f"{float(loss):.4f}; eager {np.round(bf16_ms, 3).tolist()} ms "
+          f"(median {float(np.median(bf16_ms)):.3f}; float32 {med:.3f}); "
+          f"graphed with remat {np.round(bf16_graph, 3).tolist()} ms/step "
+          f"(float32 {graph_med:.3f}); losses finite "
+          f"{bool(torch.isfinite(hist).all())}", flush=True)
+    if not bool(torch.isfinite(hist).all()):
+        raise AssertionError(f"graphed bf16 VRNN losses {hist}")
+    torch.cuda.empty_cache()
+
+
+def score_phase(dev):
+    phase(f"17 score-function gradient step: multinomial resampling, "
+          f"(T, B, K) = ({T}, {B}, {TRAIN_K})")
+    comps, obs = _bench_lgssm(dev, 0.5)
+    _compare_routes(comps, obs, TRAIN_K, "multinomial", 70, dev,
+                    gradient_estimator="score")
+    optimizer = torch.optim.Adam(train.get_chained_params(*comps), lr=1e-2)
+    step = train.make_train_step(TRAIN_K, "aesmc", optimizer,
+                                 resampling_method="multinomial",
+                                 gradient_estimator="score")
+    reset_counts()
+    loss = step(comps, obs, NoiseSource.seeded(71, dev))
+    counts = read_counts("score train step")
+    if (counts["resample_sorted"], counts["range_sum"],
+            counts["resample_systematic"]) != (T - 1, T - 1, 0):
+        raise AssertionError(f"one score step launched {counts}")
+    # The loss value is the pathwise multinomial loss on the same noise
+    # (the score term cancels exactly; the per-step log-Z terms are summed
+    # in another order).
+    score = losses.get_loss(obs, TRAIN_K, "aesmc", *comps,
+                            noise=NoiseSource.seeded(72, dev),
+                            resampling_method="multinomial",
+                            gradient_estimator="score").detach()
+    pathwise = losses.get_loss(obs, TRAIN_K, "aesmc", *comps,
+                               noise=NoiseSource.seeded(72, dev),
+                               resampling_method="multinomial").detach()
+    diff = abs(float(score) - float(pathwise))
+    print(f"score loss {float(score):.6f}, pathwise {float(pathwise):.6f}: "
+          f"difference {diff:.3g} (bound 1e-5 x |loss|)", flush=True)
+    if diff > 1e-5 * abs(float(pathwise)):
+        raise AssertionError(f"score loss {score} vs pathwise {pathwise}")
+    noise = NoiseSource.seeded(73, dev)
+    eager_ms = _cuda_ms(lambda: step(comps, obs, noise), warmup=1, repeat=6,
+                        each=True)
+    timer = _BlockTimer()
+    _, hist = _on_device(dev, 4 * TMC_BLOCK, TMC_BLOCK, callback=timer,
+                         resampling_method="multinomial",
+                         gradient_estimator="score")
+    graph_ms = timer.ms_per_step()
+    q1, med, q3 = _quartiles(eager_ms)
+    print(f"score train step K={TRAIN_K}: K3 and K2 {T - 1} launches each; "
+          f"eager median {med:.3f} ms/step (quartiles {q1:.3f}, {q3:.3f}); "
+          f"graphed {np.round(graph_ms, 3).tolist()} ms/step (median "
+          f"{float(np.median(graph_ms)):.3f}); losses finite "
+          f"{bool(torch.isfinite(hist).all())}", flush=True)
+    if not bool(torch.isfinite(hist).all()):
+        raise AssertionError(f"graphed score losses {hist}")
+
+
+def _rts(obs):
+    """The RTS smoother's means and variances `[T, B]` of the bench's
+    LGSSM."""
+    params = kalman.KalmanParams(
+        initial_mean=0.0, initial_variance=1.0,
+        transition_mult=TRANSITION_MULT, transition_offset=0.0,
+        transition_variance=TRANSITION_SCALE ** 2,
+        emission_mult=EMISSION_MULT, emission_offset=0.0,
+        emission_variance=EMISSION_SCALE ** 2)
+    obs_np = obs.cpu().numpy()
+    out = [kalman.kalman_smoother(obs_np[:, b], params)
+           for b in range(obs_np.shape[1])]
+    return (np.stack([m for m, _ in out], axis=1),
+            np.stack([v for _, v in out], axis=1))
+
+
+def _timed(fn):
+    """(fn's result, ms between CUDA events around one call)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+@torch.no_grad()
+def smoothing_phase(dev):
+    phase(f"18 smoothing on the bench's LGSSM with the exact proposal: FFBS "
+          f"at (T, B, K, M) = ({T}, {B}, {K:,}, {FFBS_M}), PaRIS at ({T}, "
+          f"{B}, {PARIS_K:,}) with N = {PARIS_N}; genealogy variance")
+    comps, obs = _optimal_lgssm(dev)
+    means, variances = _rts(obs)
+
+    # FFBS on a stored filter run.
+    reset_counts()
+    run, filter_ms = _timed(lambda: inference.infer(
+        "smc", obs, *comps, K, noise=NoiseSource.seeded(90, dev),
+        return_original_latents=True, return_log_weights=True,
+        return_latents=False, return_log_weight=False))
+    read_counts("FFBS's filter")
+    traj, ffbs_ms = _timed(lambda: smoothing.backward_simulation(
+        run["original_latents"], run["log_weights"], comps[1], FFBS_M,
+        NoiseSource.seeded(91, dev)))
+    smoothed = traj.mean(dim=2).cpu().numpy()
+    spread = traj.var(dim=2).cpu().numpy()
+    rmse = float(np.sqrt(np.mean((smoothed - means) ** 2)))
+    var_dev = float(np.mean(np.abs(spread - variances) / variances))
+    print(f"FFBS: trajectories {tuple(traj.shape)}; the filter "
+          f"{filter_ms:.3f} ms, the backward pass {ffbs_ms:.3f} ms; smoothed "
+          f"means RMSE {rmse:.4f} against RTS (bound {FFBS_RMSE}), variances "
+          f"mean relative deviation {var_dev:.4f} (bound {FFBS_VAR_DEV})",
+          flush=True)
+    if not (rmse < FFBS_RMSE and var_dev < FFBS_VAR_DEV):
+        raise AssertionError(f"FFBS off the RTS smoother: {rmse}, {var_dev}")
+
+    # PaRIS: the smoothed sum of states, both backward modes.
+    exact_sum = means.sum(axis=0)
+    for mode in ("pairwise", "rejection"):
+        reset_counts()
+        out, ms = _timed(lambda: smoothing.paris(
+            obs, *comps, PARIS_K, h=lambda xp, xc, t: xc, h0=lambda x0: x0,
+            noise=NoiseSource.seeded(92, dev), num_backward_draws=PARIS_N,
+            backward=mode))
+        counts = read_counts(f"PaRIS {mode}")
+        err = np.abs(out["smoothed"].cpu().numpy() - exact_sum)
+        extra = ""
+        if mode == "rejection":
+            extra = (f"; first-round acceptance "
+                     f"{np.round(out['backward_accept_rate'].cpu().numpy(), 3).tolist()}"
+                     f", lanes left open "
+                     f"{out['backward_unconverged'].cpu().tolist()}")
+        print(f"PaRIS {mode}: {ms:.3f} ms a call; |sum of states - RTS| a "
+              f"row {np.round(err, 4).tolist()} (bound {PARIS_SUM_TOL}); K1 "
+              f"{counts['resample_systematic']} launches{extra}", flush=True)
+        if not np.all(err < PARIS_SUM_TOL):
+            raise AssertionError(f"PaRIS {mode} off the RTS sum: {err}")
+        if counts["resample_systematic"] != T - 1:
+            raise AssertionError(f"PaRIS {mode} launched {counts}")
+
+    # Genealogy variance on a graphed filter (phase 9's capture): the mean
+    # single-run estimates against the spread over replays, with the exact
+    # proposal and multinomial resampling, the estimators' unbiased regime.
+    for label, fcomps, fobs, method, replays in (
+            ("exact proposal, multinomial", comps, obs, "multinomial",
+             VARIANCE_REPLAYS),
+            ("phase 9's filter (the bench's proposal, systematic)",
+             *_bench_lgssm(dev, TRANSITION_MULT), "systematic", 16)):
+        _genealogy_variance(dev, label, fcomps, fobs, method, replays,
+                            check=method == "multinomial")
+
+
+def _genealogy_variance(dev, label, comps, obs, method, replays, check):
+    """Captures one filter call at (T, B, K), replays it ``replays`` times
+    and compares `variance.log_z_variance` with the variance of log-Z
+    across the replays, and `variance.expectation_variance` / K of the
+    final state with the variance of its weighted mean (means over rows;
+    with ``check``, within `VARIANCE_BAND`)."""
+    noise = NoiseSource.seeded(93, dev)
+
+    def call():
+        out = inference.infer(
+            "smc", obs, *comps, K, noise=noise, resampling_method=method,
+            return_log_marginal_likelihood=True, return_latents=False,
+            return_ancestral_indices=True)
+        return (out["log_marginal_likelihood"], out["log_weight"],
+                out["ancestral_indices"], out["last_latent"])
+
+    train._warm_up(call, 1)
+    graph, (log_z, log_weight, anc, last) = train._capture(call,
+                                                           noise.generator)
+    runs = {"log_z": [], "est": [], "mean": [], "sigma2": []}
+    _, replay_ms = _timed(graph.replay)
+    for _ in range(replays):
+        graph.replay()
+        w = torch.softmax(log_weight, dim=-1)
+        runs["log_z"].append(log_z.double())
+        runs["est"].append(variance.log_z_variance(log_weight, anc).double())
+        runs["mean"].append((w * last).sum(dim=-1).double())
+        runs["sigma2"].append(variance.expectation_variance(
+            last, log_weight, anc).double())
+    runs = {name: torch.stack(values) for name, values in runs.items()}
+    pairs = {"log_z_variance": (float(runs["est"].mean()),
+                                float(runs["log_z"].var(dim=0).mean())),
+             "expectation_variance / K": (
+                 float(runs["sigma2"].mean()) / K,
+                 float(runs["mean"].var(dim=0).mean()))}
+    families = variance.num_families(anc).cpu().tolist()
+    low, high = VARIANCE_BAND
+    for name, (est, replicate) in pairs.items():
+        print(f"{label}: {name} mean {est:.4g} against the variance over "
+              f"{replays} replays {replicate:.4g} (ratio "
+              f"{est / replicate:.3f}; band {low} to {high}"
+              f"{'' if check else ', not checked'})", flush=True)
+        if check and not low * replicate < est < high * replicate:
+            raise AssertionError(f"{label}: {name} {est} against the "
+                                 f"replicate variance {replicate}")
+    print(f"{label}: one replay {replay_ms:.3f} ms; surviving families in the "
+          f"last replay {families}", flush=True)
+
+
 def _build_other(other, sources):
     """Builds each of ``sources`` from directory ``other`` with `_build`'s
     flags, one nvcc each, all started together, into `compare/` of the
@@ -2488,6 +3085,10 @@ def main():
     lgssm_nd_phase(dev)
     apf_residual_phase(dev)
     dense_phase(dev)
+    tmc_phase(dev)
+    vrnn_phase(dev)
+    score_phase(dev)
+    smoothing_phase(dev)
     kernels = []
     for name, (module, _, _, replaces) in KERNELS.items():
         launches = sum(LAUNCHES[name].values())

@@ -8,6 +8,7 @@ import pathlib
 import pytest
 
 from aesmc_tpu_torch.ops import _build
+import torch_threads  # noqa: F401  (caps PyTorch's threads)
 
 
 @pytest.fixture

@@ -15,6 +15,7 @@ import torch
 from aesmc_tpu_torch import checkpoint, train
 from aesmc_tpu_torch.models import lgssm
 from aesmc_tpu_torch.noise import NoiseSource
+import torch_threads  # noqa: F401  (caps PyTorch's threads)
 
 CPU = "cpu"
 

@@ -9,6 +9,7 @@ import torch
 from aesmc_tpu_torch import device, inference, statistics, train
 from aesmc_tpu_torch.models import gaussian, lgssm
 from aesmc_tpu_torch.noise import NoiseSource
+import torch_threads  # noqa: F401  (caps PyTorch's threads)
 
 LGSSM_PARAMS = {
     "initial": {"loc": 0.0, "scale": 1.0},

@@ -19,6 +19,7 @@ import torch
 from aesmc_tpu_torch import statistics, train
 from aesmc_tpu_torch.models import lgssm
 from aesmc_tpu_torch.noise import NoiseSource
+import torch_threads  # noqa: F401  (caps PyTorch's threads)
 
 T, B, K, STEPS = 5, 2, 16, 8
 

@@ -17,6 +17,7 @@ import torch
 from aesmc_tpu import resampling as jax_resampling
 from aesmc_tpu.ops import resample_pallas
 from aesmc_tpu_torch.ops import range_sum_cuda, resample_cuda
+import torch_threads  # noqa: F401  (caps PyTorch's threads)
 
 
 def _t(x):

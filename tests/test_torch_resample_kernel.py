@@ -15,6 +15,7 @@ from aesmc_tpu import resampling as jax_resampling
 from aesmc_tpu.ops import resample_pallas
 from aesmc_tpu_torch import resampling
 from aesmc_tpu_torch.ops import _build, _launch, resample_cuda
+import torch_threads  # noqa: F401  (caps PyTorch's threads)
 
 
 def _t(x):

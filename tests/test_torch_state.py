@@ -17,6 +17,7 @@ from aesmc_tpu import math as jax_math
 from aesmc_tpu import state as jax_state
 from aesmc_tpu_torch import distributions, math, state
 from aesmc_tpu_torch.noise import NoiseSource
+import torch_threads  # noqa: F401  (caps PyTorch's threads)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 B, K = 3, 5

@@ -14,6 +14,7 @@ import torch
 
 from aesmc_tpu import statistics as jax_statistics
 from aesmc_tpu_torch import statistics
+import torch_threads  # noqa: F401  (caps PyTorch's threads)
 
 
 @pytest.mark.parametrize("shape", [(6, 3, 5), (4, 2, 7, 3)])

@@ -17,6 +17,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import torch_threads  # noqa: F401  (caps PyTorch's threads)
+
 
 def tensor(x):
     """A tensor holding a copy of ``x`` (JAX hands out read-only arrays)."""
@@ -170,3 +172,31 @@ def proposal_eps(proposal, obs, latents, ancestors):
                     scale = scale.unsqueeze(1)
             eps.append(((x[t] - loc) / scale).numpy())
     return eps
+
+
+def mlp_fields(mlp):
+    """`utils.MLP.from_numpy`'s weights and biases of a JAX `MLP`."""
+    return {"weights": [np.asarray(w) for w in mlp.weights],
+            "biases": [np.asarray(b) for b in mlp.biases]}
+
+
+def vrnn_params(jax_model):
+    """`vrnn.from_numpy`'s argument for the JAX package's VRNN (initial,
+    encoder, transition, emission, proposal)."""
+    initial, encoder, transition, emission, proposal = jax_model
+    return {"latent_dim": initial.latent_dim,
+            "encoder": fields(encoder.cell),
+            "transition": mlp_fields(transition.prior_net),
+            "emission": dict(mlp_fields(emission.decoder),
+                             log_noise=np.asarray(emission.log_noise)),
+            "proposal": mlp_fields(proposal.encoder_net)}
+
+
+def normal_draw(key, sample_shape, batch_shape=(), batch_expanded=False):
+    """The standard-normal eps with which a JAX `Normal`/MVNDiag draws
+    ``sample_shape`` from ``key`` (`jax.random.normal(key, sample_shape +
+    batch_shape)`), in the port's `[batch, particle, ...]` layout: a
+    BATCH_EXPANDED draw is `[K, B, ...]` in JAX, swapped here."""
+    eps = np.asarray(jax.random.normal(key, tuple(sample_shape) +
+                                       tuple(batch_shape)))
+    return np.swapaxes(eps, 0, 1) if batch_expanded else eps
