@@ -9,10 +9,13 @@ ESS-adaptive, the auxiliary particle filter, history windows, an
 optional NaN guard and rematerialization) and the AESMC/IWAE training
 path (`losses`, `train` with `checkpoint`, and `train.train_on_device`,
 one train step captured in a CUDA graph), on the LGSSM, the
-D-dimensional LGSSM, stochastic volatility, the conjugate-Gaussian model
-and the discrete-latent HMM (int32 particles), with every distribution
-of the JAX package, and every resampling kernel of the JAX package, and
-the backward, as hand-written CUDA (`ops`).
+D-dimensional LGSSM, stochastic volatility, the conjugate-Gaussian model,
+the discrete-latent HMM (int32 particles), the VRNN and Lorenz-96, with
+every distribution of the JAX package, and every resampling kernel of the
+JAX package, and the backward, as hand-written CUDA (`ops`); beside it
+OT resampling (`ot`), the EKF/UKF proposals (`proposals`), the streaming
+(serving) filter (`online`), TMC, the score gradient, smoothing,
+genealogy variance and forecasting.
 Entry points put their tensors on the card unless the caller asks for
 the CPU (`device`). This package never imports JAX.
 """
@@ -29,8 +32,11 @@ from . import losses
 from . import math
 from . import models
 from . import noise
+from . import online
 from . import ops
+from . import ot
 from . import profiling
+from . import proposals
 from . import resampling
 from . import smoothing
 from . import state
@@ -42,7 +48,7 @@ from . import variance
 
 __all__ = [
     "checkpoint", "device", "distributions", "forecast", "gradients",
-    "inference", "losses", "math", "models", "noise", "ops", "profiling",
-    "resampling", "smoothing", "state", "statistics", "tmc", "train",
-    "utils", "variance", "__version__",
+    "inference", "losses", "math", "models", "noise", "online", "ops",
+    "ot", "profiling", "proposals", "resampling", "smoothing", "state",
+    "statistics", "tmc", "train", "utils", "variance", "__version__",
 ]

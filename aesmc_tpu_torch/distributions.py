@@ -55,6 +55,19 @@ def _like(x, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), x, dtype=like.dtype, device=like.device)
 
 
+def cholesky(covariance: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of ``covariance`` `[..., D, D]`, with the JAX
+    package's answer where a matrix is not positive definite: NaN on and
+    below the diagonal, zeros above (what `jnp.linalg.cholesky` returns).
+    `torch.linalg.cholesky` would raise there instead, and it reads its
+    error flag on the host, a wait for the card that a CUDA graph capture
+    refuses; `cholesky_ex` leaves the flag on the device."""
+    tril, info = torch.linalg.cholesky_ex(covariance)
+    failed = (info > 0)[..., None, None]
+    return torch.where(failed, torch.full_like(tril, float("nan")).tril(),
+                       tril)
+
+
 def _float(x) -> torch.Tensor:
     """A tensor or a Python number as a floating-point tensor (a number as
     a 0-d float32 tensor on the CPU, to be broadcast)."""
@@ -196,7 +209,7 @@ class MultivariateNormalTriL(Distribution):
     def from_covariance(cls, loc, covariance, **kwargs):
         cov = _float(covariance)
         cov = 0.5 * (cov + cov.transpose(-1, -2))
-        return cls(loc, torch.linalg.cholesky(cov), **kwargs)
+        return cls(loc, cholesky(cov), **kwargs)
 
     @property
     def batch_shape(self):

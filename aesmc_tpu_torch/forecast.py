@@ -11,9 +11,8 @@ Counterpart of `aesmc_tpu.forecast`:
    inverse CDF of the weighted empirical distribution).
 3. `predictive_pit`: probability-integral-transform values u =
    P_pred(y <= y_realized), Uniform(0, 1) under a calibrated forecast.
-
-Not ported yet: `forecast_online`, which reads the streaming filter's
-state, comes with `online` (slice C, item 19).
+4. `forecast_online`: `forecast` from the streaming filter's carry
+   (`online.OnlineFilterState`).
 """
 
 from __future__ import annotations
@@ -21,9 +20,10 @@ from __future__ import annotations
 import torch
 
 from . import state
-from .inference import TimeIndex, _stack_time
+from .inference import DeviceTimeIndex, TimeIndex, _stack_time
 
-__all__ = ["forecast", "weighted_quantiles", "predictive_pit"]
+__all__ = ["forecast", "forecast_online", "weighted_quantiles",
+           "predictive_pit"]
 
 
 def forecast(latent, log_weight, transition, emission, horizon: int,
@@ -41,7 +41,9 @@ def forecast(latent, log_weight, transition, emission, horizon: int,
         noise: the `NoiseSource`; each step draws the latents, then the
             observations.
         start_time: time index of the last assimilated observation; step
-            h runs at ``TimeIndex(start_time + h)``.
+            h runs at ``TimeIndex(start_time + h)`` (a
+            `inference.DeviceTimeIndex` when ``start_time`` is a tensor,
+            read by no host).
         previous_observation: `[batch, ...]` y_t, for models whose
             components read ``previous_observations``. Later steps feed
             back the per-particle sampled observations (`[batch, K,
@@ -61,7 +63,9 @@ def forecast(latent, log_weight, transition, emission, horizon: int,
     lat = latent
     latents, observations = [], []
     for h in range(1, horizon + 1):
-        time = TimeIndex(int(start_time) + h)
+        time = (DeviceTimeIndex(start_time + h)
+                if isinstance(start_time, torch.Tensor) else
+                TimeIndex(int(start_time) + h))
         prev_obs_list = [prev_obs] if prev_obs is not None else None
         lat = state.sample(
             transition(previous_latents=[lat], time=time,
@@ -78,6 +82,17 @@ def forecast(latent, log_weight, transition, emission, horizon: int,
     return {"latents": _stack_time(latents),
             "observations": _stack_time(observations),
             "log_weight": log_weight}
+
+
+def forecast_online(filter_state, transition, emission, horizon: int,
+                    noise):
+    """`forecast` from a streaming carry (`online.OnlineFilterState`): the
+    particles, weights, last observation and time all read from it, the
+    time as a tensor (no host read)."""
+    return forecast(filter_state.latent, filter_state.log_weight,
+                    transition, emission, horizon, noise,
+                    start_time=filter_state.t - 1,
+                    previous_observation=filter_state.prev_observation)
 
 
 def weighted_quantiles(values, log_weight, qs):

@@ -27,16 +27,23 @@ through the time loop, resampling (K5 on the card), lineage tracing and
 the returned stacks in their own dtype.
 
 ESS-adaptive resampling (`resampling_criterion`), the auxiliary particle
-filter (`lookahead`), history windows (`history_window`), the NaN guard
+filter (`lookahead`), history windows (`history_window`), entropy-
+regularized OT resampling (`resampling_method='ot'`, `ot`), the NaN guard
 (`nan_check`) and rematerialization (`remat`, `torch.utils.checkpoint`
-per time step) follow the JAX package. Not ported yet: OT resampling
-(slice C of the port), `mesh` and the callable (distributed)
-`resampling_implementation` (slice E).
+per time step) follow the JAX package. Not ported yet: `mesh` and the
+callable (distributed) `resampling_implementation` (slice E of the port,
+multi-device).
+
+log-Z sums the steps' contributions in time order, one addition a step
+(`_sum_in_order`), as the streaming filter (`online`) accumulates them,
+so that both give the same bits from the same noise.
 """
 
 from __future__ import annotations
 
+import functools
 import math as _stdmath
+import operator
 from typing import Optional
 
 import numpy as np
@@ -44,13 +51,15 @@ import torch
 from torch.utils import checkpoint as _checkpoint
 
 from . import device as _device
+from . import ot as _ot
 from . import resampling, state
 from .noise import NoiseSource
 from .resampling import sample_ancestral_index  # noqa: F401  (parity export)
 
 __all__ = [
     "infer", "get_resampled_latents", "sample_ancestral_index",
-    "ObservationSequence", "TimeIndex", "stack_observations",
+    "ObservationSequence", "TimeIndex", "DeviceTimeIndex",
+    "stack_observations",
 ]
 
 
@@ -60,6 +69,65 @@ class TimeIndex(int):
     In the eager loop it is a plain int, so `time == t` and
     `observations[time]` behave as for any int.
     """
+
+
+def _unwrap_time(x):
+    return x.value if isinstance(x, DeviceTimeIndex) else x
+
+
+class DeviceTimeIndex:
+    """A time index >= 1 held in a 0-d int32 tensor on the device, for
+    steps whose time the host does not track (the streaming filter's
+    `step_fn`, a step captured in a CUDA graph and replayed). The JAX
+    package hands its components a traced `TimeIndex` there.
+
+    ``time == 0`` is False without reading the device (the step after the
+    hoisted t = 0); any other comparison or arithmetic gives a tensor, and
+    torch functions (``torch.sin(time)``, ``table[time]``) see the
+    tensor. `int(time)` reads it from the device, a wait for the card.
+    """
+
+    __slots__ = ("value",)
+
+    def __init__(self, value: torch.Tensor):
+        self.value = value
+
+    def __eq__(self, other):
+        if type(other) is int and other == 0:
+            return False
+        return self.value == _unwrap_time(other)
+
+    def __ne__(self, other):
+        if type(other) is int and other == 0:
+            return True
+        return self.value != _unwrap_time(other)
+
+    __hash__ = object.__hash__
+
+    def __int__(self):
+        return int(self.value)
+
+    def __repr__(self):
+        return f"DeviceTimeIndex({self.value!r})"
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        args = [_unwrap_time(a) for a in args]
+        kwargs = {k: _unwrap_time(v) for k, v in (kwargs or {}).items()}
+        return func(*args, **kwargs)
+
+
+def _delegate(name):
+    def method(self, *args):
+        return getattr(self.value, name)(*[_unwrap_time(a) for a in args])
+    method.__name__ = name
+    return method
+
+
+for _name in ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__",
+              "__rmul__", "__truediv__", "__rtruediv__", "__floordiv__",
+              "__mod__", "__neg__", "__lt__", "__le__", "__gt__", "__ge__"):
+    setattr(DeviceTimeIndex, _name, _delegate(_name))
 
 
 class ObservationSequence:
@@ -142,6 +210,10 @@ def infer(inference_algorithm: str,
           resampling_implementation: str = "auto",
           resampling_criterion="always",
           soft_resampling_alpha: float = 0.5,
+          ot_epsilon: float = 0.5,
+          ot_num_iterations: int = 20,
+          ot_block_size=None,
+          ot_rank=None,
           history_window: int = 1,
           nan_check: bool = False,
           remat: bool = False,
@@ -174,11 +246,18 @@ def infer(inference_algorithm: str,
             pre-resampling latents. With nu = 0 the filter equals the
             plain one bit for bit. 'smc' with a discrete method only.
         resampling_method: 'systematic', 'stratified', 'multinomial',
-            'residual' or 'soft'. 'soft' draws the ancestors from the
+            'residual', 'soft' or 'ot'. 'soft' draws the ancestors from the
             tempered mixture alpha w + (1 - alpha) / K and starts the next
             weights from the corrected log(w[a] / q[a]), differentiable in
             the weights (``soft_resampling_alpha`` is alpha; at alpha = 1
-            it is 'multinomial').
+            it is 'multinomial'). 'ot' transports the weighted particles
+            onto a uniformly weighted set (`ot.ot_resample`, log-domain
+            Sinkhorn; with ``ot_rank`` the low-rank
+            `ot.lowrank_ot_resample`, whose jitter is two normal draws of
+            `[B, K, rank]` from ``noise``), differentiable in the weights
+            and the particles. It has no ancestors: 'smc' with 'ot' needs
+            ``return_latents=False``, no ancestral indices, W = 1 and the
+            'always' criterion.
         resampling_implementation: 'auto' | 'cuda' | 'torch' (see
             `resampling`).
         resampling_criterion: 'always' (resample at every step) or a
@@ -192,6 +271,12 @@ def infer(inference_algorithm: str,
             0 never resamples (the IS estimator), a huge frac always
             does.
         soft_resampling_alpha: alpha of 'soft'.
+        ot_epsilon, ot_num_iterations, ot_block_size, ot_rank: the OT
+            resampler's entropic regularization (relative to the mean
+            cost), Sinkhorn iterations, block width (None: dense up to
+            `ot.OT_DENSE_MAX_K`, blocked above) and low-rank rank (None:
+            Sinkhorn). ``ot_epsilon`` and ``ot_block_size`` do not apply
+            to the low-rank form.
         history_window: W >= 1. Components see length-W
             ``previous_latents``/``previous_observations`` lists ([-1]
             the most recent), padded before t = 0 with copies of the
@@ -222,8 +307,10 @@ def infer(inference_algorithm: str,
         resampling_method=resampling_method,
         resampling_implementation=resampling_implementation,
         resampling_criterion=resampling_criterion,
-        soft_resampling_alpha=soft_resampling_alpha,
-        history_window=history_window, nan_check=nan_check, remat=remat,
+        soft_resampling_alpha=soft_resampling_alpha, ot_epsilon=ot_epsilon,
+        ot_num_iterations=ot_num_iterations, ot_block_size=ot_block_size,
+        ot_rank=ot_rank, history_window=history_window,
+        nan_check=nan_check, remat=remat,
         return_log_marginal_likelihood=return_log_marginal_likelihood,
         return_latents=return_latents,
         return_original_latents=return_original_latents,
@@ -292,7 +379,8 @@ def _where_rows(do, resampled, kept):
 
 def _check_options(inference_algorithm, resampling_method,
                    resampling_criterion, lookahead, history_window,
-                   return_original_latents, return_ancestral_indices):
+                   return_latents, return_original_latents,
+                   return_ancestral_indices):
     """The JAX package's ValueErrors on combinations `infer` refuses."""
     if inference_algorithm not in ("is", "smc"):
         raise ValueError(
@@ -315,19 +403,150 @@ def _check_options(inference_algorithm, resampling_method,
                 "lookahead (auxiliary particle filter) requires "
                 "inference_algorithm='smc' - importance sampling never "
                 "resamples, so there is nothing to steer")
-        if resampling_method == "soft":
+        if resampling_method in ("soft", "ot"):
             raise ValueError(
                 "lookahead does not combine with differentiable "
                 f"resampling_method={resampling_method!r}; use a "
                 "discrete method (systematic/stratified/multinomial/"
                 "residual)")
+    if resampling_method == "ot" and inference_algorithm == "smc":
+        # OT transports particles: no ancestors, so no lineage, no
+        # ancestor outputs and no history to regather ('is' ignores the
+        # method, as every other one).
+        if return_latents or return_ancestral_indices:
+            raise ValueError(
+                "resampling_method='ot' transports particles (no "
+                "discrete ancestors): lineage-traced latents and "
+                "ancestral indices are unavailable. Use "
+                "return_latents=False (training) or "
+                "return_original_latents=True.")
+        if history_window > 1:
+            raise ValueError(
+                "resampling_method='ot' does not combine with "
+                "history_window > 1 (no ancestors to regather the "
+                "history with)")
+        if resampling_criterion != "always":
+            raise ValueError(
+                "resampling_method='ot' does not combine with "
+                "ESS-adaptive criteria")
+
+
+def _resolve_implementation(device, resampling_method,
+                            resampling_implementation):
+    """`resampling.resolve_implementation`, with 'ot' (no kernel: torch ops
+    on every device) checked as a route name only."""
+    if resampling_method == "ot":
+        resampling._route(device, resampling_implementation)
+        return "torch"
+    return resampling.resolve_implementation(device, resampling_method,
+                                             resampling_implementation)
+
+
+def _sum_in_order(values):
+    """``values[0] + values[1] + ...``, one addition at a time in list
+    order: the same bits on every device, as a running sum gives them."""
+    return functools.reduce(operator.add, values)
+
+
+def _resample_step(prev_log_weight, values, noise, time, prev_latents,
+                   observations, method, implementation, need_ancestors,
+                   alpha=0.5, lookahead=None, ess_threshold=None, ot=None,
+                   log_sum=None):
+    """The resampling of an 'smc' step, shared by `infer` and the streaming
+    filter (`online`).
+
+    Args:
+        prev_log_weight: `[B, K]` pre-resampling log-weights.
+        values: the particles to resample, or None (then only the indices
+            are drawn: a windowed step regathers its history with them).
+        noise: the step's `NoiseSource`; the resampling draws come first.
+        time, prev_latents, observations: what ``lookahead`` reads.
+        method, implementation: the method, and 'cuda' or 'torch'.
+        need_ancestors: whether the indices are wanted.
+        alpha: soft resampling's alpha.
+        lookahead: the APF's score callable, or None.
+        ess_threshold: ESS-adaptive resampling's threshold (frac * K), or
+            None for resampling at every step.
+        ot: (epsilon, num_iterations, block_size, rank) of 'ot'.
+        log_sum: ``logsumexp(prev_log_weight, dim=1)`` if the caller has
+            it already.
+
+    Returns:
+        (ancestral_index or None, ``values`` resampled (None for None),
+        the base of the next log-weights or None for zeros, the step's
+        contribution to log-Z `[B]`, the rows that resampled `[B]` bool or
+        None when every row did).
+    """
+    if log_sum is None:
+        log_sum = torch.logsumexp(prev_log_weight, dim=1)
+    contribution = log_sum - _stdmath.log(prev_log_weight.shape[1])
+    base = idx = None
+    if method == "ot":
+        # Transported, not selected: no ancestors; uniform weights next.
+        epsilon, num_iterations, block_size, rank = ot
+        if rank is not None:
+            out, _ = _ot.lowrank_ot_resample(
+                prev_log_weight, values, rank=rank,
+                num_iterations=num_iterations, noise=noise)
+        else:
+            out, _ = _ot.ot_resample(
+                prev_log_weight, values, epsilon=epsilon,
+                num_iterations=num_iterations, block_size=block_size)
+    elif method == "soft":
+        idx, base, out = resampling._soft_resample(
+            prev_log_weight, noise, values, alpha, implementation,
+            need_ancestors)
+    elif lookahead is not None:
+        # Auxiliary PF: the scores ride the launch as one more column.
+        log_nu = lookahead(previous_latents=prev_latents, time=time,
+                           observations=observations)
+        first_stage = prev_log_weight + log_nu
+        wrapped = ({"nu": log_nu} if values is None else
+                   {"latent": values, "nu": log_nu})
+        idx, out = resampling._resample(
+            first_stage, noise, wrapped, method, implementation,
+            need_ancestors)
+        base = (torch.logsumexp(first_stage, dim=1, keepdim=True) -
+                log_sum[:, None] - out["nu"])
+        out = out.get("latent")
+    elif values is None:
+        idx = resampling._sample_indices(prev_log_weight, noise, method,
+                                         implementation)
+        out = None
+    else:
+        idx, out = resampling._resample(prev_log_weight, noise, values,
+                                        method, implementation,
+                                        need_ancestors)
+    if ess_threshold is None:
+        return idx, out, base, contribution, None
+    # Per row, without a host-side branch: rows whose ESS is below the
+    # threshold take the resampled particles; the others keep theirs,
+    # with identity ancestors and accumulated weights.
+    ess = torch.exp(2 * log_sum -
+                    torch.logsumexp(2 * prev_log_weight, dim=1))
+    do = ess < ess_threshold                                     # [B]
+    if idx is not None:
+        identity = torch.arange(
+            prev_log_weight.shape[1], dtype=idx.dtype,
+            device=idx.device).expand_as(idx)
+        idx = torch.where(do[:, None], idx, identity)
+    contribution = torch.where(do, contribution,
+                               torch.zeros_like(contribution))
+    base = torch.where(
+        do[:, None],
+        torch.zeros_like(prev_log_weight) if base is None else base,
+        prev_log_weight)
+    if out is not None:
+        out = _where_rows(do, out, values)
+    return idx, out, base, contribution, do
 
 
 def _infer(inference_algorithm, observations, initial, transition, emission,
            proposal, num_particles, noise=None, lookahead=None,
            resampling_method="systematic", resampling_implementation="auto",
            resampling_criterion="always", soft_resampling_alpha=0.5,
-           history_window=1, nan_check=False, remat=False,
+           ot_epsilon=0.5, ot_num_iterations=20, ot_block_size=None,
+           ot_rank=None, history_window=1, nan_check=False, remat=False,
            return_log_marginal_likelihood=False, return_latents=True,
            return_original_latents=False, return_log_weight=True,
            return_log_weights=False, return_ancestral_indices=False):
@@ -336,7 +555,8 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
     or None when ``nan_check`` is off or the algorithm is 'is'."""
     _check_options(inference_algorithm, resampling_method,
                    resampling_criterion, lookahead, history_window,
-                   return_original_latents, return_ancestral_indices)
+                   return_latents, return_original_latents,
+                   return_ancestral_indices)
     stacked_obs = stack_observations(observations)
     obs_seq = ObservationSequence(stacked_obs)
     num_timesteps = len(obs_seq)
@@ -345,12 +565,12 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
     if noise is None:
         noise = NoiseSource.seeded(0, first.device)
     is_smc = inference_algorithm == "smc"
-    implementation = resampling.resolve_implementation(
+    implementation = _resolve_implementation(
         first.device, resampling_method, resampling_implementation)
-    soft = resampling_method == "soft"
     adaptive = is_smc and resampling_criterion != "always"
-    if adaptive:
-        ess_threshold = float(resampling_criterion) * num_particles
+    ess_threshold = (float(resampling_criterion) * num_particles
+                     if adaptive else None)
+    ot_options = (ot_epsilon, ot_num_iterations, ot_block_size, ot_rank)
     window = history_window
 
     # ---- t = 0 (hoisted: `time` is the int 0).
@@ -373,61 +593,6 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
     need_original = return_latents or (is_smc and return_original_latents)
     need_stacked_weights = return_log_weights or not is_smc
 
-    def resample(prev_log_weight, values, noise, time, prev_latents):
-        """The resampling of a step ('smc'): (ancestral_index or None,
-        ``values`` resampled (None for None: then only the indices are
-        drawn), the base of the next log-weights or None for zeros, the
-        step's contribution to log-Z)."""
-        log_sum = torch.logsumexp(prev_log_weight, dim=1)
-        contribution = log_sum - log_num_particles
-        base = None
-        if soft:
-            idx, base, out = resampling._soft_resample(
-                prev_log_weight, noise, values, soft_resampling_alpha,
-                implementation, need_ancestors)
-        elif lookahead is not None:
-            # Auxiliary PF: the scores ride the launch as one more column.
-            log_nu = lookahead(previous_latents=prev_latents, time=time,
-                               observations=obs_seq)
-            first_stage = prev_log_weight + log_nu
-            wrapped = ({"nu": log_nu} if values is None else
-                       {"latent": values, "nu": log_nu})
-            idx, out = resampling._resample(
-                first_stage, noise, wrapped, resampling_method,
-                implementation, need_ancestors)
-            base = (torch.logsumexp(first_stage, dim=1, keepdim=True) -
-                    log_sum[:, None] - out["nu"])
-            out = out.get("latent")
-        elif values is None:
-            idx = resampling._sample_indices(
-                prev_log_weight, noise, resampling_method, implementation)
-            out = None
-        else:
-            idx, out = resampling._resample(
-                prev_log_weight, noise, values, resampling_method,
-                implementation, need_ancestors)
-        if adaptive:
-            # Per row, without a host-side branch: rows whose ESS is below
-            # the threshold take the resampled particles; the others keep
-            # theirs, with identity ancestors and accumulated weights.
-            ess = torch.exp(2 * log_sum -
-                            torch.logsumexp(2 * prev_log_weight, dim=1))
-            do = ess < ess_threshold                               # [B]
-            if idx is not None:
-                identity = torch.arange(
-                    num_particles, dtype=idx.dtype,
-                    device=idx.device).expand_as(idx)
-                idx = torch.where(do[:, None], idx, identity)
-            contribution = torch.where(do, contribution,
-                                       torch.zeros_like(contribution))
-            base = torch.where(
-                do[:, None],
-                torch.zeros_like(prev_log_weight) if base is None else base,
-                prev_log_weight)
-            if out is not None:
-                out = _where_rows(do, out, values)
-        return idx, out, base, contribution
-
     def step(t, prev_latents, prev_log_weight, noise):
         """Time step t >= 1 from the last W original latents: (latent_t,
         log_weight_t, ancestral_index, contribution to log-Z)."""
@@ -436,9 +601,14 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
                          for i in range(window)]
         ancestral_index = contribution = base = None
         if is_smc:
-            ancestral_index, resampled, base, contribution = resample(
-                prev_log_weight, prev_latents[-1] if window == 1 else None,
-                noise, time, prev_latents)
+            ancestral_index, resampled, base, contribution, _ = \
+                _resample_step(
+                    prev_log_weight,
+                    prev_latents[-1] if window == 1 else None, noise, time,
+                    prev_latents, obs_seq, resampling_method,
+                    implementation, need_ancestors,
+                    alpha=soft_resampling_alpha, lookahead=lookahead,
+                    ess_threshold=ess_threshold, ot=ot_options)
             if window == 1:
                 previous_latents = [resampled]
             else:
@@ -522,8 +692,7 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
     # logsumexp over particles sits relative to the sum over time.
     if is_smc:
         if return_log_marginal_likelihood:
-            summed = (torch.stack(contributions, dim=0).sum(dim=0)
-                      if contributions else 0.0)
+            summed = _sum_in_order(contributions) if contributions else 0.0
             log_marginal_likelihood = (
                 summed + torch.logsumexp(last_log_weight, dim=1) -
                 log_num_particles)

@@ -79,7 +79,8 @@ def _objective(observations, num_particles, algorithm, initial, transition,
                resampling_method="systematic",
                resampling_implementation="auto",
                resampling_criterion="always", soft_resampling_alpha=0.5,
-               lookahead=None, history_window=1, remat=False,
+               ot_epsilon=0.5, ot_num_iterations=20, ot_block_size=None,
+               ot_rank=None, lookahead=None, history_window=1, remat=False,
                gradient_estimator="pathwise", score_baseline="batch",
                pairwise="auto", block_size=None, nan_check=False,
                with_metrics=False):
@@ -112,8 +113,9 @@ def _objective(observations, num_particles, algorithm, initial, transition,
         resampling_method=resampling_method,
         resampling_implementation=resampling_implementation,
         resampling_criterion=resampling_criterion,
-        soft_resampling_alpha=soft_resampling_alpha,
-        history_window=history_window, nan_check=nan_check,
+        soft_resampling_alpha=soft_resampling_alpha, ot_epsilon=ot_epsilon,
+        ot_num_iterations=ot_num_iterations, ot_block_size=ot_block_size,
+        ot_rank=ot_rank, history_window=history_window, nan_check=nan_check,
         remat=remat, return_log_marginal_likelihood=True,
         return_latents=False, return_log_weight=with_metrics,
         return_log_weights=score, return_ancestral_indices=score)
@@ -134,6 +136,10 @@ def get_loss(observations, num_particles: int, algorithm: str, initial,
              resampling_implementation: str = "auto",
              resampling_criterion="always",
              soft_resampling_alpha: float = 0.5,
+             ot_epsilon: float = 0.5,
+             ot_num_iterations: int = 20,
+             ot_block_size=None,
+             ot_rank=None,
              lookahead=None,
              history_window: int = 1,
              remat: bool = False,
@@ -155,9 +161,10 @@ def get_loss(observations, num_particles: int, algorithm: str, initial,
         initial, transition, emission, proposal: user components.
         noise: the `NoiseSource` of every draw (see `inference.infer`).
         resampling_method, resampling_implementation,
-            resampling_criterion, soft_resampling_alpha, lookahead:
-            forwarded to `infer` ('aesmc' only; 'soft' is differentiable
-            resampling).
+            resampling_criterion, soft_resampling_alpha, ot_epsilon,
+            ot_num_iterations, ot_block_size, ot_rank, lookahead:
+            forwarded to `infer` ('aesmc' only; 'soft' and 'ot' are
+            differentiable resampling).
         history_window, remat: forwarded to `infer`.
         gradient_estimator: 'pathwise' (the reference's semantics:
             gradients stop at the ancestor indices) or 'score' ('aesmc'
@@ -180,7 +187,9 @@ def get_loss(observations, num_particles: int, algorithm: str, initial,
         resampling_method=resampling_method,
         resampling_implementation=resampling_implementation,
         resampling_criterion=resampling_criterion,
-        soft_resampling_alpha=soft_resampling_alpha, lookahead=lookahead,
+        soft_resampling_alpha=soft_resampling_alpha, ot_epsilon=ot_epsilon,
+        ot_num_iterations=ot_num_iterations, ot_block_size=ot_block_size,
+        ot_rank=ot_rank, lookahead=lookahead,
         history_window=history_window, remat=remat,
         gradient_estimator=gradient_estimator, score_baseline=score_baseline,
         pairwise=pairwise, block_size=block_size, nan_check=nan_check)
@@ -229,6 +238,10 @@ def get_loss_and_metrics(observations, num_particles: int, algorithm: str,
                          resampling_implementation: str = "auto",
                          resampling_criterion="always",
                          soft_resampling_alpha: float = 0.5,
+                         ot_epsilon: float = 0.5,
+                         ot_num_iterations: int = 20,
+                         ot_block_size=None,
+                         ot_rank=None,
                          lookahead=None,
                          history_window: int = 1,
                          remat: bool = False,
@@ -253,7 +266,9 @@ def get_loss_and_metrics(observations, num_particles: int, algorithm: str,
         resampling_method=resampling_method,
         resampling_implementation=resampling_implementation,
         resampling_criterion=resampling_criterion,
-        soft_resampling_alpha=soft_resampling_alpha, lookahead=lookahead,
+        soft_resampling_alpha=soft_resampling_alpha, ot_epsilon=ot_epsilon,
+        ot_num_iterations=ot_num_iterations, ot_block_size=ot_block_size,
+        ot_rank=ot_rank, lookahead=lookahead,
         history_window=history_window, remat=remat,
         gradient_estimator=gradient_estimator, score_baseline=score_baseline,
         pairwise=pairwise, block_size=block_size, nan_check=nan_check,

@@ -1,8 +1,8 @@
 """Model families of the PyTorch port: the scalar LGSSM and its exact
 Kalman oracle, the D-dimensional LGSSM and its exact oracle, stochastic
 volatility, the conjugate-Gaussian test model, the discrete-latent
-HMM with its exact forward-backward oracles, and the VRNN (a GRU over the
-observations and MLP transition, emission and proposal)."""
+HMM with its exact forward-backward oracles, the VRNN (a GRU over the
+observations and MLP transition, emission and proposal) and Lorenz-96."""
 
 from . import gaussian
 from . import hmm
@@ -10,8 +10,9 @@ from . import kalman
 from . import kalman_nd
 from . import lgssm
 from . import lgssm_nd
+from . import lorenz
 from . import stochastic_volatility
 from . import vrnn
 
 __all__ = ["gaussian", "hmm", "kalman", "kalman_nd", "lgssm", "lgssm_nd",
-           "stochastic_volatility", "vrnn"]
+           "lorenz", "stochastic_volatility", "vrnn"]

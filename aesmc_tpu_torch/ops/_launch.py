@@ -85,3 +85,13 @@ def target(t: torch.Tensor):
 def check_error(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def tracing() -> bool:
+    """Whether PyTorch is tracing the caller (`torch.export`,
+    `torch.compile`). The wrappers then launch through their operators
+    (`torch.library.custom_op`, with fake versions), which a trace records;
+    eagerly and under a CUDA-graph capture they launch directly, without
+    the operator's dispatch (11-29 us more host time a launch on the
+    H100's host, `chip_smoke.py` phase 3e)."""
+    return torch.compiler.is_compiling()

@@ -24,6 +24,10 @@ through K1 or K3, whose backward is K2.
 back) and runs `gather_sorted_torch`, the plain PyTorch version
 (take_along_dim, as `state.resample` gathers), for CPU tensors. Each
 launch adds one to `LAUNCHES`.
+Under tracing (`torch.export`; `_launch.tracing`) the launch goes
+through the operator `aesmc_tpu_torch::gather_sorted`
+(`torch.library.custom_op`, with a fake version), so that an
+exported program records the kernel (`online.export_step`).
 """
 
 from __future__ import annotations
@@ -102,6 +106,19 @@ def _launch_kernel(value, idx):
     return out
 
 
+@torch.library.custom_op("aesmc_tpu_torch::gather_sorted", mutates_args=(),
+                         device_types="cuda")
+def _kernel_op(value: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The launch as an operator PyTorch can trace (`torch.export`, fake
+    tensors)."""
+    return _launch_kernel(value, idx)
+
+
+@_kernel_op.register_fake
+def _(value, idx):
+    return value.new_empty(tuple(idx.shape) + tuple(value.shape[2:]))
+
+
 def gather_sorted(value, idx):
     """Gathers particles by sorted ancestor indices (K5), forward only.
 
@@ -122,5 +139,6 @@ def gather_sorted(value, idx):
                 "gather_sorted (K5) is forward-only: it cannot carry a "
                 "gradient to a value that requires one; float32 particles "
                 "that need gradients resample through K1 or K3")
-        return _launch_kernel(value, idx)
+        return (_kernel_op(value, idx) if _launch.tracing() else
+                _launch_kernel(value, idx))
     return gather_sorted_torch(value, idx)

@@ -31,7 +31,10 @@ range sum (`ops.range_sum_cuda`, K2) over them.
 `resample_and_gather_systematic` launches the kernel for CUDA tensors (it
 never falls back) and runs `resample_and_gather_systematic_torch`, the
 plain PyTorch version, for CPU tensors. Each launch adds one to
-`LAUNCHES`.
+`LAUNCHES`. Under tracing (`torch.export`; `_launch.tracing`) the launch
+goes through the operator `aesmc_tpu_torch::resample_systematic`
+(`torch.library.custom_op`, with a fake version), so that an exported
+program records the kernel (`online.export_step`).
 """
 
 from __future__ import annotations
@@ -110,11 +113,33 @@ def _launch_kernel(cdf, u, value, emit_idx):
     return idx, out
 
 
+@torch.library.custom_op("aesmc_tpu_torch::resample_systematic",
+                         mutates_args=(), device_types="cuda")
+def _kernel_op(cdf: torch.Tensor, u: torch.Tensor, value: torch.Tensor,
+               emit_idx: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The launch as an operator PyTorch can trace (`torch.export`, fake
+    tensors): an empty index tensor stands for no index output."""
+    idx, out = _launch_kernel(cdf, u, value, emit_idx)
+    return (cdf.new_empty((0,), dtype=torch.int32) if idx is None
+            else idx), out
+
+
+@_kernel_op.register_fake
+def _(cdf, u, value, emit_idx):
+    batch, k, d = value.shape
+    return (cdf.new_empty((batch, k) if emit_idx else (0,),
+                          dtype=torch.int32), value.new_empty((batch, k, d)))
+
+
 class _ResampleGatherSystematic(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cdf, u, value, emit_idx):
         if cdf.device.type == "cuda":
-            idx, out = _launch_kernel(cdf, u, value, emit_idx)
+            if _launch.tracing():
+                idx, out = _kernel_op(cdf, u, value, emit_idx)
+                idx = idx if emit_idx else None
+            else:
+                idx, out = _launch_kernel(cdf, u, value, emit_idx)
         else:
             idx, out = resample_and_gather_systematic_torch(cdf, u, value,
                                                             emit_idx)

@@ -27,6 +27,10 @@ detached, as in the JAX package): the backward is the range sum
 `resample_and_gather_sorted` launches the kernel for CUDA tensors (it
 never falls back) and runs its plain PyTorch version (searchsorted,
 take_along_dim) for CPU tensors. Each launch adds one to `LAUNCHES`.
+Under tracing (`torch.export`; `_launch.tracing`) the launch goes
+through the operator `aesmc_tpu_torch::resample_sorted`
+(`torch.library.custom_op`, with a fake version), so that an
+exported program records the kernel (`online.export_step`).
 """
 
 from __future__ import annotations
@@ -84,11 +88,34 @@ def _launch_kernel(cdf, pos, value, emit_idx):
     return idx, out
 
 
+@torch.library.custom_op("aesmc_tpu_torch::resample_sorted",
+                         mutates_args=(), device_types="cuda")
+def _kernel_op(cdf: torch.Tensor, pos: torch.Tensor, value: torch.Tensor,
+               emit_idx: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The launch as an operator PyTorch can trace (`torch.export`, fake
+    tensors): an empty index tensor stands for no index output."""
+    idx, out = _launch_kernel(cdf, pos, value, emit_idx)
+    return (cdf.new_empty((0,), dtype=torch.int32) if idx is None
+            else idx), out
+
+
+@_kernel_op.register_fake
+def _(cdf, pos, value, emit_idx):
+    batch, kp = pos.shape
+    return (cdf.new_empty((batch, kp) if emit_idx else (0,),
+                          dtype=torch.int32),
+            value.new_empty((batch, kp, value.shape[2])))
+
+
 class _ResampleGatherSorted(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cdf, pos, value, emit_idx):
         if cdf.device.type == "cuda":
-            idx, out = _launch_kernel(cdf, pos, value, emit_idx)
+            if _launch.tracing():
+                idx, out = _kernel_op(cdf, pos, value, emit_idx)
+                idx = idx if emit_idx else None
+            else:
+                idx, out = _launch_kernel(cdf, pos, value, emit_idx)
         else:
             idx, out = resample_and_gather_sorted_torch(cdf, pos, value,
                                                         emit_idx)

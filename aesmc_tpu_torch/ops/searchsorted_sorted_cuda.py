@@ -17,7 +17,11 @@ autograd node.
 
 `searchsorted_sorted` launches the kernel for CUDA tensors (it never falls
 back) and runs `searchsorted_sorted_torch`, the plain PyTorch version, for
-CPU tensors. Each launch adds one to `LAUNCHES`.
+CPU tensors. Each launch adds one to `LAUNCHES`. Under tracing
+(`torch.export`; `_launch.tracing`) the launch goes through the operator
+`aesmc_tpu_torch::searchsorted_sorted` (`torch.library.custom_op`, with a
+fake version), so that an exported program records the kernel
+(`online.export_step`).
 """
 
 from __future__ import annotations
@@ -82,10 +86,17 @@ def searchsorted_sorted(cdf, pos):
     Returns:
         `[B, Kp]` int32: ``min(#{i : cdf_i <= pos_j}, Kc - 1)``.
     """
-    global LAUNCHES, _entry
-    batch, kc, kp = _check(cdf, pos)
+    _check(cdf, pos)
     if not cdf.is_cuda:
         return searchsorted_sorted_torch(cdf, pos)
+    return (_kernel_op(cdf, pos) if _launch.tracing() else
+            _launch_kernel(cdf, pos))
+
+
+def _launch_kernel(cdf, pos):
+    global LAUNCHES, _entry
+    batch, kc = cdf.shape
+    kp = pos.shape[1]
     if _entry is None:
         _entry = _launch.entry(SOURCE, _SYMBOL, _ARGTYPES)
     idx = torch.empty_like(pos, dtype=torch.int32)
@@ -96,3 +107,16 @@ def searchsorted_sorted(cdf, pos):
         _launch.check_error(err, "searchsorted_sorted")
     LAUNCHES += 1
     return idx
+
+
+@torch.library.custom_op("aesmc_tpu_torch::searchsorted_sorted",
+                         mutates_args=(), device_types="cuda")
+def _kernel_op(cdf: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The launch as an operator PyTorch can trace (`torch.export`, fake
+    tensors)."""
+    return _launch_kernel(cdf, pos)
+
+
+@_kernel_op.register_fake
+def _(cdf, pos):
+    return pos.new_empty(pos.shape, dtype=torch.int32)

@@ -50,7 +50,8 @@ from torch.utils import checkpoint as _checkpoint
 
 from . import resampling, state
 from .inference import (ObservationSequence, TimeIndex, _NoiseTape,
-                        _first_leaf, _stack_time, stack_observations)
+                        _first_leaf, _stack_time, _sum_in_order,
+                        stack_observations)
 from .noise import NoiseSource
 from .tmc import (_check_pairwise, _pair_log_prob_fn, _pairwise_log_prob,
                   _expand_new, _expand_prev, _resolve_pairwise_mode)
@@ -547,7 +548,7 @@ def paris(observations, initial, transition, emission, proposal,
             acc_rates.append(acc_rate)
             unconvs.append(unconv)
         last_latent, last_log_weight, tau_last = latent, log_weight, tau
-        log_ml = (torch.stack(contributions, dim=0).sum(dim=0) +
+        log_ml = (_sum_in_order(contributions) +
                   torch.logsumexp(last_log_weight, dim=1) - log_k)
         if backward == "rejection":
             out["backward_accept_rate"] = torch.stack(acc_rates).mean(dim=0)

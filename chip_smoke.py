@@ -153,7 +153,42 @@ Phases, in order; any failure raises and the exit code is not 0:
    with N = 2, 'pairwise' and 'rejection', against the RTS smoother at the
    JAX tests' bounds; the genealogy variance estimators on a graphed
    filter (exact proposal, multinomial) against the spread of 256
-   replays at the JAX test's band, and printed for phase 9's filter.
+   replays at the JAX test's band, and printed for phase 9's filter;
+19. serving, the bench's rows (`bench.py:324-402`): the streaming filter
+   (`online`) on the bench's LGSSM at (B, K) = (10, 10,000), systematic,
+   log-Z only: init_fn and 199 step_fn calls equal one `infer` call from
+   the same generator state (log-Z, particles, weights; with
+   return_ancestors the ancestors), 199 K1 launches, and stratified
+   streams of the LGSSM (199 K3) and of the HMM's int32 particles (199
+   K4 and K5) equal to `infer` too; eager ms per
+   observation and the idle share of a profiled stream; one step captured
+   in a CUDA graph (`online.CapturedStep`) replayed for 200 observations,
+   bit-equal to eager steps; `batched_steps` with S = 8 graphed; the
+   device plane (a 200-step `batched_steps` graph replayed 8 times);
+   `track_genealogy` within 1e-4 of `variance.log_z_variance`,
+   `fixed_lag` = 10 against the RTS smoother (exact proposal), streaming
+   PaRIS (pairwise, (200, 10, 2,048)) equal to `smoothing.paris`, the
+   exported step (`export_step` -> `load_step`) equal to the live step
+   with K1 launched inside the program, and `forecast_online` at horizon
+   10 against the Kalman recursion; phase 3e also times the K1, K3, K4
+   and K5 launches through their `torch.library.custom_op` operators
+   against the direct launch;
+20. OT resampling at the JAX package's engine sizes
+   (`benchmarks/ot_engine_probe.py:32`): the plan's marginals and the
+   weighted mean at (4, 4,096) at the bounds of `tests/test_ot.py:28-30,
+   44`; `infer('smc', 'ot')` with 20 iterations at (50, 4, 4,096) dense
+   (and blocked with block 2,048, the crossover) and at (4, 4, 16,384)
+   blocked and with rank 32 (T cut from the probe's 50 for the time
+   limit): ms a step eager and graphed (a replay equal to an eager call),
+   peak MiB, log-Z against Kalman beside systematic's; no kernel
+   launched; the AESMC loss and its gradient through 'ot' at (20, 4,
+   4,096) (T cut likewise), graphed equal to eager;
+21. Lorenz-96 at D = 8, (T, B, K) = (50, 8, 1,024) (the JAX extended
+   bench's rows): the bootstrap filter and the assimilation proposal
+   ('diagonal', 'extended', 'unscented'): log-Z, ESS, ms a call eager and
+   graphed, K1 at D = 8, 49 launches; the batched [8,192, 8, 8] Cholesky
+   algebra; the EKF proposal on the linear LGSSM within 1e-5 of the exact
+   optimal proposal.
 
 It prints a `{"kernels": [...]}` JSON line before the last, and, as the
 last line, `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -181,10 +216,13 @@ import time
 import numpy as np
 import torch
 
-from aesmc_tpu_torch import (distributions, inference, losses, resampling,
-                             smoothing, statistics, tmc, train, variance)
+from torch.utils import _pytree as pytree
+
+from aesmc_tpu_torch import (distributions, forecast, inference, losses,
+                             online, ot, proposals, resampling, smoothing,
+                             statistics, tmc, train, variance)
 from aesmc_tpu_torch.models import (hmm, kalman, kalman_nd, lgssm, lgssm_nd,
-                                    vrnn)
+                                    lorenz, vrnn)
 from aesmc_tpu_torch.noise import NoiseSource
 from aesmc_tpu_torch.state import BatchShapeMode
 from aesmc_tpu_torch.ops import (_build, _launch, gather_sorted_cuda,
@@ -200,6 +238,10 @@ TRAIN_K = 100
 # GRU hidden 256, observations 64, MLP hidden 256.
 VRNN_T, VRNN_B, VRNN_K = 64, 16, 4096
 VRNN_LATENT, VRNN_HIDDEN, VRNN_OBS, VRNN_MLP = 64, 256, 64, 256
+# Lorenz-96, the JAX package's extended-bench rows
+# (benchmarks/BENCH_NOTES.md:512-516, benchmarks/bench_extended.py:420-434):
+# D = 8, every component observed at r = 0.5.
+LORENZ_D, LORENZ_T, LORENZ_B, LORENZ_K = 8, 50, 8, 1024
 # The bench's LGSSM (bench.py): x_0 ~ N(0, 1), x_t = 0.9 x_{t-1} + N(0, 1),
 # y_t = x_t + N(0, 0.2^2).
 TRANSITION_MULT, TRANSITION_SCALE = 0.9, 1.0
@@ -339,7 +381,8 @@ HOT = {"one_particle": None, "hot_first": 0, "hot_last": -1}
 # no narrowing round, 8,193 one), and the two ways the tile gather runs:
 # D = 1 from registers, D > 1 through shared memory (D = 13 is above the
 # TPU kernel's 12-column cap; D = 300 is more columns than a block has
-# threads).
+# threads); last, the shapes the VRNN step and the Lorenz-96 filters give
+# K1.
 CASES = [(10, 10000, 1, "normal"), (3, 1000, 3, "normal"),
          (1, 1, 1, "normal"), (2, 1025, 1, "normal"),
          (1, 8388608, 1, "normal"), (3, 1000, 2, "one_particle"),
@@ -348,7 +391,8 @@ CASES = [(10, 10000, 1, "normal"), (3, 1000, 3, "normal"),
          (2, 1024, 1, "normal"), (2, 2049, 13, "normal"),
          (2, 8192, 1, "normal"), (2, 8193, 3, "normal"),
          (3, 10000, 13, "normal"), (2, 1025, 300, "normal"),
-         (VRNN_B, VRNN_K, VRNN_LATENT, "normal")]
+         (VRNN_B, VRNN_K, VRNN_LATENT, "normal"),
+         (LORENZ_B, LORENZ_K, LORENZ_D, "normal")]
 
 
 def k1_phase(dev):
@@ -798,6 +842,40 @@ def host_costs(dev):
     }
     for label, fn in costs.items():
         print(f"host cost, {label}: {_host_us(fn):.1f} us/call", flush=True)
+    _operator_costs(dev, cdf, u, value.detach())
+
+
+def _operator_costs(dev, cdf, u, value):
+    """Host cost of the launches the serving step reaches (K1, K3, K4, K5)
+    through their `torch.library.custom_op` operators (the wrappers'
+    route, which `torch.export` records), against the direct launch each
+    wrapper made before it (`_launch_kernel`), at (B, K) = (10, 100)."""
+    generator = torch.Generator(device=dev).manual_seed(9)
+    pos = resampling.resampling_positions(cdf, NoiseSource(generator),
+                                          "stratified")
+    idx = searchsorted_sorted_cuda.searchsorted_sorted(cdf, pos)
+    states = torch.randint(0, 8, (B, TRAIN_K), dtype=torch.int32,
+                           generator=generator, device=dev)
+    pairs = {
+        "K1": (lambda: resample_cuda._launch_kernel(cdf, u, value, False),
+               lambda: resample_cuda._kernel_op(cdf, u, value, False)),
+        "K3": (lambda: resample_sorted_cuda._launch_kernel(cdf, pos, value,
+                                                           False),
+               lambda: resample_sorted_cuda._kernel_op(cdf, pos, value,
+                                                       False)),
+        "K4": (lambda: searchsorted_sorted_cuda._launch_kernel(cdf, pos),
+               lambda: searchsorted_sorted_cuda._kernel_op(cdf, pos)),
+        "K5": (lambda: gather_sorted_cuda._launch_kernel(states, idx),
+               lambda: gather_sorted_cuda._kernel_op(states, idx)),
+    }
+    for name, (direct, operator) in pairs.items():
+        runs = {"direct": [], "operator": []}
+        for which in ("direct", "operator", "operator", "direct"):
+            runs[which].append(round(_host_us(
+                direct if which == "direct" else operator), 2))
+        print(f"host cost, {name} launch: direct {runs['direct']} us/call, "
+              f"through its custom_op {runs['operator']} us/call",
+              flush=True)
 
 
 def _same_bits(a, b):
@@ -2944,6 +3022,691 @@ def _genealogy_variance(dev, label, comps, obs, method, replays, check):
           f"last replay {families}", flush=True)
 
 
+# Phase 19: the streaming filter, the bench's serving rows
+# (bench.py:324-402), at the headline LGSSM shape.
+SERVE_S = 8
+SERVE_PLANE_STEPS, SERVE_PLANE_REPLAYS = 200, 8
+SERVE_PASSES = 3
+SERVE_LAG, LAG_EMISSION_SCALE = 10, 0.5
+GENEALOGY_TOL = 1e-4
+FORECAST_H, FORECAST_TOL = 10, 0.15
+
+
+def _serving_data(dev, comps, num):
+    """``num`` observations of the bench's LGSSM (the true transition),
+    y_0 first."""
+    with torch.no_grad():
+        return statistics.sample_from_prior(
+            comps[0], lgssm.Transition(TRANSITION_MULT,
+                                       TRANSITION_SCALE).to(dev),
+            comps[2], num, B, NoiseSource.seeded(0, dev))[1]
+
+
+def _stream(init_fn, step_fn, obs, noise):
+    """init_fn on obs[0], then step_fn on each later observation; returns
+    (the last carry, the list of infos)."""
+    fs = init_fn(obs[0], noise)
+    infos = []
+    for t in range(1, obs.shape[0]):
+        fs, info = step_fn(fs, obs[t], noise)
+        infos.append(info)
+    return fs, infos
+
+
+def _same_tree(a, b):
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _replay_stream(captured, chunks):
+    """Replays ``captured`` over ``chunks``; (ms per chunk between CUDA
+    events around the whole stream, each chunk's log_pred)."""
+    preds = []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for chunk in chunks:
+        preds.append(captured(chunk)["log_pred"].clone())
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / len(chunks), preds
+
+
+@torch.no_grad()
+def serving_phase(dev):
+    phase(f"19 serving: the streaming filter (online), the bench's serving "
+          f"rows (bench.py:324-402), LGSSM at (B, K) = ({B}, {K:,}), "
+          f"systematic, log-Z only")
+    comps, _ = _bench_lgssm(dev, TRANSITION_MULT)
+    obs = _serving_data(dev, comps, T + 1)           # y_0 .. y_200
+    init_fn, step_fn = online.make_online_filter(*comps, K)
+
+    # 199 eager step_fn calls against one infer call from the same source.
+    reset_counts()
+    fs, infos = _stream(init_fn, step_fn, obs[:T], NoiseSource.seeded(40,
+                                                                      dev))
+    counts = read_counts("serving")
+    ref = inference.infer("smc", obs[:T], *comps, K,
+                          noise=NoiseSource.seeded(40, dev),
+                          return_log_marginal_likelihood=True,
+                          return_latents=False)
+    log_z = online.log_marginal_likelihood(fs)
+    if counts["resample_systematic"] != T - 1:
+        raise AssertionError(f"serving launched {counts}")
+    if not (torch.equal(log_z, ref["log_marginal_likelihood"]) and
+            torch.equal(fs.latent, ref["last_latent"]) and
+            torch.equal(fs.log_weight, ref["log_weight"])):
+        raise AssertionError(
+            f"the stream differs from infer: {log_z} vs "
+            f"{ref['log_marginal_likelihood']}")
+    a_init, a_step = online.make_online_filter(*comps, K,
+                                               return_ancestors=True)
+    _, a_infos = _stream(a_init, a_step, obs[:T], NoiseSource.seeded(41,
+                                                                     dev))
+    a_ref = inference.infer("smc", obs[:T], *comps, K,
+                            noise=NoiseSource.seeded(41, dev),
+                            return_ancestral_indices=True,
+                            return_latents=False)
+    if not torch.equal(torch.stack([i["ancestral_index"] for i in a_infos]),
+                       a_ref["ancestral_indices"]):
+        raise AssertionError("the stream's ancestors differ from infer's")
+    print(f"init_fn + {T - 1} step_fn calls: log-Z, particles and weights "
+          f"equal to one infer call from the same generator state (log-Z "
+          f"{log_z.cpu().numpy()}); with return_ancestors the {T - 1} "
+          f"ancestor rows equal too; K1 {counts['resample_systematic']} "
+          f"launches", flush=True)
+
+    # The other kernels of the serving step: stratified resampling (K3),
+    # and the HMM's int32 particles, stratified (K4 and K5).
+    hcomps, hobs = _hmm_data(dev, T, B, 0, num_states=HMM_STATES)
+    for label, s_comps, s_obs, want in (
+            ("serving stratified", comps, obs[:T], ("resample_sorted",)),
+            ("serving HMM stratified", hcomps, hobs,
+             ("searchsorted_sorted", "gather_sorted"))):
+        s_init, s_step = online.make_online_filter(
+            *s_comps, K, resampling_method="stratified")
+        reset_counts()
+        fs, _ = _stream(s_init, s_step, s_obs, NoiseSource.seeded(49, dev))
+        counts = read_counts(label)
+        ref = inference.infer("smc", s_obs, *s_comps, K,
+                              noise=NoiseSource.seeded(49, dev),
+                              resampling_method="stratified",
+                              return_log_marginal_likelihood=True,
+                              return_latents=False)
+        if any(counts[name] != T - 1 for name in want) or not (
+                torch.equal(online.log_marginal_likelihood(fs),
+                            ref["log_marginal_likelihood"]) and
+                torch.equal(fs.latent, ref["last_latent"])):
+            raise AssertionError(f"{label}: {counts}, or the stream differs "
+                                 f"from infer")
+        print(f"{label}: {T - 1} step_fn calls equal one infer call; "
+              f"{', '.join(f'{n} {counts[n]}' for n in want)} launches",
+              flush=True)
+
+    # Eager ms per observation, and the device's idle share over a stream.
+    noise = NoiseSource.seeded(42, dev)
+    eager_ms = [_timed(lambda: _stream(init_fn, step_fn, obs[:T], noise))[1]
+                / (T - 1) for _ in range(SERVE_PASSES)]
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, span = _timed(lambda: _stream(init_fn, step_fn, obs[:T], noise))
+    _, device_ms = _kernel_events(prof)
+    print(f"serving, eager: {[round(x, 4) for x in eager_ms]} ms per "
+          f"observation over {SERVE_PASSES} streams of {T - 1} steps "
+          f"(median {float(np.median(eager_ms)):.4f}); a profiled stream: "
+          f"device busy {device_ms:.3f} of {span:.3f} ms, idle share "
+          f"{1 - device_ms / span:.2%}", flush=True)
+
+    # One step captured in a CUDA graph: replays over the stream equal
+    # eager steps from the same generator state and carry, bit for bit.
+    noise = NoiseSource.seeded(43, dev)
+    fs0 = init_fn(obs[0], noise)
+    captured = online.CapturedStep(step_fn, fs0, obs[1], noise)
+    start = noise.generator.get_state()
+    steps = [obs[t] for t in range(1, T + 1)]
+    _, replayed = _replay_stream(captured, steps)
+    noise.generator.set_state(start)
+    fs, eager_preds = fs0, []
+    for y in steps:
+        fs, info = step_fn(fs, y, noise)
+        eager_preds.append(info["log_pred"])
+    if not (_same_tree(replayed, eager_preds) and
+            _same_tree(online._fields(captured.state), online._fields(fs))):
+        raise AssertionError("the graphed step differs from eager steps")
+    graph_ms = [_replay_stream(captured, steps)[0]
+                for _ in range(SERVE_PASSES)]
+    _profile_replay(lambda: captured(steps[0]), "serving, one graphed step",
+                    {"resample_systematic_kernel": 1},
+                    float(np.median(graph_ms)))
+    print(f"serving, one step graphed: {T} replays equal {T} eager steps "
+          f"bit for bit (log_pred and the carry); "
+          f"{[round(x, 4) for x in graph_ms]} ms per observation (the "
+          f"observation's copy and the replay; "
+          f"median {float(np.median(graph_ms)):.4f})", flush=True)
+
+    # batched_steps, S observations a replay.
+    batched = online.batched_steps(step_fn)
+    chunks = [obs[t:t + SERVE_S] for t in range(1, T + 1 - SERVE_S,
+                                                 SERVE_S)]
+    captured = online.CapturedStep(batched, fs0, chunks[0], noise)
+    start = noise.generator.get_state()
+    _, replayed = _replay_stream(captured, chunks[:3])
+    noise.generator.set_state(start)
+    fs, eager_preds = fs0, []
+    for chunk in chunks[:3]:
+        fs, info = batched(fs, chunk, noise)
+        eager_preds.append(info["log_pred"])
+    if not _same_tree(replayed, eager_preds):
+        raise AssertionError("the graphed batched_steps differ from eager")
+    s_ms = [_replay_stream(captured, chunks)[0] / SERVE_S
+            for _ in range(SERVE_PASSES)]
+    print(f"serving, batched_steps S={SERVE_S} graphed: equal to eager "
+          f"batches bit for bit; {[round(x, 4) for x in s_ms]} ms per "
+          f"observation (median {float(np.median(s_ms)):.4f})", flush=True)
+
+    # The device plane: a captured 200-step batched_steps, replayed 8 times.
+    block = obs[1:SERVE_PLANE_STEPS + 1]
+    captured = online.CapturedStep(batched, fs0, block, noise)
+    plane_ms = [_replay_stream(captured, [block] * SERVE_PLANE_REPLAYS)[0] /
+                SERVE_PLANE_STEPS for _ in range(SERVE_PASSES)]
+    _profile_replay(lambda: captured(block), "serving, device plane",
+                    {"resample_systematic_kernel": SERVE_PLANE_STEPS},
+                    float(np.median(plane_ms)) * SERVE_PLANE_STEPS)
+    print(f"serving, device plane ({SERVE_PLANE_REPLAYS} replays of a "
+          f"{SERVE_PLANE_STEPS}-step graph): {[round(x, 4) for x in plane_ms]}"
+          f" ms per step (median {float(np.median(plane_ms)):.4f})",
+          flush=True)
+    del captured
+    EAGER_MS["serving"] = dict(eager=eager_ms, graph=graph_ms,
+                               batched=s_ms, plane=plane_ms)
+
+    _serving_options(dev, comps, obs)
+    _fold_cost(dev)
+
+
+FOLD_REPLAYS, FOLD_TERMS_REPEAT = 10, 50
+
+
+def _fold_cost(dev):
+    """What summing the log-Z terms in time order costs (a running sum,
+    `inference._sum_in_order`, which the stream's bits need): the graphed
+    LGSSM filter at (T, B, K) captured with it and with one stacked sum,
+    replayed in turns; and the eager sum of T - 1 `[B]` terms both ways."""
+    comps, obs = _bench_lgssm(dev, TRANSITION_MULT)
+    fold = inference._sum_in_order
+    routes = {"fold": fold,
+              "stacked": lambda values: torch.stack(values).sum(0)}
+    graphs = {}
+    for name, summer in routes.items():
+        noise = NoiseSource.seeded(33, dev)
+
+        def call(noise=noise):
+            return inference.infer(
+                "smc", obs, *comps, K, noise=noise,
+                return_log_marginal_likelihood=True, return_latents=False,
+                return_log_weight=False)["log_marginal_likelihood"]
+
+        inference._sum_in_order = summer
+        try:
+            train._warm_up(call, 1)
+            graphs[name] = train._capture(call, noise.generator)[0]
+        finally:
+            inference._sum_in_order = fold
+    runs = {name: [] for name in routes}
+    for name in ("fold", "stacked", "stacked", "fold"):
+        runs[name] += _cuda_ms(graphs[name].replay, warmup=1,
+                               repeat=FOLD_REPLAYS, each=True)
+    terms = [torch.randn(B, device=dev) for _ in range(T - 1)]
+    eager = {name: _cuda_ms(lambda summer=summer: summer(terms), 3,
+                            FOLD_TERMS_REPEAT)
+             for name, summer in routes.items()}
+    med = {name: float(np.median(v)) for name, v in runs.items()}
+    print(f"log-Z summed in time order against one stacked sum: graphed "
+          f"LGSSM filter at ({T}, {B}, {K:,}) median {med['fold']:.3f} "
+          f"against {med['stacked']:.3f} ms a call "
+          f"({med['fold'] - med['stacked']:+.3f}; {2 * FOLD_REPLAYS} replays "
+          f"each, in turns); eager, {T - 1} [{B}] terms: "
+          f"{eager['fold']:.4f} against {eager['stacked']:.4f} ms",
+          flush=True)
+    del graphs
+
+
+@torch.no_grad()
+def _serving_options(dev, comps, obs):
+    """Genealogy, fixed lag, streaming PaRIS, export and forecasting at
+    full width."""
+    # track_genealogy against variance.log_z_variance on infer's ancestors,
+    # with the exact proposal and multinomial resampling as in phase 18:
+    # with the bench's proposal every row's cloud falls to one family and
+    # both estimates saturate at 1; with systematic resampling the
+    # estimate (made for multinomial) clips at 0.
+    ocomps, oobs = _optimal_lgssm(dev)
+    g_init, g_step = online.make_online_filter(
+        *ocomps, K, resampling_method="multinomial", track_genealogy=True)
+    _, g_infos = _stream(g_init, g_step, oobs, NoiseSource.seeded(44, dev))
+    ref = inference.infer("smc", oobs, *ocomps, K,
+                          noise=NoiseSource.seeded(44, dev),
+                          resampling_method="multinomial",
+                          return_ancestral_indices=True,
+                          return_latents=False)
+    want = variance.log_z_variance(ref["log_weight"],
+                                   ref["ancestral_indices"])
+    families = variance.num_families(ref["ancestral_indices"]).cpu().tolist()
+    err = float((g_infos[-1]["log_z_rel_var"] - want).abs().max())
+    print(f"track_genealogy, exact proposal, multinomial: final "
+          f"log_z_rel_var "
+          f"{g_infos[-1]['log_z_rel_var'].cpu().numpy()} against "
+          f"log_z_variance {want.cpu().numpy()}: max |difference| {err:.2e} "
+          f"(bound {GENEALOGY_TOL}); surviving families {families}",
+          flush=True)
+    if min(families) < 2 or not bool(((want > 0) & (want < 1)).any()):
+        raise AssertionError(f"the genealogy check saturated: estimates "
+                             f"{want}, families {families}")
+    if not err <= GENEALOGY_TOL:
+        raise AssertionError(f"genealogy variance off by {err}")
+
+    # fixed_lag against the RTS smoother, on the JAX test's model (the
+    # bench's with emission scale 0.5, where smoothing moves the means
+    # further from the filter's than at 0.2) with its exact proposal, and
+    # its bound: the lagged error below half the filtered one
+    # (tests/test_online.py:326-385).
+    lag_comps = (lgssm.Initial(0.0, 1.0),
+                 lgssm.Transition(TRANSITION_MULT, TRANSITION_SCALE).to(dev),
+                 lgssm.Emission(EMISSION_MULT, LAG_EMISSION_SCALE).to(dev),
+                 lgssm.optimal_proposal(
+                     0.0, 1.0, TRANSITION_MULT, TRANSITION_SCALE,
+                     EMISSION_MULT, LAG_EMISSION_SCALE).to(dev))
+    lag_obs = statistics.sample_from_prior(*lag_comps[:3], T, B,
+                                           NoiseSource.seeded(45, dev))[1]
+    l_init, l_step = online.make_online_filter(*lag_comps, K,
+                                               fixed_lag=SERVE_LAG)
+    noise = NoiseSource.seeded(45, dev)
+    fs = l_init(lag_obs[0], noise)
+    filtered, lagged = {}, {}
+    for t in range(1, T):
+        filtered[t - 1] = statistics.empirical_mean(fs.latent, fs.log_weight)
+        fs, info = l_step(fs, lag_obs[t], noise)
+        if t >= SERVE_LAG:
+            lagged[t - SERVE_LAG] = statistics.empirical_mean(
+                info["lagged_latent"], fs.log_weight)
+    params = kalman.KalmanParams(
+        initial_mean=0.0, initial_variance=1.0,
+        transition_mult=TRANSITION_MULT, transition_offset=0.0,
+        transition_variance=TRANSITION_SCALE ** 2,
+        emission_mult=EMISSION_MULT, emission_offset=0.0,
+        emission_variance=LAG_EMISSION_SCALE ** 2)
+    means = np.stack([kalman.kalman_smoother(lag_obs.cpu().numpy()[:, b],
+                                             params)[0] for b in range(B)],
+                     axis=1)
+    lag_err = float(np.mean([np.abs(v.cpu().numpy() - means[t])
+                             for t, v in lagged.items()]))
+    filt_err = float(np.mean([np.abs(filtered[t].cpu().numpy() - means[t])
+                              for t in lagged]))
+    print(f"fixed_lag={SERVE_LAG}: mean |lagged mean - RTS| {lag_err:.4f} "
+          f"against the filtered means' {filt_err:.4f} (bound: below half)",
+          flush=True)
+    if not lag_err < 0.5 * filt_err:
+        raise AssertionError(f"fixed lag {lag_err} vs filtered {filt_err}")
+
+    # Streaming PaRIS (pairwise) against the offline smoothing.paris.
+    def h(xp, xc, t):
+        return xc
+
+    p_init, p_step = online.make_online_filter(
+        *ocomps, PARIS_K, paris_h=h, paris_h0=lambda x0: x0,
+        paris_num_draws=PARIS_N)
+    (fs, p_infos), stream_ms = _timed(lambda: _stream(
+        p_init, p_step, oobs, NoiseSource.seeded(46, dev)))
+    offline = smoothing.paris(oobs, *ocomps, PARIS_K, h=h,
+                              h0=lambda x0: x0,
+                              noise=NoiseSource.seeded(46, dev),
+                              num_backward_draws=PARIS_N)
+    if not (torch.equal(p_infos[-1]["paris_smoothed"], offline["smoothed"])
+            and torch.equal(fs.tau, offline["tau"]) and torch.equal(
+                online.log_marginal_likelihood(fs),
+                offline["log_marginal_likelihood"])):
+        raise AssertionError("streaming PaRIS differs from smoothing.paris")
+    print(f"streaming PaRIS (pairwise) at ({T}, {B}, {PARIS_K:,}): smoothed "
+          f"sums, statistics and log-Z equal to smoothing.paris on the same "
+          f"noise; {stream_ms / (T - 1):.4f} ms per observation", flush=True)
+
+    # export_step -> load_step: the loaded program equals the live step
+    # and launches K1 inside it.
+    init_fn, step_fn = online.make_online_filter(*comps, K)
+    noise = NoiseSource.seeded(47, dev)
+    fs = init_fn(obs[0], noise)
+    (blob, export_ms) = _timed(lambda: online.export_step(step_fn, fs,
+                                                          obs[1]))
+    step = online.load_step(blob)
+    start = noise.generator.get_state()
+    live = step_fn(fs, obs[1], noise)
+    noise.generator.set_state(start)
+    reset_counts()
+    loaded = step(fs, obs[1], noise)
+    counts = read_counts("serving (exported step)")
+    if counts["resample_systematic"] != 1:
+        raise AssertionError(f"the exported step launched {counts}")
+    if not _same_tree((online._fields(live[0]), live[1]),
+                      (online._fields(loaded[0]), loaded[1])):
+        raise AssertionError("the exported step differs from the live step")
+    loaded_ms = _cuda_ms(lambda: step(fs, obs[1], noise), 3, 20)
+    live_ms = _cuda_ms(lambda: step_fn(fs, obs[1], noise), 3, 20)
+    print(f"export_step: {len(blob):,} bytes in {export_ms:.1f} ms; the "
+          f"loaded step equals the live step and launched K1 "
+          f"{counts['resample_systematic']} time inside the program; "
+          f"{loaded_ms:.4f} ms a loaded step against {live_ms:.4f} live",
+          flush=True)
+
+    # forecast_online: the h-step predictive mean against the Kalman
+    # recursion 0.9^h E[x_t | y_0:t], exact proposal.
+    o_init, o_step = online.make_online_filter(*ocomps, K)
+    fs, _ = _stream(o_init, o_step, oobs, NoiseSource.seeded(48, dev))
+    out = forecast.forecast_online(fs, ocomps[1], ocomps[2], FORECAST_H,
+                                   NoiseSource.seeded(49, dev))
+    params = kalman.KalmanParams(
+        initial_mean=0.0, initial_variance=1.0,
+        transition_mult=TRANSITION_MULT, transition_offset=0.0,
+        transition_variance=TRANSITION_SCALE ** 2,
+        emission_mult=EMISSION_MULT, emission_offset=0.0,
+        emission_variance=EMISSION_SCALE ** 2)
+    last = np.array([kalman.kalman_filter(oobs.cpu().numpy()[:, b],
+                                          params)[0][-1] for b in range(B)])
+    pred = torch.stack([statistics.empirical_mean(out["latents"][h],
+                                                  fs.log_weight)
+                        for h in range(FORECAST_H)]).cpu().numpy()
+    exact = np.stack([TRANSITION_MULT ** (h + 1) * last
+                      for h in range(FORECAST_H)])
+    err = np.abs(pred - exact)
+    if out["latents"].shape != (FORECAST_H, B, K) or not np.isfinite(
+            pred).all() or not err.mean() < FORECAST_TOL:
+        raise AssertionError(f"forecast_online off: {err}")
+    print(f"forecast_online at horizon {FORECAST_H}: predictive means "
+          f"{float(err.mean()):.4f} from the Kalman recursion on average "
+          f"over rows and horizons (bound {FORECAST_TOL}), at most "
+          f"{float(err.max()):.4f}", flush=True)
+
+
+# Phase 20: OT resampling at the JAX package's engine sizes
+# (benchmarks/ot_engine_probe.py:32, benchmarks/BENCH_NOTES.md:220-227).
+OT_T, OT_B, OT_K, OT_ITERATIONS = 50, 4, 4096, 20
+# K = 16,384 cut to T = 10 for the time limit: the probe's T = 50 takes
+# ~70 s a call blocked on an H100. The loss with its gradient at OT_T.
+OT_LARGE_T, OT_LARGE_K, OT_RANK = 10, 16384, 32
+OT_MARGINAL_TOL, OT_MEAN_TOL = 1e-3, 5e-3
+OT_TIMED_CALLS = 1
+
+
+def _ot_call(comps, obs, k, noise, **kwargs):
+    return lambda: inference.infer(
+        "smc", obs, *comps, k, noise=noise, resampling_method="ot",
+        ot_num_iterations=OT_ITERATIONS, return_log_marginal_likelihood=True,
+        return_latents=False, return_log_weight=False,
+        **kwargs)["log_marginal_likelihood"]
+
+
+def _ot_rows(label, comps, obs, k, seed, graphed=True, **kwargs):
+    """Eager ms a step (and peak MiB), and graphed (replay == eager from the
+    same generator state); returns the eager log-Z."""
+    steps = obs.shape[0] - 1
+    noise = NoiseSource.seeded(seed, obs.device)
+    call = _ot_call(comps, obs, k, noise, **kwargs)
+    torch.cuda.reset_peak_memory_stats()
+    log_z, first_ms = _timed(call)
+    peak = _peak_mib()
+    eager_ms = [_timed(call)[1] / steps for _ in range(OT_TIMED_CALLS)]
+    line = (f"{label}: eager {[round(x, 3) for x in eager_ms]} ms a step "
+            f"(first call {first_ms / steps:.3f}), peak {peak:.1f} MiB")
+    if graphed:
+        train._warm_up(call, 1)
+        graph, out = train._capture(call, noise.generator)
+        start = noise.generator.get_state()
+        graph.replay()
+        replayed = out.clone()
+        noise.generator.set_state(start)
+        if not torch.equal(replayed, call()):
+            raise AssertionError(f"{label}: the graphed call differs")
+        graph_ms = [_timed(graph.replay)[1] / steps
+                    for _ in range(OT_TIMED_CALLS)]
+        line += (f"; graphed {[round(x, 3) for x in graph_ms]} ms a step "
+                 f"(a replay equals an eager call from the same generator "
+                 f"state)")
+        del graph, out
+    print(line, flush=True)
+    if not bool(torch.isfinite(log_z).all()):
+        raise AssertionError(f"{label}: log-Z {log_z}")
+    return log_z
+
+
+@torch.no_grad()
+def _ot_plan_checks(dev):
+    """`ot_resample`'s plan at full width against `tests/test_ot.py:28-30`
+    (marginals) and `:44` (the weighted mean), with the tests' settings."""
+    generator = torch.Generator(device=dev).manual_seed(60)
+    logw = torch.randn(OT_B, OT_K, generator=generator, device=dev)
+    x = torch.randn(OT_B, OT_K, 1, generator=generator, device=dev)
+    sq = (x * x).sum(-1)
+    cost = sq[:, :, None] + sq[:, None, :] - 2 * torch.bmm(x, x.transpose(
+        1, 2))
+    f, g = ot.sinkhorn_potentials(logw, cost, 0.5, 200)
+    plan = torch.exp((f[:, :, None] + g[:, None, :] - cost) / 0.5)
+    row = float((plan.sum(2) - torch.softmax(logw, -1)).abs().max())
+    col = float((plan.sum(1) - 1.0 / OT_K).abs().max())
+    out, _ = ot.ot_resample(logw, x[..., 0], epsilon=0.2,
+                            num_iterations=200)
+    mean_err = float(((torch.softmax(logw, -1) * x[..., 0]).sum(-1) -
+                      out.mean(-1)).abs().max())
+    print(f"ot plan at ({OT_B}, {OT_K:,}): rows within {row:.2e} of the "
+          f"weights, columns within {col:.2e} of 1/K (bound "
+          f"{OT_MARGINAL_TOL}); weighted mean kept within {mean_err:.2e} "
+          f"(bound {OT_MEAN_TOL})", flush=True)
+    if not (row < OT_MARGINAL_TOL and col < OT_MARGINAL_TOL and
+            mean_err < OT_MEAN_TOL):
+        raise AssertionError(f"ot plan off: {row}, {col}, {mean_err}")
+
+
+def ot_phase(dev):
+    phase(f"20 OT resampling: infer('smc', 'ot'), {OT_ITERATIONS} Sinkhorn "
+          f"iterations, at ({OT_T}, {OT_B}, {OT_K:,}) dense and "
+          f"({OT_LARGE_T}, {OT_B}, {OT_LARGE_K:,}) blocked (auto block "
+          f"2,048)")
+    _ot_plan_checks(dev)
+    comps, obs = _bench_lgssm(dev, TRANSITION_MULT)
+    obs = obs[:OT_T, :OT_B].contiguous()
+    reset_counts()
+    with torch.no_grad():
+        log_z = _ot_rows(f"ot dense at ({OT_T}, {OT_B}, {OT_K:,})", comps,
+                         obs, OT_K, 61)
+    counts = read_counts("ot")
+    if any(counts.values()):
+        raise AssertionError(f"the OT path launched {counts}")
+    for name in KERNELS:
+        LAUNCHES[name]["ot"] = 0
+
+    # log-Z against Kalman beside systematic's, on the same model.
+    exact = _lgssm_exact(obs)
+    with torch.no_grad():
+        systematic = inference.infer(
+            "smc", obs, *comps, OT_K, noise=NoiseSource.seeded(62, dev),
+            return_log_marginal_likelihood=True,
+            return_latents=False)["log_marginal_likelihood"]
+    for label, est in (("ot", log_z), ("systematic", systematic)):
+        rel = np.abs(est.cpu().numpy() - exact) / np.abs(exact)
+        print(f"log-Z vs Kalman at ({OT_T}, {OT_B}, {OT_K:,}), the bench's "
+              f"proposal, {label}: relative error a row "
+              f"{np.round(rel, 5).tolist()}", flush=True)
+
+    with torch.no_grad():
+        # Dense against blocked at the crossover K = 4,096.
+        _ot_rows(f"ot blocked (block {OT_K // 2:,}) at ({OT_T}, {OT_B}, "
+                 f"{OT_K:,})", comps, obs, OT_K, 63, graphed=False,
+                 ot_block_size=OT_K // 2)
+        # K = 16,384: blocked with the auto block, and low rank.
+        big = _serving_data(dev, comps, OT_LARGE_T)[:, :OT_B].contiguous()
+        _ot_rows(f"ot blocked (auto) at ({OT_LARGE_T}, {OT_B}, "
+                 f"{OT_LARGE_K:,})", comps, big, OT_LARGE_K, 64)
+        _ot_rows(f"ot rank {OT_RANK} at ({OT_LARGE_T}, {OT_B}, "
+                 f"{OT_LARGE_K:,})", comps, big, OT_LARGE_K, 65,
+                 ot_rank=OT_RANK)
+    _ot_gradient(dev, comps, obs)
+
+
+def _ot_gradient(dev, comps, obs):
+    """The AESMC loss and its gradient through 'ot' at (OT_T, OT_B,
+    OT_K): finite, and a graphed loss equal to the eager one from the
+    same generator state."""
+    noise = NoiseSource.seeded(66, dev)
+    params = list(comps[3].parameters())
+
+    def loss_and_grads():
+        loss = losses.get_loss(obs, OT_K, "aesmc", *comps, noise=noise,
+                               resampling_method="ot",
+                               ot_num_iterations=OT_ITERATIONS)
+        return (loss.detach(),) + torch.autograd.grad(loss, params)
+
+    torch.cuda.reset_peak_memory_stats()
+    (loss, *grads), ms = _timed(loss_and_grads)
+    peak = _peak_mib()
+    train._warm_up(loss_and_grads, 1)
+    graph, out = train._capture(loss_and_grads, noise.generator)
+    start = noise.generator.get_state()
+    _, graph_ms = _timed(graph.replay)
+    replayed = [t.clone() for t in out]
+    noise.generator.set_state(start)
+    eager = loss_and_grads()
+    if not all(bool(torch.isfinite(t).all()) for t in eager):
+        raise AssertionError(f"OT loss or gradients not finite: {eager}")
+    if not torch.equal(replayed[0], eager[0]):
+        raise AssertionError(f"graphed OT loss {replayed[0]} vs {eager[0]}")
+    print(f"AESMC loss through 'ot' at ({obs.shape[0]}, {OT_B}, {OT_K:,}): "
+          f"loss "
+          f"{float(eager[0]):.4f}, gradients finite (norm "
+          f"{float(torch.cat([g.reshape(-1) for g in eager[1:]]).norm()):.4g})"
+          f"; eager {ms:.1f} ms with the backward (peak {peak:.1f} MiB), "
+          f"graphed {graph_ms:.1f} ms; the graphed loss equals the eager "
+          f"one", flush=True)
+    del graph, out
+
+
+# Phase 21: Lorenz-96 (LORENZ_* above, with the kernels' cases).
+EKF_LINEAR_TOL = 1e-5
+
+
+def _lorenz_rows(dev, label, comps, obs, seed):
+    """Eager and graphed ms a call of the log-Z filter, log-Z and the mean
+    ESS of the final weights."""
+    noise = NoiseSource.seeded(seed, dev)
+
+    def call():
+        out = inference.infer(
+            "smc", obs, *comps, LORENZ_K, noise=noise,
+            return_log_marginal_likelihood=True, return_latents=False)
+        return out["log_marginal_likelihood"], statistics.ess(
+            out["log_weight"])
+
+    reset_counts()
+    (log_z, ess), first_ms = _timed(call)
+    counts = read_counts("lorenz")
+    if counts["resample_systematic"] != LORENZ_T - 1:
+        raise AssertionError(f"{label}: launched {counts}")
+    eager_ms = [_timed(call)[1] for _ in range(3)]
+    train._warm_up(call, 1)
+    graph, (g_log_z, _) = train._capture(call, noise.generator)
+    start = noise.generator.get_state()
+    graph.replay()
+    replayed = g_log_z.clone()
+    noise.generator.set_state(start)
+    if not torch.equal(replayed, call()[0]):
+        raise AssertionError(f"{label}: the graphed call differs")
+    graph_ms = [_timed(graph.replay)[1] for _ in range(5)]
+    del graph
+    if not bool(torch.isfinite(log_z).all()):
+        raise AssertionError(f"{label}: log-Z {log_z}")
+    print(f"Lorenz-96 {label}: log-Z mean {float(log_z.mean()):.3f} (rows "
+          f"{np.round(log_z.cpu().numpy(), 2).tolist()}), final ESS mean "
+          f"{float(ess.mean()):.1f} of {LORENZ_K}; eager "
+          f"{[round(x, 3) for x in eager_ms]} ms a call (first "
+          f"{first_ms:.1f}), graphed {[round(x, 3) for x in graph_ms]} "
+          f"(a replay equals an eager call); K1 "
+          f"{counts['resample_systematic']} launches at D = {LORENZ_D}",
+          flush=True)
+    return float(np.median(eager_ms)), float(np.median(graph_ms))
+
+
+@torch.no_grad()
+def lorenz_phase(dev):
+    phase(f"21 Lorenz-96: D = {LORENZ_D}, (T, B, K) = ({LORENZ_T}, "
+          f"{LORENZ_B}, {LORENZ_K:,}), bootstrap and the assimilation "
+          f"proposal under three linearizations")
+    boot = lorenz.make_model(dim=LORENZ_D, emission_scale=0.5,
+                             proposal="bootstrap", device=dev)
+    obs = statistics.sample_from_prior(*boot[:3], LORENZ_T, LORENZ_B,
+                                       NoiseSource.seeded(70, dev))[1]
+    times = {"bootstrap": _lorenz_rows(dev, "bootstrap", boot, obs, 71)}
+    for i, linearization in enumerate(("diagonal", "extended",
+                                       "unscented")):
+        comps = boot[:3] + (lorenz.assimilation_proposal(
+            *boot[:3], linearization=linearization),)
+        times[linearization] = _lorenz_rows(
+            dev, f"assimilation ({linearization})", comps, obs, 72 + i)
+    for linearization in ("extended", "unscented"):
+        print(f"Lorenz-96 generic {linearization} against the closed form: "
+              f"{times[linearization][0] / times['diagonal'][0]:.2f}x eager, "
+              f"{times[linearization][1] / times['diagonal'][1]:.2f}x "
+              f"graphed", flush=True)
+
+    # The generic path's batched algebra at its shape, [B K, D, D]: the
+    # factor, and the gain's Cholesky solve as two triangular solves (the
+    # port's) against torch.cholesky_solve.
+    generator = torch.Generator(device=dev).manual_seed(75)
+    n = LORENZ_B * LORENZ_K
+    a_mat = torch.randn(n, LORENZ_D, LORENZ_D, generator=generator,
+                        device=dev)
+    spd = a_mat @ a_mat.transpose(1, 2) + LORENZ_D * torch.eye(
+        LORENZ_D, device=dev)
+    rhs = torch.randn(n, LORENZ_D, LORENZ_D, generator=generator, device=dev)
+    chol = distributions.cholesky(spd)
+
+    def two_triangular():
+        half = torch.linalg.solve_triangular(chol, rhs, upper=False)
+        return torch.linalg.solve_triangular(chol.transpose(1, 2), half,
+                                             upper=True)
+
+    err = float((two_triangular() - torch.cholesky_solve(rhs, chol)).abs()
+                .max())
+    pieces = {"distributions.cholesky (cholesky_ex)":
+              lambda: distributions.cholesky(spd),
+              "two solve_triangular": two_triangular,
+              "torch.cholesky_solve": lambda: torch.cholesky_solve(rhs,
+                                                                   chol)}
+    print(f"batched algebra at [{n}, {LORENZ_D}, {LORENZ_D}] (the two "
+          f"solves agree within {err:.2e}): " + "; ".join(
+              f"{label} {_cuda_ms(fn, 3, 20):.4f} ms"
+              for label, fn in pieces.items()), flush=True)
+
+    # The EKF proposal on the linear LGSSM is the exact locally-optimal
+    # proposal (tests/test_proposals.py).
+    a, q, c, r = TRANSITION_MULT, TRANSITION_SCALE, EMISSION_MULT, \
+        EMISSION_SCALE
+    prop = proposals.ekf_proposal(lambda x: a * x, q ** 2, lambda x: c * x,
+                                  r ** 2, 0.0, 1.0).to(dev)
+    generator = torch.Generator(device=dev).manual_seed(74)
+    x_prev = torch.randn(B, K, generator=generator, device=dev)
+    ys = torch.randn(3, B, generator=generator, device=dev)
+    d = prop(previous_latents=[x_prev], time=inference.TimeIndex(1),
+             observations=inference.ObservationSequence(ys))
+    var = 1.0 / (1.0 / q ** 2 + c ** 2 / r ** 2)
+    loc = var * (a * x_prev / q ** 2 + c * ys[1][:, None] / r ** 2)
+    loc_err = float(((d.loc - loc).abs() / loc.abs().clamp(min=1.0)).max())
+    scale_err = float((d.scale - var ** 0.5).abs().max() / var ** 0.5)
+    print(f"EKF proposal on the linear LGSSM at ({B}, {K:,}): loc within "
+          f"{loc_err:.2e}, scale within {scale_err:.2e} of the exact "
+          f"optimal proposal (bound {EKF_LINEAR_TOL}, relative)", flush=True)
+    if not (loc_err < EKF_LINEAR_TOL and scale_err < EKF_LINEAR_TOL):
+        raise AssertionError(f"EKF proposal off: {loc_err}, {scale_err}")
+
+
 def _build_other(other, sources):
     """Builds each of ``sources`` from directory ``other`` with `_build`'s
     flags, one nvcc each, all started together, into `compare/` of the
@@ -3089,6 +3852,9 @@ def main():
     vrnn_phase(dev)
     score_phase(dev)
     smoothing_phase(dev)
+    serving_phase(dev)
+    ot_phase(dev)
+    lorenz_phase(dev)
     kernels = []
     for name, (module, _, _, replaces) in KERNELS.items():
         launches = sum(LAUNCHES[name].values())

@@ -202,3 +202,26 @@ def test_state_sample_matches_jax(name, mode):
         state.log_prob(dist, got).numpy(),
         np.asarray(jax_state.log_prob(jax_dist, jnp.asarray(want))),
         rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("covariance", [
+    COV,                                                    # positive definite
+    np.array([[1.0, 2.0], [2.0, 1.0]], np.float32),         # indefinite
+    np.array([[[1.0, 0.0], [0.0, 1.0]],
+              [[4.0, 2.0], [2.0, 1.0]]], np.float32),       # one singular
+])
+def test_from_covariance_factor_matches_jax(covariance):
+    """`from_covariance`'s factor is `jnp.linalg.cholesky`'s: the same
+    factor where the matrix is positive definite (within 1e-6), and NaN on
+    and below the diagonal, zeros above, where it is not. The port reads
+    no error flag on the host (`cholesky_ex`)."""
+    loc = np.zeros(covariance.shape[:-1], np.float32)
+    got = dists.MultivariateNormalTriL.from_covariance(
+        tensor(loc), tensor(covariance)).scale_tril.numpy()
+    want = np.asarray(jax_dists.MultivariateNormalTriL.from_covariance(
+        jnp.asarray(loc), jnp.asarray(covariance)).scale_tril)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    np.testing.assert_array_equal(np.isnan(got),
+                                  np.isnan(np.asarray(
+                                      jnp.linalg.cholesky(covariance))))

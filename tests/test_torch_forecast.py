@@ -4,8 +4,10 @@ package's.
 `forecast` rolls an LGSSM particle cloud (B = 3, K = 64) four steps
 through both packages, with the JAX draws (`split(key, (H, 2))`: the
 latents', then the observations' standard normals a step) replayed into
-the port. `weighted_quantiles` and `predictive_pit` take the same seeded
-samples and weights, with ties for the PIT's midpoint rule.
+the port; `forecast_online` does the same from a streaming carry
+(`online.OnlineFilterState`, t = 6), whose time its components read.
+`weighted_quantiles` and `predictive_pit` take the same seeded samples
+and weights, with ties for the PIT's midpoint rule.
 
 Tolerances: the rolled latents and observations within 1e-5 absolute;
 the quantiles exactly equal (a selection of the input samples); the PIT
@@ -18,10 +20,14 @@ import numpy as np
 import pytest
 import torch
 
+from aesmc_tpu import distributions as jax_distributions
 from aesmc_tpu import forecast as jax_forecast
+from aesmc_tpu import online as jax_online
 from aesmc_tpu.models import lgssm as jax_lgssm
-from aesmc_tpu_torch import forecast
+from aesmc_tpu.state import BatchShapeMode as JaxBatchShapeMode
+from aesmc_tpu_torch import distributions, forecast, inference, online
 from aesmc_tpu_torch.models import lgssm
+from aesmc_tpu_torch.state import BatchShapeMode
 from torch_replay import ReplayNoise, lgssm_params, normal_draw
 
 B, K, H = 3, 64, 4
@@ -80,3 +86,53 @@ def test_quantiles_and_pit_match_jax():
                                        jnp.asarray(realized))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
     assert bool(((got >= 0) & (got <= 1)).all())
+
+
+def test_forecast_online_replays_jax():
+    """From a streaming carry: the particles, weights, last observation and
+    time (a `DeviceTimeIndex` at t - 1 + h, here read by the transition)
+    all come from the state."""
+    jax_emission = jax_lgssm.Emission.create(1.2, 0.4)
+    emission = lgssm.Emission(1.2, 0.4)
+    seen = []
+
+    def transition(previous_latents=None, time=None,
+                   previous_observations=None):
+        seen.append(int(time))
+        return distributions.Normal(
+            0.8 * previous_latents[-1] + 0.01 * time, 0.7,
+            batch_shape_mode=BatchShapeMode.FULLY_EXPANDED)
+
+    def jax_transition(previous_latents=None, time=None,
+                       previous_observations=None):
+        return jax_distributions.Normal(
+            0.8 * previous_latents[-1] + 0.01 * jnp.asarray(time), 0.7,
+            batch_shape_mode=JaxBatchShapeMode.FULLY_EXPANDED)
+
+    rng = np.random.RandomState(3)
+    latent = rng.randn(B, K).astype(np.float32)
+    log_weight = rng.randn(B, K).astype(np.float32)
+    prev_obs = rng.randn(B).astype(np.float32)
+    key = jax.random.PRNGKey(13)
+    jax_state = jax_online.OnlineFilterState(
+        latent=jnp.asarray(latent), log_weight=jnp.asarray(log_weight),
+        log_z_contrib=jnp.zeros(B), prev_observation=jnp.asarray(prev_obs),
+        t=jnp.asarray(6, jnp.int32))
+    want = jax_forecast.forecast_online(jax_state, jax_transition,
+                                        jax_emission, H, key)
+    keys = jax.random.split(key, (H, 2))
+    noise = ReplayNoise(normals=[normal_draw(keys[h, i], (), (B, K))
+                                 for h in range(H) for i in range(2)])
+    state = online.OnlineFilterState(
+        latent=torch.tensor(latent), log_weight=torch.tensor(log_weight),
+        log_z_contrib=torch.zeros(B), prev_observation=torch.tensor(prev_obs),
+        t=torch.tensor(6, dtype=torch.int32))
+    with torch.no_grad():
+        got = forecast.forecast_online(state, transition, emission, H,
+                                       noise)
+    assert noise.exhausted() and seen == [6, 7, 8, 9]
+    np.testing.assert_allclose(got["latents"].numpy(),
+                               np.asarray(want["latents"]), atol=1e-5)
+    np.testing.assert_allclose(got["observations"].numpy(),
+                               np.asarray(want["observations"]), atol=1e-5)
+    assert isinstance(inference.DeviceTimeIndex(state.t) + 1, torch.Tensor)

@@ -11,14 +11,23 @@ imports JAX, hence `--noconftest`):
 resampling, K3 and K2, and on the dense route, a matmul a step), and
 with lr 0 every replay draws fresh noise (every replay's loss differs).
 Graphed runs with a matmul leave no cuBLAS workspace behind.
+
+The streaming filter (`online`): a step captured in a CUDA graph
+(`online.CapturedStep`), replayed over a stream of observations, equals
+eager `step_fn` calls from the same generator state bit for bit, and so
+does a captured `batched_steps`; the step exported with `torch.export`
+and loaded back equals the live step and launches K1 inside the program.
 """
 
 import pytest
 import torch
 
-from aesmc_tpu_torch import statistics, train
+from torch.utils import _pytree as pytree
+
+from aesmc_tpu_torch import online, statistics, train
 from aesmc_tpu_torch.models import lgssm
 from aesmc_tpu_torch.noise import NoiseSource
+from aesmc_tpu_torch.ops import resample_cuda
 import torch_threads  # noqa: F401  (caps PyTorch's threads)
 
 T, B, K, STEPS = 5, 2, 16, 8
@@ -81,3 +90,63 @@ def test_graphed_matmul_steps_keep_no_blas_workspace(card):
         _run(card, True, 1e-2, resampling_implementation="torch")
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() - before < 2 ** 20
+
+
+def _serving(dev, **kwargs):
+    comps = tuple(m.to(dev) for m in (
+        lgssm.Initial(0.0, 1.0), lgssm.Transition(0.9, 1.0),
+        lgssm.Emission(1.0, 0.2),
+        lgssm.Proposal.create(1.0, 1.0, torch.Generator().manual_seed(0))))
+    with torch.no_grad():
+        _, obs = statistics.sample_from_prior(
+            *comps[:3], 12, B, NoiseSource.seeded(1, dev))
+    init_fn, step_fn = online.make_online_filter(*comps, K, **kwargs)
+    return init_fn, step_fn, obs
+
+
+def _same(a, b):
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [None, 4])
+def test_captured_serving_step_equals_eager(card, batch):
+    init_fn, step_fn, obs = _serving(card, return_ancestors=True)
+    noise = NoiseSource.seeded(7, card)
+    with torch.no_grad():
+        state = init_fn(obs[0], noise)
+        step = step_fn if batch is None else online.batched_steps(step_fn)
+        chunks = ([obs[t] for t in range(1, len(obs))] if batch is None else
+                  [obs[t:t + batch] for t in range(1, len(obs) - batch + 1,
+                                                    batch)])
+        captured = online.CapturedStep(step, state, chunks[0], noise)
+        start = noise.generator.get_state()
+        replayed = [pytree.tree_map(torch.clone, captured(c))
+                    for c in chunks]
+        noise.generator.set_state(start)
+        eager = []
+        for c in chunks:
+            state, info = step(state, c, noise)
+            eager.append(info)
+    assert _same(replayed, eager)
+    assert _same(online._fields(captured.state), online._fields(state))
+
+
+@pytest.mark.cuda
+def test_exported_step_launches_k1_and_equals_live_step(card):
+    init_fn, step_fn, obs = _serving(card)
+    noise = NoiseSource.seeded(8, card)
+    with torch.no_grad():
+        state = init_fn(obs[0], noise)
+        step = online.load_step(online.export_step(step_fn, state, obs[1]))
+        start = noise.generator.get_state()
+        live = step_fn(state, obs[1], noise)
+        noise.generator.set_state(start)
+        before = resample_cuda.LAUNCHES
+        loaded = step(state, obs[1], noise)
+        torch.cuda.synchronize()
+    assert resample_cuda.LAUNCHES == before + 1
+    assert _same((online._fields(live[0]), live[1]),
+                 (online._fields(loaded[0]), loaded[1]))
