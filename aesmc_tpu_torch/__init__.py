@@ -15,7 +15,10 @@ every distribution of the JAX package, and every resampling kernel of the
 JAX package, and the backward, as hand-written CUDA (`ops`); beside it
 OT resampling (`ot`), the EKF/UKF proposals (`proposals`), the streaming
 (serving) filter (`online`), TMC, the score gradient, smoothing,
-genealogy variance and forecasting.
+genealogy variance and forecasting; sequential quasi-Monte Carlo (`sqmc`,
+whose resampling runs K3), conditional SMC, particle Gibbs and PMMH
+(`csmc`), the Rao-Blackwellised filter (`rbpf`) and the bouncing-ball
+deep SSM.
 Entry points put their tensors on the card unless the caller asks for
 the CPU (`device`). This package never imports JAX.
 """
@@ -23,6 +26,7 @@ the CPU (`device`). This package never imports JAX.
 __version__ = "0.3.0"
 
 from . import checkpoint
+from . import csmc
 from . import device
 from . import distributions
 from . import forecast
@@ -37,8 +41,10 @@ from . import ops
 from . import ot
 from . import profiling
 from . import proposals
+from . import rbpf
 from . import resampling
 from . import smoothing
+from . import sqmc
 from . import state
 from . import statistics
 from . import tmc
@@ -47,8 +53,9 @@ from . import utils
 from . import variance
 
 __all__ = [
-    "checkpoint", "device", "distributions", "forecast", "gradients",
-    "inference", "losses", "math", "models", "noise", "online", "ops",
-    "ot", "profiling", "proposals", "resampling", "smoothing", "state",
-    "statistics", "tmc", "train", "utils", "variance", "__version__",
+    "checkpoint", "csmc", "device", "distributions", "forecast",
+    "gradients", "inference", "losses", "math", "models", "noise",
+    "online", "ops", "ot", "profiling", "proposals", "rbpf", "resampling",
+    "smoothing", "sqmc", "state", "statistics", "tmc", "train", "utils",
+    "variance", "__version__",
 ]

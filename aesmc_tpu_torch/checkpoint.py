@@ -36,13 +36,17 @@ class TrainState:
     step: int = 0
 
 
-def save(path, state: TrainState) -> None:
+def save(path, state: TrainState, force: bool = True) -> None:
     """Writes ``state`` into the directory ``path`` (made if missing): the
     `state_dict` of each `nn.Module` component (None for the others), the
     optimizer's `state_dict`, the noise generator's state and the step.
     The file is written under a temporary name and renamed over the old
-    one, so that a crash leaves the previous checkpoint whole."""
+    one, so that a crash leaves the previous checkpoint whole. With
+    ``force=False`` an existing ``path`` raises ValueError, as the JAX
+    package's checkpointer does; by default it is overwritten."""
     path = pathlib.Path(path)
+    if not force and path.exists():
+        raise ValueError(f"Destination {path.absolute()} already exists.")
     path.mkdir(parents=True, exist_ok=True)
     payload = {
         "components": [c.state_dict() if isinstance(c, nn.Module) else None

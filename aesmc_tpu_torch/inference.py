@@ -364,6 +364,9 @@ class _NoiseTape:
     def gumbel(self, shape):
         return self._draw("gumbel", shape)
 
+    def bits(self, shape):
+        return self._draw("bits", shape)
+
 
 def _where_rows(do, resampled, kept):
     """Per batch row: ``resampled`` where ``do``, else ``kept`` (tensors or
@@ -510,8 +513,8 @@ def _resample_step(prev_log_weight, values, noise, time, prev_latents,
                 log_sum[:, None] - out["nu"])
         out = out.get("latent")
     elif values is None:
-        idx = resampling._sample_indices(prev_log_weight, noise, method,
-                                         implementation)
+        idx = resampling.sample_indices(prev_log_weight, noise, method,
+                                        implementation)
         out = None
     else:
         idx, out = resampling._resample(prev_log_weight, noise, values,

@@ -1,7 +1,8 @@
 """Exact scalar Kalman filter (test oracle), in numpy float64.
 
 Counterpart of `aesmc_tpu.models.kalman` (`KalmanParams`,
-`kalman_filter`, `kalman_smoother`) for the scalar linear-Gaussian SSM
+`kalman_filter`, `kalman_smoother`, `kalman_em`) for the scalar
+linear-Gaussian SSM
 
     x_0 ~ N(mu_0, P_0)
     x_t = a x_{t-1} + b + N(0, Q)
@@ -87,3 +88,45 @@ def kalman_smoother(observations: Sequence[float], params: KalmanParams
         ms[t] = m[t] + gain * (ms[t + 1] - m_pred[t + 1])
         ps[t] = p[t] + gain * gain * (ps[t + 1] - p_pred[t + 1])
     return ms, ps
+
+
+def kalman_em(observations: Sequence[float],
+              params: KalmanParams,
+              num_iterations: int = 10,
+              em_vars: Tuple[str, ...] = (
+                  "transition_variance", "emission_variance",
+                  "initial_mean", "initial_variance")) -> KalmanParams:
+    """EM fitting of the scalar LGSSM's parameters named in ``em_vars``
+    (by default pykalman's set: the transition and emission variances and
+    the initial moments), from the smoothed moments of `kalman_smoother`.
+    Returns new parameters; ``params`` is left as it was."""
+    y = np.asarray(observations, dtype=np.float64).reshape(-1)
+    num_timesteps = y.shape[0]
+    params = dataclasses.replace(params)
+    for _ in range(num_iterations):
+        a, b = params.transition_mult, params.transition_offset
+        c, d = params.emission_mult, params.emission_offset
+        _, p, _, p_pred, _ = kalman_filter(y, params)
+        ms, ps = kalman_smoother(y, params)
+        # Smoothed lag-one covariances Cov(x_t, x_{t-1} | y), t >= 1.
+        cross = np.zeros(num_timesteps)
+        for t in range(1, num_timesteps):
+            cross[t] = p[t - 1] * a / p_pred[t] * ps[t]
+        e_xx = ps + ms ** 2                      # E[x_t^2]
+        e_xl = cross[1:] + ms[1:] * ms[:-1]      # E[x_t x_{t-1}]
+        updates = {}
+        if "initial_mean" in em_vars:
+            updates["initial_mean"] = float(ms[0])
+        if "initial_variance" in em_vars:
+            updates["initial_variance"] = float(max(ps[0], 1e-12))
+        if "transition_variance" in em_vars and num_timesteps > 1:
+            resid = (e_xx[1:] - 2.0 * a * e_xl - 2.0 * b * ms[1:] +
+                     a * a * e_xx[:-1] + 2.0 * a * b * ms[:-1] + b * b)
+            updates["transition_variance"] = float(
+                max(np.mean(resid), 1e-12))
+        if "emission_variance" in em_vars:
+            resid = (y ** 2 - 2.0 * c * y * ms - 2.0 * d * y +
+                     c * c * e_xx + 2.0 * c * d * ms + d * d)
+            updates["emission_variance"] = float(max(np.mean(resid), 1e-12))
+        params = dataclasses.replace(params, **updates)
+    return params

@@ -4,8 +4,11 @@ Counterpart of `aesmc_tpu.models.lgssm` (`Initial`, `Transition`,
 `Emission`, `Proposal`, and `Lookahead` for the auxiliary particle
 filter) with the same call contract: each component's `forward` returns
 a `distributions.Normal` tagged with its batch-shape mode (the
-lookahead its `[B, K]` log-scores). `from_numpy` builds the four modules from the JAX components' fields,
-so that both packages compute the same model in the tests.
+lookahead its `[B, K]` log-scores). `from_numpy` builds the four modules
+from the JAX components' fields, so that both packages compute the same
+model in the tests. `lgssm_true_posterior` is the exact smoothed
+posterior, and `TrainingStats` the training callback that tracks the
+parameters' and the proposal's distance to it.
 """
 
 from __future__ import annotations
@@ -18,8 +21,11 @@ import torch
 from torch import nn
 
 from .. import device as _device
+from .. import inference, statistics, train
 from ..distributions import Normal
+from ..noise import NoiseSource
 from ..state import BatchShapeMode
+from . import kalman
 
 
 def _param(x) -> nn.Parameter:
@@ -184,3 +190,101 @@ def from_numpy(params: dict, device=None):
         Proposal(prop["lin_0_weight"], prop["lin_0_bias"],
                  prop["lin_t_weight"], prop["lin_t_bias"],
                  prop["scale_0"], prop["scale_t"])))
+
+
+def lgssm_true_posterior(observations, initial_loc, initial_scale,
+                         transition_mult, transition_bias, transition_scale,
+                         emission_mult, emission_bias, emission_scale):
+    """The exact smoothed posterior of one observation sequence `[T]`, by
+    the RTS smoother (`kalman.kalman_smoother`, numpy float64): (means
+    `[T, 1]`, variances `[T, 1, 1]`), in pykalman's shapes."""
+    params = kalman.KalmanParams(
+        initial_mean=float(initial_loc),
+        initial_variance=float(initial_scale) ** 2,
+        transition_mult=float(transition_mult),
+        transition_offset=float(transition_bias),
+        transition_variance=float(transition_scale) ** 2,
+        emission_mult=float(emission_mult),
+        emission_offset=float(emission_bias),
+        emission_variance=float(emission_scale) ** 2)
+    means, variances = kalman.kalman_smoother(
+        np.asarray(observations, dtype=np.float64).reshape(-1), params)
+    return means[:, None], variances[:, None, None]
+
+
+class TrainingStats:
+    """`train.train` callback: every ``saving_interval`` iterations it
+    records ||theta - theta*|| of the (transition, emission) multipliers
+    and the mean L2 distance between the proposal's importance-sampled
+    posterior means and the exact smoother's on ``num_test_obs`` held-out
+    sequences; every ``logging_interval`` it prints the loss. Each record
+    reads the device.
+
+    The held-out data and the inference noise come from ``generator`` (a
+    `torch.Generator`, whose device is where the data and the noise live;
+    default a card generator seeded 42). On the CPU pass
+    ``generator=torch.Generator()``.
+    """
+
+    def __init__(self, initial_loc, initial_scale, true_transition_mult,
+                 transition_scale, true_emission_mult, emission_scale,
+                 num_timesteps, num_test_obs, test_inference_num_particles,
+                 saving_interval=100, logging_interval=100, generator=None,
+                 verbose: bool = True):
+        if generator is None:
+            generator = torch.Generator(device=_device.resolve())
+            generator.manual_seed(42)
+        device = generator.device
+        self.noise = NoiseSource(generator)
+        self.true_transition_mult = true_transition_mult
+        self.true_emission_mult = true_emission_mult
+        self.test_inference_num_particles = test_inference_num_particles
+        self.saving_interval = saving_interval
+        self.logging_interval = logging_interval
+        self.verbose = verbose
+        self.p_l2_history = []
+        self.q_l2_history = []
+        self.iteration_idx_history = []
+        self.initial = Initial(initial_loc, initial_scale).to(device)
+        self.true_transition = Transition(true_transition_mult,
+                                          transition_scale).to(device)
+        self.true_emission = Emission(true_emission_mult,
+                                      emission_scale).to(device)
+        dataloader = train.get_synthetic_dataloader(
+            self.initial, self.true_transition, self.true_emission,
+            num_timesteps, num_test_obs, noise=self.noise)
+        self.test_obs = next(iter(dataloader))          # [T, num_test_obs]
+        test_obs_np = self.test_obs.cpu().numpy()
+        self.true_posterior_means = np.stack([
+            lgssm_true_posterior(
+                test_obs_np[:, i], initial_loc, initial_scale,
+                true_transition_mult, 0.0, transition_scale,
+                true_emission_mult, 0.0, emission_scale)[0].reshape(-1)
+            for i in range(num_test_obs)], axis=0)      # [num_test_obs, T]
+
+    def _held_out_posterior_means(self, proposal):
+        with torch.no_grad():
+            result = inference.infer(
+                "is", self.test_obs, self.initial, self.true_transition,
+                self.true_emission, proposal,
+                self.test_inference_num_particles, noise=self.noise)
+        # latents [T, B, K] -> value [B, K, T] for empirical_mean.
+        value = result["latents"].permute(1, 2, 0)
+        return statistics.empirical_mean(value, result["log_weight"])
+
+    def __call__(self, epoch_idx, epoch_iteration_idx, loss, initial,
+                 transition, emission, proposal):
+        if epoch_iteration_idx % self.saving_interval == 0:
+            self.p_l2_history.append(float(np.linalg.norm(
+                np.array([float(transition.mult.detach()),
+                          float(emission.mult.detach())]) -
+                np.array([self.true_transition_mult,
+                          self.true_emission_mult]))))
+            posterior_means = self._held_out_posterior_means(
+                proposal).cpu().numpy()
+            self.q_l2_history.append(float(np.mean(np.linalg.norm(
+                self.true_posterior_means - posterior_means, axis=1))))
+            self.iteration_idx_history.append(epoch_iteration_idx)
+        if self.verbose and epoch_iteration_idx % self.logging_interval == 0:
+            print("Iteration {}: Loss = {}".format(
+                epoch_iteration_idx, float(loss)))

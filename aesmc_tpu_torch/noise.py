@@ -3,7 +3,7 @@
 The JAX package threads an explicit PRNG key and splits it per step
 (`aesmc_tpu.inference.infer` splits `key` into `(T, 2)` streams: stream 0
 resamples, stream 1 proposes). Here every draw goes through a
-`NoiseSource` instead, which hands out four kinds of noise:
+`NoiseSource` instead, which hands out five kinds of noise:
 
 - `uniform(shape)`: the resampling uniforms (`[B, 1]` systematic, `[B, K]`
   stratified and residual), and the uniforms in [0, 1) of `Laplace`,
@@ -16,7 +16,11 @@ resamples, stream 1 proposes). Here every draw goes through a
 - `gumbel(shape)`: standard Gumbel draws ``-log(-log(U))``, U uniform in
   (tiny, 1), for categorical and one-hot categorical samples, in the
   layout in which `jax.random.categorical` draws them (see
-  `state.sample`).
+  `state.sample`);
+- `bits(shape)`: uniform 32-bit words, as int64 in [0, 2^32), the draws
+  of `jax.random.bits(key, shape, uint32)`: the Sobol scrambles of
+  `sqmc`. They are int64 because PyTorch's uint32 has no shifts on the
+  CPU and int32's shift is arithmetic.
 
 The default source is backed by a `torch.Generator` on the card. Tests
 pass a source with the same methods that replays the reference's draws,
@@ -33,7 +37,8 @@ from . import device as _device
 
 
 class NoiseSource:
-    """Draws float32 noise from a `torch.Generator`, on its device."""
+    """Draws float32 noise (and int64 words) from a `torch.Generator`, on
+    its device."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -68,3 +73,8 @@ class NoiseSource:
         # diverges) by the smallest normal float32.
         u = self.uniform(shape).clamp_(min=torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
+
+    def bits(self, shape: Sequence[int]) -> torch.Tensor:
+        return torch.randint(0, 1 << 32, tuple(shape),
+                             generator=self.generator, device=self.device,
+                             dtype=torch.int64)

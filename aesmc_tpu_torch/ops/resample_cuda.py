@@ -48,7 +48,7 @@ from . import _launch, range_sum_cuda
 
 SOURCE = "resample_systematic.cu"
 
-_BELOW_ONE = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+BELOW_ONE = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
 
 # Kernel launches made by `resample_and_gather_systematic` in this process.
 LAUNCHES = 0
@@ -68,7 +68,7 @@ def systematic_positions(u: torch.Tensor, k: int) -> torch.Tensor:
         u = u[:, None]
     grid = u + torch.arange(k, dtype=torch.float32, device=u.device)
     kf = torch.full((), float(k), dtype=torch.float32, device=u.device)
-    return torch.clamp(grid / kf, max=_BELOW_ONE)
+    return torch.clamp(grid / kf, max=BELOW_ONE)
 
 
 def resample_and_gather_systematic_torch(cdf, u, value, emit_idx=True):

@@ -117,17 +117,23 @@ def resampling_positions(log_weight, noise, method: str = "systematic"):
         torch.cumsum(noise.exponential((batch_size, k + 1)), dim=-1),
         dim=-1).values
     return torch.clamp(s[:, :-1] / s[:, -1:],
-                       max=resample_cuda._BELOW_ONE)
+                       max=resample_cuda.BELOW_ONE)
+
+
+def inverse_cdf_indices(log_weight, pos):
+    """The slots `[B, Kp]` int32 of the positions ``pos`` `[B, Kp]` in the
+    normalized CDF of ``log_weight`` `[B, K]`: `torch.searchsorted` on the
+    right side, clamped to K - 1. The positions need not be sorted."""
+    cum = _normalized_cumsum(log_weight)
+    idx = torch.searchsorted(cum, pos.to(cum.dtype), right=True)
+    return idx.clamp_(max=log_weight.shape[-1] - 1).to(torch.int32)
 
 
 def _indices(log_weight, noise, method):
     if method == "residual":
         return residual_indices(log_weight, noise)
-    k = log_weight.shape[-1]
-    cum = _normalized_cumsum(log_weight)
-    pos = resampling_positions(log_weight, noise, method)
-    idx = torch.searchsorted(cum, pos, right=True)
-    return idx.clamp_(max=k - 1).to(torch.int32)
+    return inverse_cdf_indices(
+        log_weight, resampling_positions(log_weight, noise, method))
 
 
 def systematic_indices(log_weight, noise):
@@ -226,11 +232,14 @@ def sample_ancestral_index(log_weight, noise, method: str = "systematic",
     _check_nan_eager(log_weight)
     implementation = resolve_implementation(log_weight.device, method,
                                             implementation)
-    return _sample_indices(log_weight, noise, method, implementation)
+    return sample_indices(log_weight, noise, method, implementation)
 
 
-def _sample_indices(log_weight, noise, method, implementation):
-    """`sample_ancestral_index` without its checks (for `infer`'s loop)."""
+def sample_indices(log_weight, noise, method, implementation):
+    """`sample_ancestral_index` without its eager checks, for the filters'
+    time loops: ``implementation`` is already resolved ('torch' or
+    'cuda', by `resolve_implementation`), and nothing is read from the
+    device, so a loop that calls it can be captured in a CUDA graph."""
     log_weight = log_weight.detach()
     if implementation == "torch":
         return _indices(log_weight, noise, method)

@@ -11,6 +11,7 @@ Values are tensors or dicts of tensors. Sampling takes its noise from a
 
 from __future__ import annotations
 
+import copy
 import enum
 import warnings
 from typing import Optional
@@ -24,6 +25,19 @@ class BatchShapeMode(enum.Enum):
     NOT_EXPANDED = 0      # batch_shape is [...]
     BATCH_EXPANDED = 1    # batch_shape is [batch_size, ...]
     FULLY_EXPANDED = 2    # batch_shape is [batch_size, num_particles, ...]
+
+
+def set_batch_shape_mode(distribution, batch_shape_mode: BatchShapeMode):
+    """A copy of ``distribution`` tagged with an explicit mode (a dict of
+    distributions: each entry tagged). The original is left as it was, as
+    the JAX package's immutable distributions are; call sites write
+    ``d = set_batch_shape_mode(d, mode)``."""
+    if isinstance(distribution, dict):
+        return {k: set_batch_shape_mode(v, batch_shape_mode)
+                for k, v in distribution.items()}
+    tagged = copy.copy(distribution)
+    tagged.batch_shape_mode = batch_shape_mode
+    return tagged
 
 
 def get_batch_shape_mode(distribution,

@@ -188,7 +188,41 @@ Phases, in order; any failure raises and the exit code is not 0:
    ('diagonal', 'extended', 'unscented'): log-Z, ESS, ms a call eager and
    graphed, K1 at D = 8, 49 launches; the batched [8,192, 8, 8] Cholesky
    algebra; the EKF proposal on the linear LGSSM within 1e-5 of the exact
-   optimal proposal.
+   optimal proposal;
+22. the bouncing ball, the JAX bench's config 4
+   (`benchmarks/bench_extended.py:394-398`) at full width: (T, B, K) =
+   (64, 16, 256), 32 pixels, MLP hidden 64: one `infer` call launches K1
+   (D = 2) 63 times, its ancestors and log-Z equal to the plain (dense)
+   route's; the AESMC loss equal across routes, gradients within 1e-5
+   relative; one `make_train_step` step launches K1 and K2 63 times each;
+   `train_on_device` graphed, its first 8 steps bit-equal to eager steps;
+   ms a call or step, eager and graphed;
+23. SQMC, the JAX bench's row (`benchmarks/bench_extended.py:134-166`):
+   the LGSSM with its optimal proposal at (100, 1, 4,096): K3 alone at
+   (1, 4,096, 1) exact against its plain version and timed; one
+   `sqmc_infer` call launches K3 99 times (emit_idx off), ancestors and
+   log-Z equal to the torch route's; the d = 2 Hilbert path (two-word
+   keys at bits 16) likewise; one call captured in a CUDA graph (a replay
+   equals an eager call), beside plain `infer('smc')` graphed; over 20
+   scrambles the mean log-Z within 0.05 of the Kalman filter and plain
+   SMC's variance more than 20x SQMC's (`tests/test_sqmc.py:214-241`);
+24. particle Gibbs: the PGAS sweep of the JAX bench's row
+   (`benchmarks/bench_extended.py:438-460`, (50, 4, 256)) eager and
+   captured in a CUDA graph with the reference pinned inside it (a replay
+   equals an eager sweep; 20 chained replays); `particle_gibbs` at (15, 2,
+   64), 300 iterations, RMSE < 0.25 against the RTS smoother after 50
+   burn-in (`tests/test_csmc.py:91-111`); a 30-iteration PMMH chain at
+   K = 256 and its acceptance rate;
+25. the RBPF on the JAX bench's switching rows
+   (`benchmarks/bench_extended.py:94-131, 337-369`), (100, 10, 4,096),
+   Do = 1 and 4: systematic launches K1 (indices only) 99 times, stratified
+   K4 99 times, each equal to the torch route; a call graphed (a replay
+   equals an eager call); the enumeration oracle at K = 4,096 over 4
+   seeds (mean log-Z within 0.05, `tests/test_rbpf.py:173-191`) and the
+   Kalman equality on the u-independent problem at K = 1, 7 and 4,096
+   (`:57-64`); `_psd_inverse_small` against `distributions.cholesky` on
+   the Do = 4 row's [40,960, 4, 4] stack. Phases 22-25 print their
+   seconds.
 
 It prints a `{"kernels": [...]}` JSON line before the last, and, as the
 last line, `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -218,11 +252,13 @@ import torch
 
 from torch.utils import _pytree as pytree
 
-from aesmc_tpu_torch import (distributions, forecast, inference, losses,
-                             online, ot, proposals, resampling, smoothing,
-                             statistics, tmc, train, variance)
-from aesmc_tpu_torch.models import (hmm, kalman, kalman_nd, lgssm, lgssm_nd,
-                                    lorenz, vrnn)
+from aesmc_tpu_torch import (csmc, distributions, forecast, inference,
+                             losses, online, ot, proposals, rbpf,
+                             resampling, smoothing, sqmc, statistics, tmc,
+                             train, variance)
+from aesmc_tpu_torch import math as amath
+from aesmc_tpu_torch.models import (bouncing_ball, hmm, kalman, kalman_nd,
+                                    lgssm, lgssm_nd, lorenz, vrnn)
 from aesmc_tpu_torch.noise import NoiseSource
 from aesmc_tpu_torch.state import BatchShapeMode
 from aesmc_tpu_torch.ops import (_build, _launch, gather_sorted_cuda,
@@ -3707,6 +3743,644 @@ def lorenz_phase(dev):
         raise AssertionError(f"EKF proposal off: {loc_err}, {scale_err}")
 
 
+# Phases 22-25: slice D1 (the bouncing ball, SQMC, particle Gibbs, the
+# RBPF). Each prints its seconds.
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _graph_equal(label, call, noise, eager_calls=3, replays=5):
+    """Captures one call of ``call`` (a tensor or a tuple of tensors) in a
+    CUDA graph, checks a replay against an eager call from the same
+    generator state, and times eager calls and replays by CUDA events.
+    Returns (graph, the captured outputs, median eager ms, median replay
+    ms)."""
+    eager_ms = [_timed(call)[1] for _ in range(eager_calls)]
+    train._warm_up(call, 1)
+    graph, out = train._capture(call, noise.generator)
+    state = noise.generator.get_state()
+    graph.replay()
+    replayed = [x.clone() for x in _as_tuple(out)]
+    noise.generator.set_state(state)
+    eager = _as_tuple(call())
+    if not all(torch.equal(a, b) for a, b in zip(replayed, eager)):
+        raise AssertionError(f"{label}: the graphed call differs from an "
+                             f"eager call from the same generator state")
+    graph_ms = [_timed(graph.replay)[1] for _ in range(replays)]
+    eager_med, graph_med = (float(np.median(eager_ms)),
+                            float(np.median(graph_ms)))
+    print(f"{label}: eager {[round(x, 3) for x in eager_ms]} ms (median "
+          f"{eager_med:.3f}), graphed {[round(x, 3) for x in graph_ms]} ms "
+          f"(median {graph_med:.3f}); a replay equals an eager call from the "
+          f"same generator state", flush=True)
+    return graph, out, eager_med, graph_med
+
+
+def _phase_seconds(label, start):
+    print(f"phase {label} took {time.perf_counter() - start:.1f} s",
+          flush=True)
+
+
+# Phase 22: the JAX bench's config 4 (benchmarks/bench_extended.py:394-398)
+# at full width: 64-step sequences, 32 pixels, MLP hidden 64, K = 256.
+BB_T, BB_B, BB_K = 64, 16, 256
+BB_PIXELS, BB_HIDDEN = 32, 64
+# train_on_device: steps, and steps a block (the first block compared with
+# eager steps bit for bit, the later ones timed).
+BB_STEPS, BB_BLOCK = 32, 8
+
+
+def _bb_model(dev, seed):
+    return bouncing_ball.make_model(torch.Generator().manual_seed(seed),
+                                    num_pixels=BB_PIXELS, hidden=BB_HIDDEN,
+                                    device=dev)
+
+
+def bouncing_ball_phase(dev):
+    start = time.perf_counter()
+    phase(f"22 bouncing ball (config 4): (T, B, K) = ({BB_T}, {BB_B}, "
+          f"{BB_K}), {BB_PIXELS} pixels, MLP hidden {BB_HIDDEN}")
+    model = _bb_model(dev, 40)
+    with torch.no_grad():
+        _, obs = statistics.sample_from_prior(*model[:3], BB_T, BB_B,
+                                              NoiseSource.seeded(41, dev))
+
+    def call(impl, noise):
+        return inference.infer(
+            "smc", obs, *model, BB_K, noise=noise,
+            resampling_implementation=impl,
+            return_log_marginal_likelihood=True, return_latents=False,
+            return_ancestral_indices=True)
+
+    with torch.no_grad():
+        reset_counts()
+        out = call("auto", NoiseSource.seeded(42, dev))
+        counts = read_counts("bouncing ball infer")
+        if (counts["resample_systematic"] != BB_T - 1 or
+                sum(counts.values()) != BB_T - 1):
+            raise AssertionError(f"one bouncing-ball call launched {counts}")
+        plain = call("torch", NoiseSource.seeded(42, dev))
+        if not (torch.equal(out["ancestral_indices"],
+                            plain["ancestral_indices"]) and
+                torch.equal(out["log_marginal_likelihood"],
+                            plain["log_marginal_likelihood"])):
+            raise AssertionError("bouncing ball: the kernel route differs "
+                                 "from the plain route")
+        log_z = out["log_marginal_likelihood"]
+        if not bool(torch.isfinite(log_z).all()):
+            raise AssertionError(f"bouncing ball log-Z {log_z}")
+        ms = {"cuda": [], "torch": []}
+        for impl in ("torch", "cuda", "cuda", "torch"):
+            ms[impl] += [_timed(lambda: call(impl, NoiseSource.seeded(
+                43, dev)))[1] for _ in range(2)]
+    print(f"bouncing-ball filter: log-Z mean {float(log_z.mean()):.2f}; K1 "
+          f"(D = 2) {counts['resample_systematic']} launches; ancestors and "
+          f"log-Z equal on both routes; eager ms a call, kernel route "
+          f"{np.round(ms['cuda'], 3).tolist()}, plain route (dense) "
+          f"{np.round(ms['torch'], 3).tolist()}", flush=True)
+
+    _compare_routes(model, obs, BB_K, "systematic", 44, dev)
+    optimizer = torch.optim.Adam(train.get_chained_params(*model), lr=1e-3)
+    step = train.make_train_step(BB_K, "aesmc", optimizer)
+    reset_counts()
+    loss = step(model, obs, NoiseSource.seeded(45, dev))
+    counts = read_counts("bouncing ball train step")
+    if (counts["resample_systematic"], counts["range_sum"]) != (
+            BB_T - 1, BB_T - 1) or not bool(torch.isfinite(loss)):
+        raise AssertionError(f"one bouncing-ball train step launched "
+                             f"{counts}, loss {loss}")
+    step_ms = [_timed(lambda: step(model, obs, NoiseSource.seeded(
+        46, dev)))[1] for _ in range(4)]
+
+    # train_on_device graphed: its first block against eager steps.
+    gen = _bb_model(dev, 40)[:3]
+
+    def learner():
+        comps = _bb_model(dev, 47)
+        return comps, torch.optim.Adam(train.get_chained_params(*comps),
+                                       lr=1e-3, capturable=True)
+
+    comps, opt = learner()
+    timer = _BlockTimer()
+    reset_counts()
+    _, graphed = train.train_on_device(
+        *comps, BB_K, "aesmc", gen, BB_T, BB_B, BB_STEPS, optimizer=opt,
+        noise=NoiseSource.seeded(48, dev), steps_per_call=BB_BLOCK,
+        callback=timer)
+    counts = read_counts("bouncing ball graphed train (warm-up, capture)")
+    comps, opt = learner()
+    eager_step = train.make_train_step(BB_K, "aesmc", opt)
+    noise = NoiseSource.seeded(48, dev)
+    eager = []
+    for _ in range(BB_BLOCK):
+        with torch.no_grad():
+            _, step_obs = statistics.sample_from_prior(*gen, BB_T, BB_B,
+                                                       noise)
+        eager.append(eager_step(comps, step_obs, noise))
+    if not torch.equal(graphed[:BB_BLOCK], torch.stack(eager)):
+        raise AssertionError(f"graphed bouncing-ball steps differ from "
+                             f"eager: {graphed[:BB_BLOCK]} vs {eager}")
+    graph_ms = timer.ms_per_step()
+    print(f"bouncing-ball AESMC train step: K1 and K2 {BB_T - 1} launches "
+          f"each; eager make_train_step {np.round(step_ms, 3).tolist()} ms;"
+          f" train_on_device graphed {np.round(graph_ms, 3).tolist()} "
+          f"ms/step (blocks after the capture); its first {BB_BLOCK} steps "
+          f"bit-equal to eager steps; losses first block "
+          f"{float(graphed[:BB_BLOCK].mean()):.2f}, last "
+          f"{float(graphed[-BB_BLOCK:].mean()):.2f}", flush=True)
+    _phase_seconds("22", start)
+
+
+# Phase 23: the JAX bench's SQMC row (benchmarks/bench_extended.py:134-166):
+# the LGSSM x' = 0.9 x + N(0, 1), y = x + N(0, 0.5) with its optimal
+# proposal at (T, B, K) = (100, 1, 4,096); 20 scrambles for the oracle of
+# tests/test_sqmc.py:214-241.
+SQMC_T, SQMC_B, SQMC_K = 100, 1, 4096
+SQMC_A, SQMC_Q, SQMC_EM, SQMC_R = 0.9, 1.0, 1.0, 0.5
+SQMC_2D_T = 50
+SQMC_SCRAMBLES, SQMC_BIAS_TOL, SQMC_VARIANCE_RATIO = 20, 0.05, 20.0
+
+
+def _sqmc_k3(dev):
+    """K3 alone at the SQMC step's shape (1, 4,096, 1): the Hilbert-sorted
+    CDF, the sorted first Sobol coordinate and the permutation column."""
+    generator = torch.Generator(device=dev).manual_seed(55)
+    noise = NoiseSource(generator)
+    u_first = torch.sort(sqmc.sobol_points(
+        SQMC_K, 2, noise, batch_shape=(SQMC_B,))[..., 0], dim=-1).values
+    logw = torch.randn(SQMC_B, SQMC_K, generator=generator, device=dev)
+    sigma = sqmc.hilbert_sort_indices(torch.randn(
+        SQMC_B, SQMC_K, generator=generator, device=dev))
+    cdf = sqmc._sorted_cdf(logw * 2.0, sigma)
+    value = sigma.to(torch.float32)[..., None]
+    for emit_idx in (True, False):
+        idx, out = resample_sorted_cuda.resample_and_gather_sorted(
+            cdf, u_first, value, emit_idx)
+        want_idx, want = resample_sorted_cuda.resample_and_gather_sorted_torch(
+            cdf, u_first, value, emit_idx)
+        if not torch.equal(out, want) or (emit_idx and
+                                          not torch.equal(idx, want_idx)):
+            raise AssertionError("K3 at the SQMC shape differs from its "
+                                 "plain version")
+
+    def kernel():
+        return resample_sorted_cuda.resample_and_gather_sorted(
+            cdf, u_first, value, False)
+
+    def plain():
+        return resample_sorted_cuda.resample_and_gather_sorted_torch(
+            cdf, u_first, value, False)
+
+    ms, plain_ms, _, _ = _time_pair(kernel, plain)
+    device_ms = _device_ms(kernel, KERNELS["resample_sorted"][2])
+    bound_ms, bound_by = _bound(4 * 4 * SQMC_K * SQMC_B,
+                                SQMC_B * SQMC_K * _search_steps(SQMC_K))
+    print(f"K3 at the SQMC shape ({SQMC_B}, {SQMC_K:,}, 1), emit_idx off: "
+          f"exact against its plain version (tolerance 0); {ms * 1e3:.2f} us"
+          f" a call by CUDA events, device {_us(device_ms)} a launch, plain "
+          f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
+          f"({bound_by}); no single library call computes it", flush=True)
+
+
+@torch.no_grad()
+def sqmc_phase(dev):
+    start = time.perf_counter()
+    phase(f"23 SQMC: the LGSSM with its optimal proposal, (T, B, K) = "
+          f"({SQMC_T}, {SQMC_B}, {SQMC_K:,}); the d = 2 Hilbert path")
+    _sqmc_k3(dev)
+    q_scale, r_scale = math.sqrt(SQMC_Q), math.sqrt(SQMC_R)
+    comps = (lgssm.Initial(0.0, 1.0),
+             lgssm.Transition(SQMC_A, q_scale).to(dev),
+             lgssm.Emission(SQMC_EM, r_scale).to(dev),
+             lgssm.optimal_proposal(0.0, 1.0, SQMC_A, q_scale, SQMC_EM,
+                                    r_scale).to(dev))
+    _, obs = statistics.sample_from_prior(*comps[:3], SQMC_T, SQMC_B,
+                                          NoiseSource.seeded(50, dev))
+    exact = kalman.kalman_filter(obs[:, 0].cpu().numpy(), kalman.KalmanParams(
+        0.0, 1.0, SQMC_A, 0.0, SQMC_Q, SQMC_EM, 0.0, SQMC_R))[4]
+
+    def sqmc_call(noise, impl="auto", **kwargs):
+        return sqmc.sqmc_infer(
+            obs, *comps, SQMC_K, noise=noise, resampling_implementation=impl,
+            return_log_marginal_likelihood=True, return_latents=False,
+            return_log_weight=False, **kwargs)
+
+    reset_counts()
+    out = sqmc_call(NoiseSource.seeded(51, dev),
+                    return_ancestral_indices=True)
+    counts = read_counts("sqmc")
+    if (counts["resample_sorted"] != SQMC_T - 1 or
+            sum(counts.values()) != SQMC_T - 1):
+        raise AssertionError(f"one SQMC call launched {counts}")
+    plain = sqmc_call(NoiseSource.seeded(51, dev), "torch",
+                      return_ancestral_indices=True)
+    if not (torch.equal(out["ancestral_indices"],
+                        plain["ancestral_indices"]) and
+            torch.equal(out["log_marginal_likelihood"],
+                        plain["log_marginal_likelihood"])):
+        raise AssertionError("SQMC: the K3 route differs from the torch "
+                             "route")
+    print(f"SQMC: K3 {counts['resample_sorted']} launches, emit_idx off; "
+          f"ancestors and log-Z equal to the torch route's; log-Z "
+          f"{float(out['log_marginal_likelihood'][0]):.4f}, Kalman "
+          f"{exact:.4f}", flush=True)
+
+    # The d = 2 path: two-word Hilbert keys at bits = 16.
+    nd = lgssm_nd.make_model(dim=2, emission_scale=0.5, device=dev)
+    optimal = lgssm_nd.optimal_proposal(*nd[:3])
+    _, obs2 = statistics.sample_from_prior(*nd[:3], SQMC_2D_T, SQMC_B,
+                                           NoiseSource.seeded(52, dev))
+    runs = {}
+    for impl in ("cuda", "torch"):
+        reset_counts()
+        runs[impl] = sqmc.sqmc_infer(
+            obs2, *nd[:3], optimal, SQMC_K, noise=NoiseSource.seeded(53, dev),
+            hilbert_bits=16, resampling_implementation=impl,
+            return_log_marginal_likelihood=True, return_latents=False,
+            return_ancestral_indices=True)
+        if impl == "cuda":
+            counts = read_counts("sqmc d=2")
+    if counts["resample_sorted"] != SQMC_2D_T - 1 or not (
+            torch.equal(runs["cuda"]["ancestral_indices"],
+                        runs["torch"]["ancestral_indices"]) and
+            torch.equal(runs["cuda"]["log_marginal_likelihood"],
+                        runs["torch"]["log_marginal_likelihood"])):
+        raise AssertionError(f"SQMC d = 2: launches {counts}, or the routes "
+                             f"differ")
+    exact2 = kalman_nd.kalman_filter_nd(obs2[:, 0].cpu().numpy(),
+                                        lgssm_nd.kalman_params(*nd[:3]))[4]
+    print(f"SQMC d = 2 (T = {SQMC_2D_T}, two-word keys at bits 16): K3 "
+          f"{counts['resample_sorted']} launches, routes equal; log-Z "
+          f"{float(runs['cuda']['log_marginal_likelihood'][0]):.4f}, Kalman "
+          f"{exact2:.4f}", flush=True)
+
+    # Graphed, beside plain SMC at the same shape; the oracle over
+    # scrambles from the replays (each replay draws fresh noise).
+    noise = NoiseSource.seeded(54, dev)
+    graph, log_z, sqmc_eager, sqmc_graph = _graph_equal(
+        "SQMC call", lambda: sqmc_call(noise)["log_marginal_likelihood"],
+        noise)
+    zq = []
+    for _ in range(SQMC_SCRAMBLES):
+        graph.replay()
+        zq.append(float(log_z[0]))
+    del graph
+    smc_noise = NoiseSource.seeded(56, dev)
+    graph, smc_log_z, smc_eager, smc_graph = _graph_equal(
+        "plain SMC call at the same shape", lambda: inference.infer(
+            "smc", obs, *comps, SQMC_K, noise=smc_noise,
+            return_log_marginal_likelihood=True, return_latents=False,
+            return_log_weight=False)["log_marginal_likelihood"], smc_noise)
+    zm = []
+    for _ in range(SQMC_SCRAMBLES):
+        graph.replay()
+        zm.append(float(smc_log_z[0]))
+    del graph
+    zq, zm = np.asarray(zq), np.asarray(zm)
+    bias, ratio = abs(zq.mean() - exact), zm.var() / zq.var()
+    print(f"SQMC over {SQMC_SCRAMBLES} scrambles: mean log-Z {zq.mean():.4f}"
+          f" (Kalman {exact:.4f}, |bias| {bias:.4f}, bound "
+          f"{SQMC_BIAS_TOL}), std {zq.std():.4f}; plain SMC std "
+          f"{zm.std():.4f}; variance ratio {ratio:.1f} (bound > "
+          f"{SQMC_VARIANCE_RATIO}); ms a call, SQMC eager {sqmc_eager:.3f} "
+          f"graphed {sqmc_graph:.3f}, SMC eager {smc_eager:.3f} graphed "
+          f"{smc_graph:.3f}", flush=True)
+    if not (bias < SQMC_BIAS_TOL and ratio > SQMC_VARIANCE_RATIO):
+        raise AssertionError(f"SQMC oracle: bias {bias}, ratio {ratio}")
+    _phase_seconds("23", start)
+
+
+# Phase 24: the JAX bench's PGAS row (benchmarks/bench_extended.py:438-460)
+# and the chain of tests/test_csmc.py:91-111.
+PG_T, PG_B, PG_K = 50, 4, 256
+PG_CHAIN_T, PG_CHAIN_B, PG_CHAIN_K = 15, 2, 64
+PG_ITERATIONS, PG_BURN_IN, PG_RMSE_TOL = 300, 50, 0.25
+PG_GRAPH_SWEEPS = 20
+PMMH_K, PMMH_ITERATIONS = 256, 30
+
+
+# The proposal of the JAX bench's row and test, `lgssm.Proposal.create(1.0,
+# 1.0, PRNGKey(0))`: its fields, copied (the port draws another random
+# init from a torch.Generator; one with negative weights on x_{t-1} and
+# y_t mixes as badly in the JAX package as in the port).
+PG_PROPOSAL = dict(lin_0_weight=0.68462825, lin_0_bias=-0.98541236,
+                   lin_t_weight=[0.5691495, 0.5830701],
+                   lin_t_bias=-0.32952663, scale_0=1.0, scale_t=1.0)
+
+
+def _pg_components(dev, emission_scale):
+    return (lgssm.Initial(0.0, 1.0),
+            lgssm.Transition(0.9, 1.0).to(dev),
+            lgssm.Emission(1.0, emission_scale).to(dev),
+            lgssm.Proposal(**PG_PROPOSAL).to(dev))
+
+
+@torch.no_grad()
+def particle_gibbs_phase(dev):
+    start = time.perf_counter()
+    phase(f"24 particle Gibbs: the PGAS sweep at (T, B, K) = ({PG_T}, "
+          f"{PG_B}, {PG_K}); the chain at ({PG_CHAIN_T}, {PG_CHAIN_B}, "
+          f"{PG_CHAIN_K}) against RTS; PMMH at K = {PMMH_K}")
+    comps = _pg_components(dev, 0.2)
+    lat, obs_sweep = statistics.sample_from_prior(
+        *comps[:3], PG_T, PG_B, NoiseSource.seeded(60, dev))
+    ref = lat.clone()
+    noise = NoiseSource.seeded(61, dev)
+
+    def sweep():
+        return csmc.particle_gibbs_step(ref, obs_sweep, *comps, PG_K, noise,
+                                        ancestor_sampling=True)
+
+    reset_counts()
+    sweep()
+    read_counts("pgas sweep")
+    graph, (new_ref, _), eager_ms, graph_ms = _graph_equal(
+        "PGAS sweep (the reference pinned inside the graph)", sweep, noise)
+    # A chain of replays: each copies its new reference into the input.
+    for _ in range(PG_GRAPH_SWEEPS):
+        graph.replay()
+        ref.copy_(new_ref)
+    del graph
+    if not bool(torch.isfinite(ref).all()):
+        raise AssertionError("the graphed PGAS chain is not finite")
+    print(f"PGAS sweep: {eager_ms:.3f} ms eager, {graph_ms:.3f} ms graphed "
+          f"= {1e3 / graph_ms:.1f} sweeps/s; {PG_GRAPH_SWEEPS} chained "
+          f"replays finite", flush=True)
+
+    chain_comps = _pg_components(dev, 0.5)
+    _, obs = statistics.sample_from_prior(*chain_comps[:3], PG_CHAIN_T,
+                                          PG_CHAIN_B,
+                                          NoiseSource.seeded(62, dev))
+    reset_counts()
+    (trajs, lmls), chain_ms = _timed(lambda: csmc.particle_gibbs(
+        obs, *chain_comps, PG_CHAIN_K, PG_ITERATIONS,
+        noise=NoiseSource.seeded(63, dev)))
+    counts = read_counts("particle_gibbs (initial reference)")
+    if counts["resample_systematic"] != PG_CHAIN_T - 1:
+        raise AssertionError(f"the initial reference launched {counts}")
+    pg_mean = trajs[PG_BURN_IN:].mean(dim=0).cpu().numpy()       # [T, B]
+    params = kalman.KalmanParams(0.0, 1.0, 0.9, 0.0, 1.0, 1.0, 0.0, 0.25)
+    obs_np = obs.cpu().numpy()
+    exact = np.stack([kalman.kalman_smoother(obs_np[:, b], params)[0]
+                      for b in range(PG_CHAIN_B)], axis=1)
+    rmse = float(np.sqrt(np.mean((pg_mean - exact) ** 2)))
+    print(f"particle Gibbs, {PG_ITERATIONS} PGAS iterations in "
+          f"{chain_ms:.0f} ms eager: RMSE against the RTS smoother after "
+          f"{PG_BURN_IN} burn-in {rmse:.4f} (bound {PG_RMSE_TOL}); log-Z "
+          f"finite {bool(torch.isfinite(lmls).all())}", flush=True)
+    if not (rmse < PG_RMSE_TOL and bool(torch.isfinite(lmls).all())):
+        raise AssertionError(f"particle Gibbs RMSE {rmse}")
+
+    # PMMH on the transition's multiplier, on the sweep's data.
+    def build(theta):
+        def transition(previous_latents=None, time=None,
+                       previous_observations=None):
+            return distributions.Normal(
+                theta["mult"] * previous_latents[-1], 1.0,
+                batch_shape_mode=BatchShapeMode.FULLY_EXPANDED)
+        return comps[0], transition, comps[2], comps[3]
+
+    reset_counts()
+    (thetas, lps, rate), pmmh_ms = _timed(lambda: csmc.pmmh(
+        obs_sweep, build, {"mult": 0.5},
+        lambda theta: -0.5 * theta["mult"] ** 2, PMMH_K, PMMH_ITERATIONS,
+        noise=NoiseSource.seeded(64, dev), step_size=0.05))
+    read_counts("pmmh")
+    print(f"PMMH, {PMMH_ITERATIONS} iterations at K = {PMMH_K} on the "
+          f"sweep's data: acceptance rate {float(rate):.3f}, multiplier "
+          f"{float(thetas['mult'][-1]):.3f} (truth 0.9), {pmmh_ms:.0f} ms "
+          f"eager", flush=True)
+    if not bool(torch.isfinite(lps).all()):
+        raise AssertionError(f"PMMH log posteriors {lps}")
+    _phase_seconds("24", start)
+
+
+# Phase 25: the JAX bench's two switching rows
+# (benchmarks/bench_extended.py:94-131, 337-369): 2 regimes, D = 2, Do = 1
+# and Do = 4 (the Schur solve), (T, B, K) = (100, 10, 4,096); the oracles
+# of tests/test_rbpf.py:57-64 and :173-191.
+RBPF_T, RBPF_B, RBPF_K, RBPF_D = 100, 10, 4096, 2
+RBPF_ENUM_T, RBPF_ENUM_SEEDS, RBPF_ENUM_TOL = 8, 4, 0.05
+RBPF_KALMAN_RTOL = 1e-3
+# `_psd_inverse_small` against float64 `linalg.inv`/`slogdet` of the same
+# float32 stack, with the JAX function's bounds (tests/test_rbpf.py:323).
+RBPF_INV_RTOL, RBPF_INV_ATOL = 2e-4, 2e-5
+RBPF_LOGDET_RTOL, RBPF_LOGDET_ATOL = 2e-6, 2e-6
+_SW = dict(pi0=np.array([0.6, 0.4]),
+           pmat=np.array([[0.85, 0.15], [0.3, 0.7]]),
+           a_by_regime=np.array([0.95, 0.2]), qvar=1.0, cmat=1.0,
+           rvar=0.25, m0=0.0, p0=2.0)
+
+
+def _f32(x, dev):
+    return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+
+def _bench_switching(dev, do):
+    c = ([[1.0, 0.5]] if do == 1 else
+         [[1.0, 0.5], [0.3, 1.0], [0.0, 0.8], [0.6, 0.1]])
+    r = [[0.09]] if do == 1 else 0.09 * np.eye(4) + 0.01 * np.ones((4, 4))
+    pi0, pmat = _f32(np.log([0.6, 0.4]), dev), _f32(
+        np.log([[0.85, 0.15], [0.3, 0.7]]), dev)
+    a_by, a_mat = _f32([0.95, 0.2], dev), _f32([[1.0, 0.1], [0.0, 1.0]], dev)
+    zeros, eye, q = (_f32(np.zeros(RBPF_D), dev), _f32(np.eye(RBPF_D), dev),
+                     _f32(0.5 * np.eye(RBPF_D), dev))
+    c, d, r = _f32(c, dev), _f32(np.zeros(do), dev), _f32(r, dev)
+    return dict(
+        initial=lambda: distributions.Categorical(logits=pi0),
+        transition=lambda previous_latents, time: distributions.Categorical(
+            logits=amath.table_lookup(pmat, previous_latents[0])),
+        linear_initial=lambda u0: (zeros, eye),
+        linear_dynamics=lambda u, time: (
+            amath.table_lookup(a_by, u)[..., None, None] * a_mat, zeros, q),
+        linear_emission=lambda u, time: (c, d, r))
+
+
+def _enumeration_problem(dev):
+    """tests/test_rbpf.py's switching problem (T = 8, B = 1, D = 1) and its
+    exact log-Z by summing all 2^T regime paths."""
+    rng = np.random.default_rng(7)
+    y = np.zeros(RBPF_ENUM_T)
+    u = rng.choice(2, p=_SW["pi0"])
+    x = rng.normal(_SW["m0"], np.sqrt(_SW["p0"]))
+    for t in range(RBPF_ENUM_T):
+        if t > 0:
+            u = rng.choice(2, p=_SW["pmat"][u])
+            x = _SW["a_by_regime"][u] * x + rng.normal(0.0,
+                                                       np.sqrt(_SW["qvar"]))
+        y[t] = _SW["cmat"] * x + rng.normal(0.0, np.sqrt(_SW["rvar"]))
+    log_joint = []
+    for bits in range(2 ** RBPF_ENUM_T):
+        path = [(bits >> t) & 1 for t in range(RBPF_ENUM_T)]
+        lp = np.log(_SW["pi0"][path[0]]) + sum(
+            np.log(_SW["pmat"][path[t - 1], path[t]])
+            for t in range(1, RBPF_ENUM_T))
+        m, p, ll = _SW["m0"], _SW["p0"], 0.0
+        for t in range(RBPF_ENUM_T):
+            if t > 0:
+                a = _SW["a_by_regime"][path[t]]
+                m, p = a * m, a * a * p + _SW["qvar"]
+            s = _SW["cmat"] ** 2 * p + _SW["rvar"]
+            innov = y[t] - _SW["cmat"] * m
+            ll += -0.5 * (np.log(2 * np.pi * s) + innov ** 2 / s)
+            gain = p * _SW["cmat"] / s
+            m, p = m + gain * innov, (1.0 - gain * _SW["cmat"]) * p
+        log_joint.append(lp + ll)
+    log_joint = np.asarray(log_joint)
+    peak = log_joint.max()
+    exact = peak + np.log(np.exp(log_joint - peak).sum())
+    pi0, pmat = _f32(np.log(_SW["pi0"]), dev), _f32(np.log(_SW["pmat"]), dev)
+    a_r = _f32(_SW["a_by_regime"], dev)
+    comps = dict(
+        initial=lambda: distributions.Categorical(logits=pi0),
+        transition=lambda previous_latents, time: distributions.Categorical(
+            logits=amath.table_lookup(pmat, previous_latents[0])),
+        linear_initial=lambda u0: (torch.full(u0.shape + (1,), _SW["m0"],
+                                              device=dev),
+                                   torch.full(u0.shape + (1, 1), _SW["p0"],
+                                              device=dev)),
+        linear_dynamics=lambda u, time: (
+            amath.table_lookup(a_r, u)[..., None, None],
+            torch.zeros(1, device=dev),
+            torch.full((1, 1), _SW["qvar"], device=dev)),
+        linear_emission=lambda u, time: (
+            torch.full((1, 1), _SW["cmat"], device=dev),
+            torch.zeros(1, device=dev),
+            torch.full((1, 1), _SW["rvar"], device=dev)))
+    return _f32(y[:, None, None], dev), comps, float(exact)
+
+
+def _u_independent(dev):
+    """tests/test_rbpf.py's oracle problem: linear parameters that do not
+    depend on u; its exact Kalman log-Z a row."""
+    rng = np.random.default_rng(2)
+    a = np.array([[0.9, 0.1], [0.0, 0.8]])
+    q, c, r = 0.5 * np.eye(2), np.array([[1.0, 0.5]]), np.array([[0.09]])
+    obs = np.zeros((15, 3, 1))
+    for b in range(3):
+        x = rng.multivariate_normal(np.zeros(2), np.eye(2))
+        for t in range(15):
+            if t > 0:
+                x = a @ x + rng.multivariate_normal(np.zeros(2), q)
+            obs[t, b] = c @ x + rng.multivariate_normal(np.zeros(1), r)
+    params = kalman_nd.KalmanNdParams(np.zeros(2), np.eye(2), a, q, c, r)
+    exact = np.array([kalman_nd.kalman_filter_nd(obs[:, b], params)[4]
+                      for b in range(3)])
+    comps = dict(
+        initial=lambda: distributions.Normal(0.0, 1.0),
+        transition=lambda previous_latents, time: distributions.Normal(
+            0.5 * previous_latents[0], 1.0),
+        linear_initial=lambda u0: (_f32(np.zeros(2), dev),
+                                   _f32(np.eye(2), dev)),
+        linear_dynamics=lambda u, time: (_f32(a, dev), _f32(np.zeros(2), dev),
+                                         _f32(q, dev)),
+        linear_emission=lambda u, time: (_f32(c, dev), _f32(np.zeros(1), dev),
+                                         _f32(r, dev)))
+    return _f32(obs, dev), comps, exact
+
+
+@torch.no_grad()
+def rbpf_phase(dev):
+    start = time.perf_counter()
+    phase(f"25 RBPF: the bench's switching rows, (T, B, K) = ({RBPF_T}, "
+          f"{RBPF_B}, {RBPF_K:,}), D = {RBPF_D}, Do = 1 and 4")
+    for do in (1, 4):
+        obs = torch.randn(RBPF_T, RBPF_B, do,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              70 + do), device=dev)
+        comps = _bench_switching(dev, do)
+
+        def call(noise, method="systematic", impl="auto"):
+            out = rbpf.rbpf(obs, num_particles=RBPF_K, noise=noise,
+                            resampling_method=method,
+                            resampling_implementation=impl, **comps)
+            return out["log_marginal_likelihood"], out["nonlinear_latents"]
+
+        for method, kernel in (("systematic", "resample_systematic"),
+                               ("stratified", "searchsorted_sorted")):
+            reset_counts()
+            got = call(NoiseSource.seeded(71, dev), method)
+            counts = read_counts(f"rbpf Do={do} {method}")
+            if (counts[kernel] != RBPF_T - 1 or
+                    sum(counts.values()) != RBPF_T - 1):
+                raise AssertionError(f"rbpf {method} launched {counts}")
+            want = call(NoiseSource.seeded(71, dev), method, "torch")
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"rbpf Do={do} {method}: the routes "
+                                     f"differ")
+        noise = NoiseSource.seeded(72, dev)
+        graph, (log_z, _), eager_ms, graph_ms = _graph_equal(
+            f"RBPF Do={do} systematic call", lambda: call(noise), noise)
+        del graph
+        print(f"RBPF Do = {do}: systematic K1 (indices only) and stratified "
+              f"K4 {RBPF_T - 1} launches a call, each equal to the torch "
+              f"route; log-Z mean {float(log_z.mean()):.3f}; {eager_ms:.3f} "
+              f"ms eager, {graph_ms:.3f} ms graphed = "
+              f"{RBPF_B * RBPF_K * RBPF_T / graph_ms / 1e3:.1f} M "
+              f"particle-steps/s", flush=True)
+
+    obs, comps, exact = _enumeration_problem(dev)
+    lzs = [float(rbpf.rbpf(obs, num_particles=RBPF_K,
+                           noise=NoiseSource.seeded(73 + s, dev),
+                           **comps)["log_marginal_likelihood"][0])
+           for s in range(RBPF_ENUM_SEEDS)]
+    err = abs(np.mean(lzs) - exact)
+    print(f"RBPF against enumeration of the 2^{RBPF_ENUM_T} regime paths at "
+          f"K = {RBPF_K:,} over {RBPF_ENUM_SEEDS} seeds: mean log-Z "
+          f"{np.mean(lzs):.4f}, exact {exact:.4f}, error {err:.4f} (bound "
+          f"{RBPF_ENUM_TOL})", flush=True)
+    obs, comps, exact = _u_independent(dev)
+    rels = []
+    for k in (1, 7, RBPF_K):
+        out = rbpf.rbpf(obs, num_particles=k,
+                        noise=NoiseSource.seeded(k, dev), **comps)
+        rels.append(float(np.max(np.abs(
+            out["log_marginal_likelihood"].cpu().numpy() - exact) /
+            np.abs(exact))))
+    print(f"RBPF on the u-independent problem: log-Z against the Kalman "
+          f"filter, max relative error at K = 1, 7, {RBPF_K:,}: "
+          f"{[f'{x:.2e}' for x in rels]} (bound {RBPF_KALMAN_RTOL})",
+          flush=True)
+    if not (err < RBPF_ENUM_TOL and max(rels) < RBPF_KALMAN_RTOL):
+        raise AssertionError(f"RBPF oracles: {err}, {rels}")
+
+    # The innovation solve at the Do = 4 row's stack, [B K, 4, 4].
+    generator = torch.Generator(device=dev).manual_seed(76)
+    a = torch.randn(RBPF_B * RBPF_K, 4, 4, generator=generator, device=dev)
+    s = a @ a.transpose(1, 2) + 4.0 * torch.eye(4, device=dev)
+    eye = torch.eye(4, device=dev).expand(s.shape)
+    log_det, inv = rbpf._psd_inverse_small(s)
+    chol = distributions.cholesky(s)
+    err = float((inv - torch.cholesky_solve(eye, chol)).abs().max())
+    want_inv = torch.linalg.inv(s.double())
+    want_log_det = torch.linalg.slogdet(s.double()).logabsdet
+    inv_excess = float(((inv.double() - want_inv).abs() - RBPF_INV_ATOL -
+                        RBPF_INV_RTOL * want_inv.abs()).max())
+    log_det_excess = float(((log_det.double() - want_log_det).abs() -
+                            RBPF_LOGDET_ATOL -
+                            RBPF_LOGDET_RTOL * want_log_det.abs()).max())
+    print(f"_psd_inverse_small at [{RBPF_B * RBPF_K}, 4, 4] against float64 "
+          f"linalg: inverse within rtol {RBPF_INV_RTOL} + atol "
+          f"{RBPF_INV_ATOL} (largest excess {inv_excess:.3e}), log-det "
+          f"within rtol {RBPF_LOGDET_RTOL} + atol {RBPF_LOGDET_ATOL} "
+          f"(largest excess {log_det_excess:.3e})", flush=True)
+    if not (inv_excess <= 0.0 and log_det_excess <= 0.0):
+        raise AssertionError(f"_psd_inverse_small: inverse excess "
+                             f"{inv_excess}, log-det excess {log_det_excess}")
+    pieces = {"_psd_inverse_small (Schur, closed forms)":
+              lambda: rbpf._psd_inverse_small(s),
+              "distributions.cholesky (cholesky_ex)":
+              lambda: distributions.cholesky(s),
+              "cholesky + cholesky_solve (the Do > 8 branch)":
+              lambda: torch.cholesky_solve(eye, distributions.cholesky(s))}
+    print(f"innovation solve at [{RBPF_B * RBPF_K}, 4, 4] (inverses agree "
+          f"within {err:.2e}): " + "; ".join(
+              f"{label} {_cuda_ms(fn, 3, 20):.4f} ms"
+              for label, fn in pieces.items()), flush=True)
+    _phase_seconds("25", start)
+
+
 def _build_other(other, sources):
     """Builds each of ``sources`` from directory ``other`` with `_build`'s
     flags, one nvcc each, all started together, into `compare/` of the
@@ -3855,6 +4529,10 @@ def main():
     serving_phase(dev)
     ot_phase(dev)
     lorenz_phase(dev)
+    bouncing_ball_phase(dev)
+    sqmc_phase(dev)
+    particle_gibbs_phase(dev)
+    rbpf_phase(dev)
     kernels = []
     for name, (module, _, _, replaces) in KERNELS.items():
         launches = sum(LAUNCHES[name].values())

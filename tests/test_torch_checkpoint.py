@@ -117,3 +117,23 @@ def test_interval_and_restore(tmp_path, monkeypatch):
     bad = checkpoint.TrainState(_learner()[:3], optimizer, noise)
     with pytest.raises(ValueError, match="components"):
         checkpoint.restore(tmp_path, bad)
+
+
+def test_save_force_false_refuses_an_existing_path(tmp_path):
+    """`save(..., force=False)` raises ValueError on an existing path, as
+    the JAX package's orbax checkpointer does, and leaves the checkpoint
+    there as it was; the default (force=True) overwrites it."""
+    comps = _learner()
+    optimizer = train._default_optimizer(comps)
+    noise = NoiseSource.seeded(1, CPU)
+    path = tmp_path / "ckpt"
+    checkpoint.save(path, checkpoint.TrainState(comps, optimizer, noise, 3),
+                    force=False)
+    with pytest.raises(ValueError, match="already exists"):
+        checkpoint.save(path, checkpoint.TrainState(comps, optimizer, noise,
+                                                    4), force=False)
+    assert checkpoint.restore(path, checkpoint.TrainState(
+        _learner(), optimizer, noise)).step == 3
+    checkpoint.save(path, checkpoint.TrainState(comps, optimizer, noise, 5))
+    assert checkpoint.restore(path, checkpoint.TrainState(
+        _learner(), optimizer, noise)).step == 5

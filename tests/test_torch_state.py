@@ -6,6 +6,8 @@ within 1e-6: both sides compute the same float32 expressions, and exp/log
 may differ in the last bits between the two libraries.
 """
 
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -187,3 +189,37 @@ def test_normal_with_python_number_parameters():
     assert torch.equal(distributions.Normal(0.3, 0.7).rsample((B, K),
                                                               _t(eps)),
                        0.3 + torch.tensor(0.7) * _t(eps))
+
+
+@pytest.mark.parametrize("mode", list(state.BatchShapeMode))
+def test_set_batch_shape_mode_tags_a_copy_like_jax(mode):
+    """`set_batch_shape_mode` returns a tagged copy (the original keeps its
+    tag, as the JAX package's immutable distributions do), recurses into
+    dicts, and the tag is what `get_batch_shape_mode` then reads, with no
+    inference warning; the JAX function gives the same modes."""
+    loc = np.random.RandomState(4).randn(B, K).astype(np.float32)
+    port = distributions.Normal(_t(loc), 1.0)
+    tagged = state.set_batch_shape_mode({"x": port, "y": {"z": port}}, mode)
+    assert port.batch_shape_mode is None
+    assert tagged["x"] is not port and tagged["y"]["z"] is not port
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = [state.get_batch_shape_mode(d, B, K)
+               for d in (tagged["x"], tagged["y"]["z"])]
+    jax_tagged = jax_state.set_batch_shape_mode(
+        {"x": jax_dists.Normal(jnp.asarray(loc), 1.0)},
+        jax_state.BatchShapeMode[mode.name])
+    assert [m.name for m in got] == [
+        jax_state.get_batch_shape_mode(jax_tagged["x"], B, K).name] * 2
+    np.testing.assert_array_equal(tagged["x"].loc.numpy(), loc)
+
+
+def test_noise_source_bits_are_uint32_words_in_int64():
+    """`NoiseSource.bits`: int64 words in [0, 2^32) (both halves of the
+    range, so the top bit is drawn), reproducible from the seed."""
+    a = NoiseSource.seeded(3, device="cpu").bits((64, 32))
+    b = NoiseSource.seeded(3, device="cpu").bits((64, 32))
+    assert a.dtype == torch.int64 and a.shape == (64, 32)
+    assert torch.equal(a, b)
+    assert int(a.min()) >= 0 and int(a.max()) < 2 ** 32
+    assert bool((a >= 2 ** 31).any()) and bool((a < 2 ** 31).any())

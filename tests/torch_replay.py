@@ -32,11 +32,14 @@ class ReplayNoise:
     device = torch.device("cpu")
 
     def __init__(self, uniforms=(), normals=(), exponentials=(),
-                 gumbels=()):
+                 gumbels=(), bits=()):
         self.uniforms = [tensor(u) for u in uniforms]
         self.normals = [tensor(e) for e in normals]
         self.exponentials = [tensor(e) for e in exponentials]
         self.gumbels = [tensor(g) for g in gumbels]
+        # uint32 words as int64, as `NoiseSource.bits` hands them out.
+        self.bits_ = [torch.tensor(np.asarray(b).astype(np.int64))
+                      for b in bits]
 
     @staticmethod
     def _pop(queue, shape):
@@ -56,9 +59,12 @@ class ReplayNoise:
     def gumbel(self, shape):
         return self._pop(self.gumbels, shape)
 
+    def bits(self, shape):
+        return self._pop(self.bits_, shape)
+
     def exhausted(self):
         return not (self.uniforms or self.normals or self.exponentials or
-                    self.gumbels)
+                    self.gumbels or self.bits_)
 
 
 def fields(component):
