@@ -18,19 +18,23 @@ OT resampling (`ot`), the EKF/UKF proposals (`proposals`), the streaming
 genealogy variance and forecasting; sequential quasi-Monte Carlo (`sqmc`,
 whose resampling runs K3), conditional SMC, particle Gibbs and PMMH
 (`csmc`), the Rao-Blackwellised filter (`rbpf`) and the bouncing-ball
-deep SSM.
+deep SSM; the resample-move filter (`resample_move`), the block particle
+filter (`blockpf`), the annealed and waste-free SMC samplers
+(`samplers`), SMC^2 (`smc2`) and IF2 iterated filtering (`if2`).
 Entry points put their tensors on the card unless the caller asks for
 the CPU (`device`). This package never imports JAX.
 """
 
 __version__ = "0.3.0"
 
+from . import blockpf
 from . import checkpoint
 from . import csmc
 from . import device
 from . import distributions
 from . import forecast
 from . import gradients
+from . import if2
 from . import inference
 from . import losses
 from . import math
@@ -42,7 +46,10 @@ from . import ot
 from . import profiling
 from . import proposals
 from . import rbpf
+from . import resample_move
 from . import resampling
+from . import samplers
+from . import smc2
 from . import smoothing
 from . import sqmc
 from . import state
@@ -53,9 +60,10 @@ from . import utils
 from . import variance
 
 __all__ = [
-    "checkpoint", "csmc", "device", "distributions", "forecast",
-    "gradients", "inference", "losses", "math", "models", "noise",
-    "online", "ops", "ot", "profiling", "proposals", "rbpf", "resampling",
-    "smoothing", "sqmc", "state", "statistics", "tmc", "train", "utils",
-    "variance", "__version__",
+    "blockpf", "checkpoint", "csmc", "device", "distributions", "forecast",
+    "gradients", "if2", "inference", "losses", "math", "models", "noise",
+    "online", "ops", "ot", "profiling", "proposals", "rbpf",
+    "resample_move", "resampling", "samplers", "smc2", "smoothing", "sqmc",
+    "state", "statistics", "tmc", "train", "utils", "variance",
+    "__version__",
 ]

@@ -57,7 +57,12 @@ def render(position, num_pixels: int = NUM_PIXELS, blur: float = 0.08):
     return torch.exp(-0.5 * (diff / blur) ** 2)
 
 
-def _param(x) -> nn.Parameter:
+def _param(x):
+    """A float32 `nn.Parameter` of a number or numpy array; a `torch.Tensor`
+    is kept as given (device, dtype and graph, not registered, not moved
+    by `.to()`), as `lgssm._param` documents."""
+    if isinstance(x, torch.Tensor):
+        return x
     return nn.Parameter(torch.tensor(np.asarray(x, dtype=np.float32)))
 
 

@@ -17,7 +17,12 @@ from ..distributions import Normal
 from ..state import BatchShapeMode
 
 
-def _param(x) -> nn.Parameter:
+def _param(x):
+    """A float32 `nn.Parameter` of a number or numpy array; a `torch.Tensor`
+    is kept as given (device, dtype and graph, not registered, not moved
+    by `.to()`), as `lgssm._param` documents."""
+    if isinstance(x, torch.Tensor):
+        return x
     return nn.Parameter(torch.tensor(np.asarray(x, dtype=np.float32)))
 
 

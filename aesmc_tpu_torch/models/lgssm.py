@@ -28,7 +28,21 @@ from ..state import BatchShapeMode
 from . import kalman
 
 
-def _param(x) -> nn.Parameter:
+def _param(x):
+    """A component's parameter field, as the JAX struct field (``mult:
+    Any``) holds any array.
+
+    A Python number or numpy array becomes a float32 `nn.Parameter`: a
+    registered, trainable parameter that `.to()` moves. A `torch.Tensor`
+    is kept as given, on its device and in its dtype, with its autograd
+    graph and no copy to the host: it is not a registered parameter of
+    the module, and `.to()` does not move it. That is how per-particle
+    parameters reach a component: IF2 hands `[B, K]` tensors
+    (`if2.if2`), SMC^2 `[M B, 1]` ones (`smc2.smc2`), and they broadcast
+    against the `[B, K]` and `[M B, K]` latents.
+    """
+    if isinstance(x, torch.Tensor):
+        return x
     return nn.Parameter(torch.tensor(np.asarray(x, dtype=np.float32)))
 
 

@@ -75,15 +75,46 @@ def _check_method(method, methods=METHODS):
             f"method must be one of {methods}. currently = {method}")
 
 
+# The width of the first level of `_two_level_cumsum`.
+_SCAN_CHUNK = 512
+
+
+def _row_cumsum(x):
+    """``torch.cumsum(x, dim=-1)`` for `[B, K]` ``x``, with the same bits on
+    every run on the card. PyTorch hands a tensor of one row on a card to
+    CUB's single-pass scan, whose float32 sums vary from run to run (so
+    the same noise could draw other ancestors); rows of two or more go to
+    its per-row scan, whose sums do not. One row on a card is therefore
+    scanned in two levels (`_two_level_cumsum`)."""
+    if x.is_cuda and x.shape[0] == 1:
+        return _two_level_cumsum(x)
+    return torch.cumsum(x, dim=-1)
+
+
+def _two_level_cumsum(x):
+    """The cumulative sum of one row `[1, K]` as chunks of `_SCAN_CHUNK`
+    (zero-padded), each a row of a per-row scan, plus the exclusive sums
+    of the chunks' totals, scanned as two equal rows."""
+    k = x.shape[1]
+    chunks = max(2, -(-k // _SCAN_CHUNK))
+    width = -(-k // chunks)
+    inner = torch.cumsum(torch.nn.functional.pad(
+        x, (0, chunks * width - k)).reshape(chunks, width), dim=-1)
+    totals = torch.cat([torch.zeros_like(inner[:1, -1]), inner[:-1, -1]])
+    offsets = torch.cumsum(torch.stack([totals, totals]), dim=-1)[0]
+    return (inner + offsets[:, None]).reshape(1, -1)[:, :k]
+
+
 def _normalized_cumsum(log_weight):
     """`[B, K]` log-weights -> `[B, K]` normalized CDF.
 
-    The cumulative sum is made monotone with a running max, divided by its
-    last entry, and the last entry is then pinned to exactly 1.0, so that
-    every position (strictly below 1) has a strictly greater CDF entry.
+    The cumulative sum (`_row_cumsum`) is made monotone with a running
+    max, divided by its last entry, and the last entry is then pinned to
+    exactly 1.0, so that every position (strictly below 1) has a strictly
+    greater CDF entry.
     """
     w = amath.exponentiate_and_normalize(log_weight, dim=-1)
-    cum = torch.cummax(torch.cumsum(w, dim=-1), dim=-1).values
+    cum = torch.cummax(_row_cumsum(w), dim=-1).values
     cum = cum / cum[:, -1:]
     return _pin_last(cum)
 
@@ -113,9 +144,8 @@ def resampling_positions(log_weight, noise, method: str = "systematic"):
     # A parallel cumulative sum on the card is not monotone in float32
     # (measured on an H100 at K = 8,388,608); the running max keeps the
     # positions sorted, which the search and its backward (K2) rely on.
-    s = torch.cummax(
-        torch.cumsum(noise.exponential((batch_size, k + 1)), dim=-1),
-        dim=-1).values
+    s = torch.cummax(_row_cumsum(noise.exponential((batch_size, k + 1))),
+                     dim=-1).values
     return torch.clamp(s[:, :-1] / s[:, -1:],
                        max=resample_cuda.BELOW_ONE)
 

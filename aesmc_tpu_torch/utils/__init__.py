@@ -1,6 +1,7 @@
-"""Small shared utilities: the MLP building block and the pytree helper."""
+"""Small shared utilities: the MLP building block and the pytree
+helpers."""
 
 from .mlp import MLP, mixed_dot
-from .pytree import unstack
+from .pytree import rebuild, sorted_leaves, unstack
 
-__all__ = ["MLP", "mixed_dot", "unstack"]
+__all__ = ["MLP", "mixed_dot", "rebuild", "sorted_leaves", "unstack"]

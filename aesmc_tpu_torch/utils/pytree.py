@@ -24,3 +24,24 @@ def unstack(tree, axis: int = 0):
     entry is a view of ``tree``."""
     length = _leaves(tree)[0].shape[axis]
     return [_index(tree, t, axis) for t in range(length)]
+
+
+def sorted_leaves(tree):
+    """The leaves of a tensor, number or (nested) dict, dicts in sorted key
+    order: the JAX package's pytree order, which the per-leaf draws of
+    `if2`, `smc2` and `samplers` follow."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in sorted_leaves(tree[k])]
+    return [tree]
+
+
+def rebuild(tree, leaves):
+    """``tree``'s structure with ``leaves`` (in `sorted_leaves` order)."""
+    it = iter(leaves)
+
+    def fill(node):
+        if isinstance(node, dict):
+            return {k: fill(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return fill(tree)

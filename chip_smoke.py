@@ -50,6 +50,10 @@ Phases, in order; any failure raises and the exit code is not 0:
      particle a row at (10, 10,000) and (2, 4,194,304);
    - every kernel at B = 65,536 rows (more than a grid's second dimension
      holds) and K = 4, exact;
+   - K1 and K4 at the shapes of the slice-D2 paths (phase 3j): K1 at (10,
+     4,096, 2), (1,024, 256, 1), (1, 262,144, 0) and the block PF's, IF2's
+     and the sampler's rows; K4 at (1, 16,384) and (1, 262,144) with Kp =
+     512 positions, sorted and not, exact;
    each is timed against its plain version (CUDA events; plain, kernel,
    kernel, plain), K1 also with indices only, K1-K3 also with all mass on
    one particle and on runs of -inf weight, K4 and K5 also against the
@@ -222,7 +226,33 @@ Phases, in order; any failure raises and the exit code is not 0:
    Kalman equality on the u-independent problem at K = 1, 7 and 4,096
    (`:57-64`); `_psd_inverse_small` against `distributions.cholesky` on
    the Do = 4 row's [40,960, 4, 4] stack. Phases 22-25 print their
-   seconds.
+   seconds;
+26. resample-move, the JAX extended bench's row
+   (`benchmarks/bench_extended.py:167-183`): the LGSSM with its optimal
+   proposal at (100, 10, 4,096), 2 moves: K1 99 launches a call (D = 2
+   after t = 1), equal to the torch route; log-Z within 0.6 of the Kalman
+   filter in every row and the mean acceptance in (0.05, 0.95)
+   (`tests/test_resample_move.py:61-80`); a call graphed (a replay equals
+   an eager call);
+27. the block PF on Lorenz-96 with blocks of 4 at the bench's (D, T, B,
+   K) = (16, 50, 4, 1,024) and (64, 50, 8, 4,096) (`:184-204, 315-336`):
+   K1 (indices only) 49 launches a call on J B rows, equal to the torch
+   route, graphed; one block equal to the bootstrap `infer` bit for bit;
+   blocks of 4 below half the one-block RMSE at `tests/test_blockpf.py:
+   57-76`'s shape;
+28. the annealed samplers on the bench's 16-D Gaussian (`:205-255`) at K =
+   16,384 and 262,144, resample-move (K1 once a rung) and waste-free M =
+   512 multinomial (K4 once a rung): adaptive eager, the fixed ladder
+   graphed (its last 3 rungs at K = 262,144); the evidence oracles of `tests/test_samplers.py:37-53,
+   200-218` at their settings over 12 runs from fresh prior draws;
+29. SMC^2 (`:256-286`), T = 50, B = 1, K = 256, M = 128 and 1,024, eager
+   (one host read a step): K1 launches = 49 + 2 x the steps rerun; the
+   Kalman-grid oracle of `tests/test_smc2.py:78-96` at its (M, K);
+30. IF2 (`:287-314`), T = 50, 10 iterations, (B, K) = (4, 4,096) and (8,
+   32,768), `lgssm.Transition(mult=theta["mult"])` built on the card: K1
+   50 launches an iteration; one iteration graphed; the MLE oracle of
+   `tests/test_if2.py:54-63` at its settings on the mean of 8 fits a row.
+   Phases 26-30 print their seconds.
 
 It prints a `{"kernels": [...]}` JSON line before the last, and, as the
 last line, `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -252,10 +282,11 @@ import torch
 
 from torch.utils import _pytree as pytree
 
-from aesmc_tpu_torch import (csmc, distributions, forecast, inference,
-                             losses, online, ot, proposals, rbpf,
-                             resampling, smoothing, sqmc, statistics, tmc,
-                             train, variance)
+from aesmc_tpu_torch import (blockpf, csmc, distributions, forecast, if2,
+                             inference, losses, online, ot, proposals, rbpf,
+                             resample_move, resampling, samplers, smc2,
+                             smoothing, sqmc, statistics, tmc, train,
+                             variance)
 from aesmc_tpu_torch import math as amath
 from aesmc_tpu_torch.models import (bouncing_ball, hmm, kalman, kalman_nd,
                                     lgssm, lgssm_nd, lorenz, vrnn)
@@ -4132,14 +4163,12 @@ def particle_gibbs_phase(dev):
     if not (rmse < PG_RMSE_TOL and bool(torch.isfinite(lmls).all())):
         raise AssertionError(f"particle Gibbs RMSE {rmse}")
 
-    # PMMH on the transition's multiplier, on the sweep's data.
+    # PMMH on the transition's multiplier, on the sweep's data; `build` as
+    # the JAX package's tests write it (the LGSSM transition keeps the
+    # chain's 0-d tensor on the card).
     def build(theta):
-        def transition(previous_latents=None, time=None,
-                       previous_observations=None):
-            return distributions.Normal(
-                theta["mult"] * previous_latents[-1], 1.0,
-                batch_shape_mode=BatchShapeMode.FULLY_EXPANDED)
-        return comps[0], transition, comps[2], comps[3]
+        return (comps[0], lgssm.Transition(mult=theta["mult"], scale=1.0),
+                comps[2], comps[3])
 
     reset_counts()
     (thetas, lps, rate), pmmh_ms = _timed(lambda: csmc.pmmh(
@@ -4381,6 +4410,620 @@ def rbpf_phase(dev):
     _phase_seconds("25", start)
 
 
+# Phases 3j and 26-30: slice D2 (resample-move, the block PF, the annealed
+# samplers, SMC^2 and IF2) at the JAX extended bench's rows
+# (benchmarks/bench_extended.py:167-336). Phases 26-30 print their seconds.
+
+# (B, K, D) of K1 on the D2 paths: resample-move's pairs (D = 2) and its
+# t = 1 heads; the block PF's J B rows at D = 16 and 64 (indices only);
+# IF2's rows (indices only); the sampler's one row (indices only); SMC^2's
+# M B rows with the latent as the column.
+D2_K1_SHAPES = ((10, 4096, 2), (10, 4096, 1), (16, 1024, 0), (128, 4096, 0),
+                (4, 4096, 0), (8, 32768, 0), (1, 16384, 0), (1, 262144, 0),
+                (128, 256, 1), (1024, 256, 1))
+# (Kc, Kp) of K4 on the waste-free root draws: one row, M = 512 positions.
+D2_K4_SHAPES = ((16384, 512), (262144, 512))
+
+
+def d2_shapes_phase(dev):
+    """K1 and K4 at the shapes the D2 paths give them, bit for bit against
+    their plain versions (K4 also against torch.searchsorted)."""
+    phase("3j K1 and K4 at the D2 paths' shapes against their plain "
+          "versions")
+    generator = torch.Generator(device=dev).manual_seed(12)
+    for batch, k, d in D2_K1_SHAPES:
+        cdf, u, value = _case_inputs(batch, k, d, "normal", generator, dev)
+        for emit_idx in ((True,) if d == 0 else (True, False)):
+            idx, out = resample_cuda.resample_and_gather_systematic(
+                cdf, u, value, emit_idx)
+            want_idx, want = \
+                resample_cuda.resample_and_gather_systematic_torch(
+                    cdf, u, value, emit_idx)
+            if not (torch.equal(out, want) and
+                    (not emit_idx or torch.equal(idx, want_idx))):
+                raise AssertionError(f"K1 differs from its plain version at "
+                                     f"{(batch, k, d)}, emit_idx={emit_idx}")
+        print(f"K1 (B, K, D) = {(batch, k, d)}: exact (tolerance 0)",
+              flush=True)
+    for kc, kp in D2_K4_SHAPES:
+        cdf = _k4_case(1, kc, "normal", generator, dev)
+        grid = ((torch.rand((1, 1), generator=generator, device=dev) +
+                 torch.arange(kp, device=dev, dtype=torch.float32)) / kp)
+        unsorted = torch.rand((1, kp), generator=generator, device=dev)
+        for label, pos in (("systematic grid", grid),
+                           ("multinomial, unsorted", unsorted)):
+            got = searchsorted_sorted_cuda.searchsorted_sorted(cdf, pos)
+            want = searchsorted_sorted_cuda.searchsorted_sorted_torch(cdf,
+                                                                      pos)
+            library = torch.searchsorted(cdf, pos, right=True)
+            if not (torch.equal(got, want) and
+                    torch.equal(got.long(), library.clamp(max=kc - 1))):
+                raise AssertionError(f"K4 differs at (1, {kc}, {kp}) "
+                                     f"{label}")
+            print(f"K4 (B, Kc, Kp) = (1, {kc}, {kp}) {label}: equal to its "
+                  f"plain version and torch.searchsorted (tolerance 0)",
+                  flush=True)
+
+
+def _bench_optimal_lgssm(dev):
+    """The extended bench's LGSSM (`bench_extended.py:134-148`, SQMC's):
+    x' = 0.9 x + N(0, 1), y = x + N(0, 0.5), its optimal proposal."""
+    q_scale, r_scale = math.sqrt(SQMC_Q), math.sqrt(SQMC_R)
+    return (lgssm.Initial(0.0, 1.0),
+            lgssm.Transition(SQMC_A, q_scale).to(dev),
+            lgssm.Emission(SQMC_EM, r_scale).to(dev),
+            lgssm.optimal_proposal(0.0, 1.0, SQMC_A, q_scale, SQMC_EM,
+                                   r_scale).to(dev))
+
+
+def _kalman_log_z(obs, a, q, em, r):
+    """Each row's exact log-Z (numpy Kalman filter)."""
+    params = kalman.KalmanParams(0.0, 1.0, a, 0.0, q, em, 0.0, r)
+    obs_np = obs.cpu().numpy()
+    return np.array([kalman.kalman_filter(obs_np[:, b], params)[4]
+                     for b in range(obs_np.shape[1])])
+
+
+# Phase 26: the bench's resample-move row (`bench_extended.py:167-183`);
+# the oracle of tests/test_resample_move.py:61-80 (0.6 a row).
+RM_T, RM_B, RM_K, RM_MOVES = 100, 10, 4096, 2
+RM_LOG_Z_TOL, RM_ACCEPTANCE = 0.6, (0.05, 0.95)
+
+
+@torch.no_grad()
+def resample_move_phase(dev):
+    start = time.perf_counter()
+    phase(f"26 resample-move: the bench's LGSSM with its optimal proposal "
+          f"at (T, B, K) = ({RM_T}, {RM_B}, {RM_K:,}), {RM_MOVES} moves")
+    comps = _bench_optimal_lgssm(dev)
+    _, obs = statistics.sample_from_prior(*comps[:3], RM_T, RM_B,
+                                          NoiseSource.seeded(80, dev))
+
+    def call(noise, impl="auto"):
+        out = resample_move.resample_move_filter(
+            obs, *comps, RM_K, noise=noise, num_move_steps=RM_MOVES,
+            resampling_implementation=impl, return_latents=False)
+        return out["log_marginal_likelihood"], out["acceptance_rate"]
+
+    reset_counts()
+    log_z, rate = call(NoiseSource.seeded(81, dev))
+    counts = read_counts("resample-move")
+    if (counts["resample_systematic"] != RM_T - 1 or
+            sum(counts.values()) != RM_T - 1):
+        raise AssertionError(f"one resample-move call launched {counts}")
+    plain = call(NoiseSource.seeded(81, dev), "torch")
+    if not (torch.equal(log_z, plain[0]) and torch.equal(rate, plain[1])):
+        raise AssertionError("resample-move: the K1 route differs from the "
+                             "torch route")
+    exact = _kalman_log_z(obs, SQMC_A, SQMC_Q, SQMC_EM, SQMC_R)
+    err = float(np.max(np.abs(log_z.cpu().numpy() - exact)))
+    mean_rate = float(rate.mean())
+    noise = NoiseSource.seeded(82, dev)
+    graph, _, eager_ms, graph_ms = _graph_equal(
+        "resample-move call", lambda: call(noise), noise)
+    del graph
+    print(f"resample-move: K1 {counts['resample_systematic']} launches "
+          f"(D = 1 at t = 1, D = 2 after), equal to the torch route; log-Z "
+          f"within {err:.4f} of the Kalman filter in every row (bound "
+          f"{RM_LOG_Z_TOL}); mean acceptance {mean_rate:.3f} (bounds "
+          f"{RM_ACCEPTANCE}); {eager_ms:.3f} ms eager, {graph_ms:.3f} ms "
+          f"graphed = {RM_B * RM_K * RM_T / graph_ms / 1e3:.1f} M "
+          f"particle-steps/s", flush=True)
+    if not (err < RM_LOG_Z_TOL and
+            RM_ACCEPTANCE[0] < mean_rate < RM_ACCEPTANCE[1]):
+        raise AssertionError(f"resample-move oracle: {err}, {mean_rate}")
+    _phase_seconds("26", start)
+
+
+# Phase 27: the bench's two block-PF rows on Lorenz-96 with blocks of 4
+# (`bench_extended.py:184-204, 315-336`): (D, T, B, K); the oracle of
+# tests/test_blockpf.py:57-76 at its shape (D = 16, T = 20, K = 128, 3
+# seeds, transition scale 0.4).
+BPF_ROWS = ((16, 50, 4, 1024), (64, 50, 8, 4096))
+BPF_BLOCK = 4
+BPF_ORACLE_D, BPF_ORACLE_T, BPF_ORACLE_K, BPF_ORACLE_SEEDS = 16, 20, 128, 3
+
+
+@torch.no_grad()
+def _block_pf_oracle(dev):
+    """Blocks of 4 against one block: the filtered RMSE must halve."""
+    dim = BPF_ORACLE_D
+    model = lorenz.make_model(dim=dim, emission_scale=0.5,
+                              transition_scale=0.4, proposal="bootstrap",
+                              device=dev)
+    lat, obs = statistics.sample_from_prior(*model[:3], BPF_ORACLE_T, 1,
+                                            NoiseSource.seeded(86, dev))
+    truth = lat[:, 0].cpu().numpy()
+    half = BPF_ORACLE_T // 2
+
+    def rmse(block_size, seed):
+        blocks = blockpf.contiguous_blocks(dim, block_size)
+        out = blockpf.block_pf(obs, *model[:3], BPF_ORACLE_K, blocks,
+                               noise=NoiseSource.seeded(seed, dev),
+                               return_log_weights=True)
+        m = blockpf.block_filtered_mean(out["latents"], out["log_weights"],
+                                        blocks)[:, 0].cpu().numpy()
+        return float(np.sqrt(np.mean((m[half:] - truth[half:]) ** 2)))
+
+    plain = np.mean([rmse(dim, 87 + s) for s in range(BPF_ORACLE_SEEDS)])
+    local = np.mean([rmse(BPF_BLOCK, 87 + s)
+                     for s in range(BPF_ORACLE_SEEDS)])
+    print(f"block PF oracle (D = {dim}, T = {BPF_ORACLE_T}, K = "
+          f"{BPF_ORACLE_K}, {BPF_ORACLE_SEEDS} seeds): filtered RMSE with "
+          f"blocks of {BPF_BLOCK} {local:.4f}, one block {plain:.4f} (bound: "
+          f"below half, and below 1)", flush=True)
+    if not (local < 0.5 * plain and local < 1.0):
+        raise AssertionError(f"block PF oracle: {local} vs {plain}")
+
+
+@torch.no_grad()
+def block_pf_phase(dev):
+    start = time.perf_counter()
+    phase(f"27 block PF on Lorenz-96, blocks of {BPF_BLOCK}: (D, T, B, K) in "
+          f"{BPF_ROWS}")
+    for dim, num_timesteps, batch, k in BPF_ROWS:
+        model = lorenz.make_model(dim=dim, emission_scale=0.5,
+                                  proposal="bootstrap", device=dev)
+        _, obs = statistics.sample_from_prior(*model[:3], num_timesteps,
+                                              batch,
+                                              NoiseSource.seeded(83, dev))
+        blocks = blockpf.contiguous_blocks(dim, BPF_BLOCK)
+
+        def call(noise, impl="auto", model=model, obs=obs, blocks=blocks,
+                 k=k):
+            return blockpf.block_pf(
+                obs, *model[:3], k, blocks, noise=noise,
+                resampling_implementation=impl,
+                return_log_marginal_likelihood=True,
+                return_latents=False)["log_marginal_likelihood"]
+
+        reset_counts()
+        log_z = call(NoiseSource.seeded(84, dev))
+        counts = read_counts(f"block PF D={dim}")
+        if (counts["resample_systematic"] != num_timesteps - 1 or
+                sum(counts.values()) != num_timesteps - 1):
+            raise AssertionError(f"one block-PF call launched {counts}")
+        if not torch.equal(log_z, call(NoiseSource.seeded(84, dev),
+                                       "torch")):
+            raise AssertionError(f"block PF D={dim}: the routes differ")
+        noise = NoiseSource.seeded(85, dev)
+        graph, _, eager_ms, graph_ms = _graph_equal(
+            f"block PF D={dim} call", lambda: call(noise), noise)
+        del graph
+        print(f"block PF D = {dim}, (T, B, K) = ({num_timesteps}, {batch}, "
+              f"{k:,}): K1 (indices only) {counts['resample_systematic']} "
+              f"launches on {len(blocks) * batch} rows, equal to the torch "
+              f"route; log-Z mean {float(log_z.mean()):.2f}; {eager_ms:.3f} "
+              f"ms eager, {graph_ms:.3f} ms graphed = "
+              f"{batch * k * num_timesteps / graph_ms / 1e3:.1f} M "
+              f"particle-steps/s", flush=True)
+
+    # One block covering every dimension: the bootstrap engine, bit for
+    # bit, at the first row's shape.
+    dim, num_timesteps, batch, k = BPF_ROWS[0]
+    model = lorenz.make_model(dim=dim, emission_scale=0.5,
+                              proposal="bootstrap", device=dev)
+    _, obs = statistics.sample_from_prior(*model[:3], num_timesteps, batch,
+                                          NoiseSource.seeded(83, dev))
+    got = blockpf.block_pf(obs, *model[:3], k,
+                           blockpf.contiguous_blocks(dim, dim),
+                           noise=NoiseSource.seeded(88, dev),
+                           return_log_marginal_likelihood=True,
+                           return_ancestral_indices=True)
+    ref = inference.infer("smc", obs, *model, k,
+                          noise=NoiseSource.seeded(88, dev),
+                          return_log_marginal_likelihood=True,
+                          return_ancestral_indices=True,
+                          return_original_latents=True, return_latents=False)
+    if not (torch.equal(got["ancestral_indices"][:, 0],
+                        ref["ancestral_indices"]) and
+            torch.equal(got["latents"], ref["original_latents"]) and
+            torch.equal(got["log_marginal_likelihood"],
+                        ref["log_marginal_likelihood"])):
+        raise AssertionError("one-block PF differs from the bootstrap infer")
+    print(f"one block (D = {dim}, K = {k:,}): ancestors, latents and log-Z "
+          f"equal to the bootstrap infer bit for bit", flush=True)
+    _block_pf_oracle(dev)
+    _phase_seconds("27", start)
+
+
+# Phase 28: the bench's annealed rows (`bench_extended.py:205-255`): the
+# 16-D Gaussian, 2 moves of step 0.4, resample-move (systematic) and
+# waste-free (M = 512, multinomial), at K = 16,384 and 262,144. The
+# oracles of tests/test_samplers.py:37-53 and 200-218 at their settings
+# (its y, D = 4, K = 2,048, normalized densities; 4 moves, or waste-free M
+# = 64 with 1), over 12 runs, each from fresh prior draws: the 3-run mean
+# of either package spreads 0.04 around a -0.055 bias there (60 runs each
+# on the CPU), and one cloud shared by every run errs the same way in
+# each (+0.124 over 12 runs on the card from one cloud and another y).
+SAMPLER_D, SAMPLER_KS, SAMPLER_M = 16, (16384, 262144), 512
+SAMPLER_MOVES, SAMPLER_STEP = 2, 0.4
+# The graphed fixed ladder at K = 262,144 runs the adaptive ladder's last 3
+# rungs (a cut of depth: waste-free there is ~1 s of host time a rung
+# eagerly, and a capture runs the call eagerly 4 times); times are given a
+# rung.
+SAMPLER_GRAPH_RUNGS = {262144: 3}
+SAMPLER_ORACLE_K, SAMPLER_ORACLE_SEEDS = 2048, 12
+# jax.random.normal(PRNGKey(3), (4,)), the observation of
+# tests/test_samplers.py:19.
+SAMPLER_ORACLE_Y = (-1.4462569952011108, 1.5393810272216797,
+                    0.38250625133514404, 1.970701813697815)
+
+
+def _sampler_oracle(dev):
+    dim, s0, s = len(SAMPLER_ORACLE_Y), 2.0, 0.5
+    y = torch.tensor(SAMPLER_ORACLE_Y, device=dev)
+    c0 = dim * math.log(s0 * math.sqrt(2 * math.pi))
+    c = dim * math.log(s * math.sqrt(2 * math.pi))
+
+    def log_prior(x):
+        return -0.5 * torch.sum((x / s0) ** 2) - c0
+
+    def log_lik(x):
+        return -0.5 * torch.sum(((x - y) / s) ** 2) - c
+
+    var = s0 ** 2 + s ** 2
+    y_np = y.cpu().numpy().astype(np.float64)
+    exact = float(-0.5 * np.sum(y_np ** 2) / var -
+                  dim / 2 * np.log(2 * np.pi * var))
+    generator = torch.Generator(device=dev).manual_seed(90)
+    for label, kwargs, tol in (
+            ("resample-move", dict(num_moves=4), 0.1),
+            ("waste-free M = 64 multinomial",
+             dict(num_moves=1, waste_free_chains=64,
+                  resampling_method="multinomial"), 0.15),
+            ("waste-free M = 64 systematic",
+             dict(num_moves=1, waste_free_chains=64), 0.15)):
+        lzs = [float(samplers.smc_sampler(
+            log_prior, log_lik, s0 * torch.randn(
+                SAMPLER_ORACLE_K, dim, generator=generator, device=dev),
+            noise=NoiseSource.seeded(91 + seed, dev), step_size=0.4,
+            **kwargs)["log_normalizer"])
+            for seed in range(SAMPLER_ORACLE_SEEDS)]
+        err = abs(float(np.mean(lzs)) - exact)
+        print(f"sampler oracle, {label}: mean log Z over "
+              f"{SAMPLER_ORACLE_SEEDS} runs {np.mean(lzs):.4f}, exact "
+              f"{exact:.4f}, error {err:.4f} (bound {tol})", flush=True)
+        if not err < tol:
+            raise AssertionError(f"sampler oracle {label}: {err}")
+
+
+@torch.no_grad()
+def sampler_phase(dev):
+    start = time.perf_counter()
+    phase(f"28 annealed SMC samplers: the bench's {SAMPLER_D}-D Gaussian at "
+          f"K in {SAMPLER_KS}, resample-move and waste-free M = {SAMPLER_M}")
+    y = torch.full((SAMPLER_D,), 1.5, device=dev)
+
+    def log_prior(x):
+        return -0.5 * torch.sum(x * x)
+
+    def log_lik(x):
+        return -0.5 * torch.sum((y - x) ** 2) / 0.5
+
+    for k in SAMPLER_KS:
+        x0 = torch.randn(k, SAMPLER_D, generator=torch.Generator(
+            device=dev).manual_seed(92), device=dev)
+        for waste_free in (False, True):
+            kwargs = dict(num_moves=SAMPLER_MOVES, step_size=SAMPLER_STEP,
+                          waste_free_chains=SAMPLER_M if waste_free else None,
+                          resampling_method=("multinomial" if waste_free
+                                             else "systematic"))
+            label = (f"waste-free M = {SAMPLER_M}" if waste_free
+                     else "resample-move")
+            kernel = ("searchsorted_sorted" if waste_free
+                      else "resample_systematic")
+
+            def call(noise, kwargs=kwargs, x0=x0, **extra):
+                return samplers.smc_sampler(log_prior, log_lik, x0,
+                                            noise=noise, **kwargs, **extra)
+
+            reset_counts()
+            out, first_ms = _timed(lambda: call(NoiseSource.seeded(93, dev),
+                                                return_history=True))
+            counts = read_counts(f"sampler K={k} {label}")
+            rungs = int(out["num_steps"])
+            if counts[kernel] != rungs or sum(counts.values()) != rungs:
+                raise AssertionError(f"sampler {label} at K = {k}: {rungs} "
+                                     f"rungs launched {counts}")
+            eager = [first_ms, _timed(lambda: call(NoiseSource.seeded(
+                94, dev)))[1]]
+            betas = out["beta_history"][:rungs].cpu().tolist()
+            betas = betas[-SAMPLER_GRAPH_RUNGS.get(k, rungs):]
+            noise = NoiseSource.seeded(95, dev)
+            graph, _, fixed_ms, graph_ms = _graph_equal(
+                f"sampler K={k} {label}, the fixed ladder's last "
+                f"{len(betas)} rungs", lambda: tuple(
+                    call(noise, betas=betas)[key] for key in
+                    ("log_normalizer", "acceptance_rate")), noise,
+                eager_calls=1, replays=3)
+            del graph
+            print(f"sampler K = {k:,} {label}: {rungs} rungs (adaptive), "
+                  f"{kernel} {counts[kernel]} launches (one a rung); log Z "
+                  f"{float(out['log_normalizer']):.4f}, acceptance "
+                  f"{float(out['acceptance_rate']):.3f}; adaptive eager "
+                  f"{[round(ms, 3) for ms in eager]} ms a call = "
+                  f"{np.median(eager) / rungs:.3f} ms a rung; fixed ladder "
+                  f"({len(betas)} rungs) eager {fixed_ms / len(betas):.3f} "
+                  f"ms a rung, graphed {graph_ms / len(betas):.3f} ms a rung"
+                  f" = {k * len(betas) / graph_ms / 1e3:.1f} M "
+                  f"particle-rungs/s", flush=True)
+    _sampler_oracle(dev)
+    _phase_seconds("28", start)
+
+
+# Phase 29: the bench's SMC^2 rows (`bench_extended.py:256-286`): the
+# transition multiplier of the bench's LGSSM, T = 50, B = 1, K = 256, M =
+# 128 and 1,024 theta particles; the oracle of tests/test_smc2.py:78-96 at
+# its settings (T = 25, M = 384, K = 64, emission scale 0.5).
+S2_T, S2_B, S2_K, S2_MS = 50, 1, 256, (128, 1024)
+S2_ORACLE_T, S2_ORACLE_M, S2_ORACLE_K = 25, 384, 64
+
+
+def _s2_grid_posterior(obs, emission_scale, lo=-2.5, hi=2.5, n=501):
+    """The exact p(mult | y) under a N(0, 1) prior on a Kalman grid: (mean,
+    std, log evidence by the trapezoid rule)."""
+    grid = np.linspace(lo, hi, n)
+    obs_np = obs.cpu().numpy()
+    log_lik = np.array([sum(kalman.kalman_filter(
+        obs_np[:, b], kalman.KalmanParams(0.0, 1.0, float(g), 0.0, 1.0, 1.0,
+                                          0.0, emission_scale ** 2))[4]
+        for b in range(obs_np.shape[1])) for g in grid])
+    log_joint = log_lik - 0.5 * grid ** 2 - 0.5 * math.log(2 * math.pi)
+    top = log_joint.max()
+    w = np.exp(log_joint - top)
+    log_evidence = top + math.log(float(np.sum(0.5 * (w[1:] + w[:-1]))) *
+                                  (grid[1] - grid[0]))
+    w /= w.sum()
+    mean = float((grid * w).sum())
+    return mean, float(np.sqrt(((grid - mean) ** 2 * w).sum())), \
+        log_evidence
+
+
+@torch.no_grad()
+def _smc2_oracle(dev):
+    es = 0.5
+    sig = math.sqrt(1.0 / (1.0 + 1.0 / es ** 2))
+    initial = lgssm.Initial(0.0, 1.0)
+    emission = lgssm.Emission(1.0, es).to(dev)
+    proposal = lgssm.Proposal(0.8, 0.0, [0.2 * 0.8, 0.8], 0.0, sig,
+                              sig).to(dev)
+    _, obs = statistics.sample_from_prior(
+        initial, lgssm.Transition(0.8, 1.0).to(dev), emission, S2_ORACLE_T,
+        1, NoiseSource.seeded(96, dev))
+
+    def build(theta):
+        return (initial, lgssm.Transition(mult=theta["mult"], scale=1.0),
+                emission, proposal)
+
+    theta0 = torch.randn(S2_ORACLE_M, generator=torch.Generator(
+        device=dev).manual_seed(97), device=dev)
+    out = smc2.smc2(obs, build, {"mult": theta0},
+                    lambda theta: -0.5 * theta["mult"] ** 2, S2_ORACLE_K,
+                    noise=NoiseSource.seeded(98, dev), ess_threshold=0.5,
+                    num_moves=2, step_size=0.2)
+    exact_mean, exact_std, exact_lz = _s2_grid_posterior(obs, es)
+    w = torch.softmax(out["log_theta_weight"], dim=0).cpu().numpy()
+    vals = out["theta"]["mult"].cpu().numpy()
+    mean = float((vals * w).sum())
+    std = float(np.sqrt(((vals - mean) ** 2 * w).sum()))
+    mean_tol = max(3 * exact_std / math.sqrt(S2_ORACLE_M), 0.05)
+    lz_err = abs(float(out["log_evidence"]) - exact_lz)
+    print(f"SMC^2 oracle (T = {S2_ORACLE_T}, M = {S2_ORACLE_M}, K = "
+          f"{S2_ORACLE_K}): posterior mean {mean:.4f} (grid {exact_mean:.4f}"
+          f", bound {mean_tol:.4f}), std {std:.4f} (grid {exact_std:.4f}, "
+          f"ratio bounds (0.5, 2)), log evidence "
+          f"{float(out['log_evidence']):.4f} (grid {exact_lz:.4f}, bound "
+          f"2.0); {int(out['num_rejuvenations'])} rejuvenations, acceptance "
+          f"{float(out['acceptance_rate']):.3f}", flush=True)
+    if not (abs(mean - exact_mean) < mean_tol and
+            0.5 < std / exact_std < 2.0 and lz_err < 2.0 and
+            int(out["num_rejuvenations"]) >= 1):
+        raise AssertionError(f"SMC^2 oracle: {mean}, {std}, {lz_err}")
+
+
+@torch.no_grad()
+def smc2_phase(dev):
+    start = time.perf_counter()
+    phase(f"29 SMC^2: the bench's LGSSM multiplier, (T, B, K) = ({S2_T}, "
+          f"{S2_B}, {S2_K}), M in {S2_MS}; eager (one host read a step)")
+    comps = _bench_optimal_lgssm(dev)
+    _, obs = statistics.sample_from_prior(*comps[:3], S2_T, S2_B,
+                                          NoiseSource.seeded(99, dev))
+    q_scale = math.sqrt(SQMC_Q)
+
+    def build(theta):
+        return (comps[0], lgssm.Transition(mult=theta["mult"],
+                                           scale=q_scale),
+                comps[2], comps[3])
+
+    for m in S2_MS:
+        theta0 = 0.8 + 0.2 * torch.randn(m, generator=torch.Generator(
+            device=dev).manual_seed(100), device=dev)
+
+        def call(noise, theta0=theta0):
+            return smc2.smc2(obs, build, {"mult": theta0},
+                             lambda th: -0.5 * ((th["mult"] - 0.8) / 0.2) ** 2,
+                             S2_K, noise=noise)
+
+        reset_counts()
+        out = call(NoiseSource.seeded(101, dev))
+        counts = read_counts(f"smc2 M={m}")
+        ess = out["ess_path"].cpu().numpy()
+        rejuvenated = [t for t in range(1, S2_T) if ess[t] < 0.5 * m]
+        want = S2_T - 1 + 2 * sum(rejuvenated)
+        if (counts["resample_systematic"] != want or
+                sum(counts.values()) != want or
+                len(rejuvenated) != int(out["num_rejuvenations"])):
+            raise AssertionError(f"SMC^2 M = {m}: {counts}, expected K1 "
+                                 f"{want} ({rejuvenated})")
+        if not bool(torch.isfinite(out["log_evidence"])):
+            raise AssertionError(f"SMC^2 log evidence {out['log_evidence']}")
+        eager = [_timed(lambda: call(NoiseSource.seeded(102, dev)))[1]
+                 for _ in range(2)]
+        w = torch.softmax(out["log_theta_weight"], dim=0)
+        mean = float((w * out["theta"]["mult"]).sum())
+        print(f"SMC^2 M = {m}: K1 {counts['resample_systematic']} launches "
+              f"({S2_T - 1} steps + 2 moves x the steps rerun at "
+              f"{len(rejuvenated)} rejuvenations, t = {rejuvenated}) on "
+              f"{m * S2_B} rows; log evidence "
+              f"{float(out['log_evidence']):.4f}, posterior mean multiplier "
+              f"{mean:.4f}, acceptance {float(out['acceptance_rate']):.3f}; "
+              f"eager {[round(ms, 3) for ms in eager]} ms a call", flush=True)
+    _smc2_oracle(dev)
+    _phase_seconds("29", start)
+
+
+# Phase 30: the bench's IF2 rows (`bench_extended.py:287-314`): the
+# transition multiplier of the bench's LGSSM from 0.5, random walk 0.05,
+# 10 iterations, T = 50, (B, K) = (4, 4,096) and (8, 32,768); the
+# proposal, built once outside `build_components`, has the JAX bench's
+# `Proposal.create(1.0, 1.0, PRNGKey(0))` fields (PG_PROPOSAL). The oracle
+# of tests/test_if2.py:54-63 at its settings (T = 50, B = 2, K = 256, 40
+# iterations, bootstrap, multiplier 0.8, emission scale 0.5), on the mean
+# of 8 fits of each row (8 copies of the rows in one call): a fit's spread
+# at K = 256 follows the data's likelihood curvature, 0.05-0.08 on a flat
+# row (16 fits each of the JAX package and the port on the CPU: means
+# 0.902 / 0.774 and 0.894 / 0.779 against the MLE 0.880 / 0.765).
+IF2_T, IF2_ITERATIONS, IF2_ROWS = 50, 10, ((4, 4096), (8, 32768))
+IF2_ORACLE_B, IF2_ORACLE_K, IF2_ORACLE_ITERATIONS, IF2_ORACLE_TOL = (
+    2, 256, 40, 0.08)
+IF2_ORACLE_FITS = 8
+
+
+class _Bootstrap:
+    """The bootstrap proposal of tests/test_if2.py: the prior at t = 0,
+    the transition after."""
+
+    def __init__(self, initial, transition):
+        self.initial, self.transition = initial, transition
+
+    def __call__(self, previous_latents=None, time=None, observations=None):
+        if time == 0:
+            return self.initial()
+        return self.transition(previous_latents=previous_latents, time=time)
+
+
+def _grid_mle(obs, a_grid, q, em, r):
+    """Each row's maximum-likelihood multiplier on ``a_grid`` (Kalman)."""
+    obs_np = obs.cpu().numpy()
+    out = []
+    for b in range(obs_np.shape[1]):
+        lls = [kalman.kalman_filter(obs_np[:, b], kalman.KalmanParams(
+            0.0, 1.0, float(g), 0.0, q, em, 0.0, r))[4] for g in a_grid]
+        out.append(a_grid[int(np.argmax(lls))])
+    return np.array(out)
+
+
+@torch.no_grad()
+def _if2_oracle(dev):
+    initial = lgssm.Initial(0.0, 1.0)
+    emission = lgssm.Emission(1.0, 0.5).to(dev)
+    _, obs = statistics.sample_from_prior(
+        initial, lgssm.Transition(0.8, 1.0).to(dev), emission, IF2_T,
+        IF2_ORACLE_B, NoiseSource.seeded(103, dev))
+
+    def build(theta):
+        transition = lgssm.Transition(mult=theta["mult"], scale=1.0)
+        return initial, transition, emission, _Bootstrap(initial, transition)
+
+    out = if2.if2(obs.repeat(1, IF2_ORACLE_FITS), build, {"mult": 0.3},
+                  {"mult": 0.1}, IF2_ORACLE_K, IF2_ORACLE_ITERATIONS,
+                  noise=NoiseSource.seeded(104, dev), cooling=0.9)
+    mle = _grid_mle(obs, np.linspace(0.5, 1.1, 121), 1.0, 1.0, 0.25)
+    fits = out["theta_mean"]["mult"].cpu().numpy().reshape(
+        IF2_ORACLE_FITS, IF2_ORACLE_B)
+    est = fits.mean(axis=0)
+    lls = out["log_likelihoods"].cpu().numpy().reshape(
+        IF2_ORACLE_ITERATIONS, IF2_ORACLE_FITS, IF2_ORACLE_B).mean(axis=1)
+    rising = bool((lls[-3:].mean(axis=0) > lls[:3].mean(axis=0)).all())
+    err = float(np.abs(est - mle).max())
+    print(f"IF2 oracle (T = {IF2_T}, B = {IF2_ORACLE_B}, K = {IF2_ORACLE_K}, "
+          f"{IF2_ORACLE_ITERATIONS} iterations, {IF2_ORACLE_FITS} fits a "
+          f"row): mean estimates {np.round(est, 4)} (fits' sd "
+          f"{np.round(fits.std(axis=0), 4)}), Kalman-grid MLE {mle}, largest "
+          f"error {err:.4f} (bound {IF2_ORACLE_TOL}); log-likelihood trend "
+          f"rising {rising}", flush=True)
+    if not (err < IF2_ORACLE_TOL and rising):
+        raise AssertionError(f"IF2 oracle: {err}, rising {rising}")
+
+
+@torch.no_grad()
+def if2_phase(dev):
+    start = time.perf_counter()
+    phase(f"30 IF2: the bench's LGSSM multiplier, T = {IF2_T}, "
+          f"{IF2_ITERATIONS} iterations, (B, K) in {IF2_ROWS}")
+    comps = _bench_optimal_lgssm(dev)
+    proposal = lgssm.Proposal(**PG_PROPOSAL).to(dev)
+    q_scale = math.sqrt(SQMC_Q)
+
+    def build(theta):
+        return (comps[0], lgssm.Transition(mult=theta["mult"],
+                                           scale=q_scale),
+                comps[2], proposal)
+
+    for batch, k in IF2_ROWS:
+        _, obs = statistics.sample_from_prior(*comps[:3], IF2_T, batch,
+                                              NoiseSource.seeded(105, dev))
+
+        def call(noise, theta0, iterations, obs=obs, k=k):
+            out = if2.if2(obs, build, {"mult": theta0}, {"mult": 0.05}, k,
+                          iterations, noise=noise)
+            return out["theta"]["mult"], out["log_likelihoods"]
+
+        reset_counts()
+        swarm, log_liks = call(NoiseSource.seeded(106, dev), 0.5,
+                               IF2_ITERATIONS)
+        counts = read_counts(f"if2 B={batch} K={k}")
+        want = IF2_ITERATIONS * IF2_T
+        if (counts["resample_systematic"] != want or
+                sum(counts.values()) != want):
+            raise AssertionError(f"IF2 launched {counts}, expected K1 {want}")
+        eager = [_timed(lambda: call(NoiseSource.seeded(107, dev), 0.5,
+                                     IF2_ITERATIONS))[1] for _ in range(2)]
+        # One iteration from the fitted swarm, captured.
+        noise = NoiseSource.seeded(108, dev)
+        graph, _, iter_eager_ms, iter_graph_ms = _graph_equal(
+            f"IF2 B={batch} K={k}, one iteration", lambda: call(
+                noise, swarm, 1), noise)
+        del graph
+        est = swarm.mean(dim=1).cpu().numpy()
+        mle = _grid_mle(obs, np.linspace(0.5, 1.2, 141), SQMC_Q, SQMC_EM,
+                        SQMC_R)
+        print(f"IF2 (B, K) = ({batch}, {k:,}): K1 (indices only) "
+              f"{counts['resample_systematic']} launches ({IF2_T} an "
+              f"iteration: {IF2_T - 1} steps and the final draw); estimates "
+              f"{np.round(est, 4)} against the Kalman-grid MLE {mle}; eager "
+              f"{[round(ms, 3) for ms in eager]} ms a fit; one iteration "
+              f"{iter_eager_ms:.3f} ms eager, {iter_graph_ms:.3f} ms graphed "
+              f"= {batch * k * IF2_T / iter_graph_ms / 1e3:.1f} M "
+              f"particle-steps/s", flush=True)
+        if not bool(torch.isfinite(log_liks).all()):
+            raise AssertionError(f"IF2 log-likelihoods {log_liks}")
+    _if2_oracle(dev)
+    _phase_seconds("30", start)
+
+
 def _build_other(other, sources):
     """Builds each of ``sources`` from directory ``other`` with `_build`'s
     flags, one nvcc each, all started together, into `compare/` of the
@@ -4511,6 +5154,7 @@ def main():
     times["searchsorted_cdf"] = k6_phase(dev)
     errors["searchsorted_cdf"] = 0.0
     rows_phase(dev)
+    d2_shapes_phase(dev)
     filter_phase(dev)
     train_phase(dev)
     hmm_filter_phase(dev)
@@ -4533,6 +5177,11 @@ def main():
     sqmc_phase(dev)
     particle_gibbs_phase(dev)
     rbpf_phase(dev)
+    resample_move_phase(dev)
+    block_pf_phase(dev)
+    sampler_phase(dev)
+    smc2_phase(dev)
+    if2_phase(dev)
     kernels = []
     for name, (module, _, _, replaces) in KERNELS.items():
         launches = sum(LAUNCHES[name].values())

@@ -241,6 +241,68 @@ def test_pmmh_three_iterations_match_jax(data, monkeypatch):
     assert float(got_rate) == float(rate)
 
 
+def _lgssm_pmmh_components(lib):
+    """`build` as the JAX package's tests write it: the LGSSM components
+    built from theta's leaves (0-d tensors in the port, kept as given)."""
+    mod = jax_lgssm if lib == "jax" else lgssm
+    prop = _models()[0 if lib == "jax" else 1][3]
+
+    def build(theta):
+        return (mod.Initial(0.0, 1.0),
+                mod.Transition(mult=theta["mult"], scale=1.0),
+                mod.Emission(mult=theta["em"], scale=0.5), prop)
+
+    def log_prior(theta):
+        return -0.5 * (theta["mult"] ** 2 + theta["em"] ** 2)
+
+    return build, log_prior
+
+
+def test_pmmh_with_lgssm_components_matches_jax(data, monkeypatch):
+    """PMMH with `lgssm.Transition(mult=theta["mult"], scale=1.0)` in
+    `build`, as tests/test_csmc.py builds it: the same chain as the JAX
+    package's on replayed draws (the JAX CDF patched in), and the
+    parameters reach the components as the chain's own tensors."""
+    from aesmc_tpu_torch import resampling
+    monkeypatch.setattr(resampling, "_normalized_cumsum", lambda lw: tensor(
+        jax_resampling._normalized_cumsum(jnp.asarray(lw.detach().numpy()))))
+    _, obs = data
+    key = jax.random.PRNGKey(17)
+    theta0 = {"mult": 0.5, "em": 0.8}
+    build, log_prior = _lgssm_pmmh_components("jax")
+    thetas, lps, rate = jax.jit(lambda o, k: jax_csmc.pmmh(
+        o, build, {name: jnp.float32(v) for name, v in theta0.items()},
+        log_prior, K, 3, key=k, step_size=0.3))(obs, key)
+    k_init, k_chain = jax.random.split(key)
+    draws = [_infer_draws(k_init)]
+    for k in jax.random.split(k_chain, 3):
+        k_prop, k_run, k_acc = jax.random.split(k, 3)
+        draws.append({"normals": [np.asarray(jax.random.normal(nk, ()))
+                                  for nk in jax.random.split(k_prop, 2)]})
+        draws.append(_infer_draws(k_run))
+        draws.append({"uniforms": [np.asarray(jax.random.uniform(k_acc,
+                                                                 ()))]})
+    noise = ReplayNoise(**_merge(*draws))
+    build, log_prior = _lgssm_pmmh_components("torch")
+    seen = []
+
+    def spying_build(theta):
+        comps = build(theta)
+        seen.append((theta["mult"], comps[1].mult))
+        return comps
+
+    got, got_lps, got_rate = csmc.pmmh(tensor(obs), spying_build, theta0,
+                                       log_prior, K, 3, noise=noise,
+                                       step_size=0.3)
+    assert noise.exhausted()
+    assert all(given is kept for given, kept in seen)
+    for name in theta0:
+        np.testing.assert_allclose(got[name].numpy(),
+                                   np.asarray(thetas[name]), rtol=1e-6)
+    np.testing.assert_allclose(got_lps.numpy(), np.asarray(lps), rtol=1e-5)
+    assert float(got_rate) == float(rate)
+
+
 def test_csmc_needs_two_particles(data):
     lat, obs = data
     with pytest.raises(ValueError, match="num_particles >= 2"):
