@@ -20,7 +20,9 @@ whose resampling runs K3), conditional SMC, particle Gibbs and PMMH
 (`csmc`), the Rao-Blackwellised filter (`rbpf`) and the bouncing-ball
 deep SSM; the resample-move filter (`resample_move`), the block particle
 filter (`blockpf`), the annealed and waste-free SMC samplers
-(`samplers`), SMC^2 (`smc2`) and IF2 iterated filtering (`if2`).
+(`samplers`), SMC^2 (`smc2`) and IF2 iterated filtering (`if2`); twisted
+SMC (`twisted`: quadratic and tabular twists, the exact LGSSM and HMM
+twists, ADP twist learning) and the ensemble Kalman filter (`enkf`).
 Entry points put their tensors on the card unless the caller asks for
 the CPU (`device`). This package never imports JAX.
 """
@@ -32,6 +34,7 @@ from . import checkpoint
 from . import csmc
 from . import device
 from . import distributions
+from . import enkf
 from . import forecast
 from . import gradients
 from . import if2
@@ -56,14 +59,16 @@ from . import state
 from . import statistics
 from . import tmc
 from . import train
+from . import twisted
 from . import utils
 from . import variance
 
 __all__ = [
-    "blockpf", "checkpoint", "csmc", "device", "distributions", "forecast",
+    "blockpf", "checkpoint", "csmc", "device", "distributions", "enkf",
+    "forecast",
     "gradients", "if2", "inference", "losses", "math", "models", "noise",
     "online", "ops", "ot", "profiling", "proposals", "rbpf",
     "resample_move", "resampling", "samplers", "smc2", "smoothing", "sqmc",
-    "state", "statistics", "tmc", "train", "utils", "variance",
+    "state", "statistics", "tmc", "train", "twisted", "utils", "variance",
     "__version__",
 ]

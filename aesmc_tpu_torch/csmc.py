@@ -47,7 +47,7 @@ def _conditional_ancestors(log_weight, noise):
     detached."""
     log_weight = log_weight.detach()
     batch_size, k = log_weight.shape
-    s = torch.cumsum(noise.exponential((batch_size, k)), dim=-1)
+    s = resampling._row_cumsum(noise.exponential((batch_size, k)))
     pos = torch.clamp(s[:, :-1] / s[:, -1:], max=resample_cuda.BELOW_ONE)
     idx = resampling.inverse_cdf_indices(log_weight, pos)
     return torch.cat([torch.zeros_like(idx[:, :1]), idx], dim=1)

@@ -68,6 +68,17 @@ def cholesky(covariance: torch.Tensor) -> torch.Tensor:
                        tril)
 
 
+def cho_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """``A^{-1} rhs`` for ``A = chol chol^T``, ``chol`` `[..., n, n]` lower
+    and ``rhs`` `[..., n, m]` (`jax.scipy.linalg.cho_solve`): two
+    triangular solves, cuBLAS' trsm on the card, which a CUDA graph
+    captures. `torch.cholesky_solve` is not used: captured on an H100, it
+    aborts the process in MAGMA."""
+    half = torch.linalg.solve_triangular(chol, rhs, upper=False)
+    return torch.linalg.solve_triangular(chol.transpose(-1, -2), half,
+                                         upper=True)
+
+
 def _float(x) -> torch.Tensor:
     """A tensor or a Python number as a floating-point tensor (a number as
     a 0-d float32 tensor on the CPU, to be broadcast)."""

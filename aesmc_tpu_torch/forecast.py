@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from . import state
+from . import resampling, state
 from .inference import DeviceTimeIndex, TimeIndex, _stack_time
 
 __all__ = ["forecast", "forecast_online", "weighted_quantiles",
@@ -110,7 +110,7 @@ def weighted_quantiles(values, log_weight, qs):
     order = torch.argsort(values, dim=1, stable=True)
     sorted_vals = torch.take_along_dim(values, order, dim=1)
     w = torch.softmax(log_weight, dim=1)
-    cum = torch.cumsum(torch.take_along_dim(w, order, dim=1), dim=1)
+    cum = resampling._row_cumsum(torch.take_along_dim(w, order, dim=1))
     q = torch.as_tensor(qs, dtype=cum.dtype, device=cum.device)
     idx = torch.searchsorted(cum, q.expand(cum.shape[0], -1).contiguous())
     idx = idx.clamp_(0, values.shape[1] - 1)

@@ -4,7 +4,7 @@ volatility, the conjugate-Gaussian test model, the discrete-latent
 HMM with its exact forward-backward oracles, the VRNN (a GRU over the
 observations and MLP transition, emission and proposal), Lorenz-96 and
 the bouncing ball (a deep SSM with an MLP emission residual and an
-amortized MLP proposal)."""
+amortized MLP proposal, and its twisted-SMC view `gaussian_spec`)."""
 
 from . import bouncing_ball
 from . import gaussian

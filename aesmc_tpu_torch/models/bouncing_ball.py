@@ -14,10 +14,8 @@ The emission adds a learned MLP residual to the renderer; the proposal is
 an amortized MLP encoder over (previous latent, current frame). The
 reflection is the triangular wave, with no data-dependent branch.
 `from_numpy` carries the JAX model's parameters across (MLP weights in
-the JAX `[in, out]` layout, and the log-noises).
-
-`gaussian_spec` (the twisted-SMC view of the dynamics) is not ported
-yet: it needs `twisted`.
+the JAX `[in, out]` layout, and the log-noises). `gaussian_spec` is the
+twisted-SMC view of the dynamics (`twisted.GaussianSSMSpec`).
 """
 
 from __future__ import annotations
@@ -190,6 +188,44 @@ class Proposal(nn.Module):
         inp = torch.cat([prev, y_expanded], dim=-1)
         return self._dist(self.encoder_t(inp),
                           BatchShapeMode.FULLY_EXPANDED)
+
+
+def gaussian_spec(transition: Transition, initial: Optional[Initial] = None):
+    """`twisted.GaussianSSMSpec` view of the bouncing-ball dynamics, on the
+    transition's device and in its dtype.
+
+    The transition is a diagonal Gaussian around the reflection map, so
+    twisted SMC's closed-form Gaussian kernels apply as they are; the
+    renderer emission makes the optimal twist p(y_{t:T-1} | x_t) far from
+    log-quadratic in x_t (the deep-model regime of `twisted.learn_twist`).
+    The scales come from the transition's log-noises (not detached) and
+    the initial's scales (``Initial()``'s when None).
+    """
+    from .. import twisted
+
+    if initial is None:
+        initial = Initial()
+    like = transition.log_pos_noise
+
+    def mean_fn(prev, time):
+        del time
+        p, v = prev[..., 0], prev[..., 1]
+        raw = p + DT * v
+        return torch.stack([reflect(raw), v * reflected_velocity_sign(raw)],
+                           dim=-1)
+
+    def const(values):
+        return torch.stack([torch.full((), v, dtype=like.dtype,
+                                       device=like.device) for v in values])
+
+    return twisted.GaussianSSMSpec(
+        initial_loc=const([0.5, 0.0]),
+        initial_scale=const([initial.position_scale,
+                             initial.velocity_scale]),
+        transition_scale=torch.stack(
+            [torch.exp(transition.log_pos_noise),
+             torch.exp(transition.log_vel_noise)]).to(like.dtype),
+        mean_fn=mean_fn)
 
 
 def make_model(generator: Optional[torch.Generator] = None,

@@ -18,9 +18,9 @@ Cholesky factor, solve and product each, where the JAX package maps a
 per-particle function. Every Cholesky factor goes through
 `distributions.cholesky`: no host read, and NaN where a matrix is not
 positive definite, as in the JAX package. The gain's Cholesky solve
-(`jax.scipy.linalg.cho_solve` there) is its two batched triangular
-solves; `chip_smoke.py` phase 21 times it against `torch.cholesky_solve`
-on the card.
+(`jax.scipy.linalg.cho_solve` there) is `distributions.cho_solve`, two
+batched triangular solves; `chip_smoke.py` phase 21 times it against
+`torch.cholesky_solve` on the card.
 
 Contract of the user's functions: ``transition_mean``, ``emission_mean``
 and callable covariances take one particle (`[D]`, or a 0-d tensor in
@@ -136,14 +136,10 @@ class EKFProposal(nn.Module):
             c = torch.einsum("n,Nni,Nnj->Nij", w, deltas, dg)
         s = 0.5 * (s + s.transpose(-1, -2))
         chol = dists.cholesky(s)
-        # gain = c S^{-1} (the JAX package's cho_solve of S X = c^T): the
-        # two triangular solves of a Cholesky solve, each one batched
-        # call for every particle.
-        half = torch.linalg.solve_triangular(chol, c.transpose(-1, -2),
-                                             upper=False)
-        gain = torch.linalg.solve_triangular(
-            chol.transpose(-1, -2), half, upper=True).transpose(
-                -1, -2)                                      # [N, D, Do]
+        # gain = c S^{-1} (the JAX package's cho_solve of S X = c^T), one
+        # batched call for every particle.
+        gain = dists.cho_solve(chol, c.transpose(-1, -2)).transpose(
+            -1, -2)                                          # [N, D, Do]
         loc = m + (gain @ (y - gm)[..., None])[..., 0]
         cov = p - gain @ s @ gain.transpose(-1, -2)
         return loc, 0.5 * (cov + cov.transpose(-1, -2))

@@ -17,7 +17,8 @@ The per-particle Kalman recursion is batched `[B, K]` products. The
 innovation covariance is inverted in closed form for Do <= 3 and by an
 exact 2x2-block Schur recursion on those closed forms for 4 <= Do <= 8
 (`_psd_inverse_small`); above 8 it takes `distributions.cholesky`
-(`cholesky_ex`, whose error flag stays on the device). None of these reads
+(`cholesky_ex`, whose error flag stays on the device) and
+`distributions.cho_solve`. None of these reads
 the device, so a call can be captured in a CUDA graph. ESS-triggered
 resampling mixes identity and resampled rows per batch row; the ancestors
 come from the port's resampling router (on the card systematic runs K1
@@ -98,7 +99,9 @@ def _psd_inverse_small(s):
     h x h block, h = ceil(Do / 2): the inverses and log-determinants of A
     and of D - B^T A^-1 B come from the closed forms, so it is exact and
     made of batched products only. Above 8, `distributions.cholesky` and
-    a Cholesky solve. Nothing reads the device.
+    `distributions.cho_solve` (two triangular solves; a captured
+    `torch.cholesky_solve` aborts the process). Nothing reads the
+    device.
     """
     do = s.shape[-1]
     if 4 <= do <= 8:
@@ -144,7 +147,7 @@ def _psd_inverse_small(s):
     log_det = 2.0 * torch.sum(
         torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
     eye = torch.eye(do, dtype=s.dtype, device=s.device).expand(s.shape)
-    return log_det, torch.cholesky_solve(eye, chol)
+    return log_det, dists.cho_solve(chol, eye)
 
 
 def _gaussian_update(m_pred, p_pred, c, d, r, y):

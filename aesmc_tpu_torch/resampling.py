@@ -85,7 +85,11 @@ def _row_cumsum(x):
     CUB's single-pass scan, whose float32 sums vary from run to run (so
     the same noise could draw other ancestors); rows of two or more go to
     its per-row scan, whose sums do not. One row on a card is therefore
-    scanned in two levels (`_two_level_cumsum`)."""
+    scanned in two levels (`_two_level_cumsum`). Every float scan over
+    the particles goes through here: the resampling CDFs and multinomial
+    positions, the residual CDF, SQMC's sorted CDF, the conditional
+    ancestors' spacings (`csmc`), the rejection smoother's proposal table
+    and the forecast quantiles."""
     if x.is_cuda and x.shape[0] == 1:
         return _two_level_cumsum(x)
     return torch.cumsum(x, dim=-1)
@@ -206,7 +210,7 @@ def residual_indices(log_weight, noise):
     residual = kw - copies
     res_total = torch.clamp(k - det_total, min=1e-30)
     cum_res = _pin_last(torch.cummax(
-        torch.cumsum(residual / res_total, dim=1), dim=1).values)
+        _row_cumsum(residual / res_total), dim=1).values)
     u = noise.uniform((batch_size, k))
     res_idx = torch.searchsorted(cum_res, u, right=True)
     idx = torch.where(slots < det_total, det_idx, res_idx)

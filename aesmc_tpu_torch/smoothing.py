@@ -103,7 +103,7 @@ def _categorical(logits, noise):
 def _weights_cdf(log_weight):
     """The plain inverse-CDF table of the rejection proposals:
     cumsum(softmax(log w)), as the JAX package builds it."""
-    return torch.cumsum(torch.softmax(log_weight, dim=1), dim=1)
+    return resampling._row_cumsum(torch.softmax(log_weight, dim=1))
 
 
 def _auto_log_bound(transition, prev_latent, time, prev_obs_list):

@@ -484,7 +484,7 @@ def _sorted_cdf(log_weight, sigma):
     logw_sorted = torch.take_along_dim(log_weight.detach(), sigma.long(),
                                        dim=1)
     w_sorted = amath.exponentiate_and_normalize(logw_sorted, dim=1)
-    return torch.cummax(torch.cumsum(w_sorted, dim=1), dim=1).values
+    return torch.cummax(resampling._row_cumsum(w_sorted), dim=1).values
 
 
 def _hilbert_ancestors(cdf, sigma, u_first, cuda: bool):

@@ -225,3 +225,26 @@ def test_from_covariance_factor_matches_jax(covariance):
     np.testing.assert_array_equal(np.isnan(got),
                                   np.isnan(np.asarray(
                                       jnp.linalg.cholesky(covariance))))
+
+
+@pytest.mark.parametrize("n, m", [(1, 1), (4, 4), (9, 9), (9, 2)])
+def test_cho_solve_matches_jax(n, m):
+    """`cho_solve` (two triangular solves) against the JAX package's
+    `jax.scipy.linalg.cho_solve` on a batch of positive-definite float32
+    matrices (within 1e-5 relative), and against `np.linalg.solve` in
+    float64 (within 1e-10)."""
+    rng = np.random.RandomState(n + m)
+    a = rng.randn(3, n, n)
+    spd = a @ a.transpose(0, 2, 1) + n * np.eye(n)
+    rhs = rng.randn(3, n, m)
+    got = dists.cho_solve(dists.cholesky(torch.tensor(spd)),
+                          torch.tensor(rhs)).numpy()
+    np.testing.assert_allclose(got, np.linalg.solve(spd, rhs), rtol=1e-10,
+                               atol=1e-10)
+    spd32, rhs32 = spd.astype(np.float32), rhs.astype(np.float32)
+    got32 = dists.cho_solve(dists.cholesky(tensor(spd32)),
+                            tensor(rhs32)).numpy()
+    want32 = jax.vmap(lambda s, r: jax.scipy.linalg.cho_solve(
+        (jnp.linalg.cholesky(s), True), r))(spd32, rhs32)
+    np.testing.assert_allclose(got32, np.asarray(want32), rtol=1e-5,
+                               atol=1e-6)

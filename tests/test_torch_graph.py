@@ -17,6 +17,10 @@ The streaming filter (`online`): a step captured in a CUDA graph
 eager `step_fn` calls from the same generator state bit for bit, and so
 does a captured `batched_steps`; the step exported with `torch.export`
 and loaded back equals the live step and launches K1 inside the program.
+
+The RBPF at Do = 9 (the innovation solve's Cholesky branch) captured in a
+CUDA graph equals an eager call from the same generator state (a captured
+`torch.cholesky_solve` aborted the process there).
 """
 
 import pytest
@@ -24,7 +28,7 @@ import torch
 
 from torch.utils import _pytree as pytree
 
-from aesmc_tpu_torch import online, statistics, train
+from aesmc_tpu_torch import distributions, online, rbpf, statistics, train
 from aesmc_tpu_torch.models import lgssm
 from aesmc_tpu_torch.noise import NoiseSource
 from aesmc_tpu_torch.ops import resample_cuda
@@ -150,3 +154,37 @@ def test_exported_step_launches_k1_and_equals_live_step(card):
     assert resample_cuda.LAUNCHES == before + 1
     assert _same((online._fields(live[0]), live[1]),
                  (online._fields(loaded[0]), loaded[1]))
+
+
+@pytest.mark.cuda
+def test_graphed_rbpf_cholesky_branch_equals_eager(card):
+    do, d = 9, 2
+    generator = torch.Generator(device=card).manual_seed(3)
+    obs = torch.randn(T, B, do, generator=generator, device=card)
+    c = torch.randn(do, d, generator=generator, device=card)
+    r = 0.09 * torch.eye(do, device=card) + 0.01
+    logits = torch.log(torch.tensor([[0.85, 0.15], [0.3, 0.7]],
+                                    device=card))
+    scales = torch.tensor([0.95, 0.2], device=card)
+    eye = torch.eye(d, device=card)
+    noise = NoiseSource.seeded(4, card)
+
+    def call():
+        return rbpf.rbpf(
+            obs, lambda: distributions.Categorical(logits=logits[0]),
+            lambda previous_latents, time: distributions.Categorical(
+                logits=logits[previous_latents[0].long()]),
+            lambda u0: (torch.zeros(d, device=card), eye),
+            lambda u, time: (scales[u.long()][..., None, None] * eye,
+                             torch.zeros(d, device=card), 0.5 * eye),
+            lambda u, time: (c, torch.zeros(do, device=card), r),
+            K, noise=noise)["log_marginal_likelihood"]
+
+    train._warm_up(call, 1)
+    graph, out = train._capture(call, noise.generator)
+    state = noise.generator.get_state()
+    graph.replay()
+    replayed = out.clone()
+    noise.generator.set_state(state)
+    assert torch.isfinite(replayed).all()
+    assert torch.equal(replayed, call())
