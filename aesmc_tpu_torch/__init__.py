@@ -22,7 +22,10 @@ deep SSM; the resample-move filter (`resample_move`), the block particle
 filter (`blockpf`), the annealed and waste-free SMC samplers
 (`samplers`), SMC^2 (`smc2`) and IF2 iterated filtering (`if2`); twisted
 SMC (`twisted`: quadratic and tabular twists, the exact LGSSM and HMM
-twists, ADP twist learning) and the ensemble Kalman filter (`enkf`).
+twists, ADP twist learning) and the ensemble Kalman filter (`enkf`); the
+multi-device layer on `torch.distributed` (`parallel`: distributed
+resampling with all-gather and ring exchanges, `infer`/`get_loss`/the
+streaming filter with ``mesh=``, the sharded train step, island SMC).
 Entry points put their tensors on the card unless the caller asks for
 the CPU (`device`). This package never imports JAX.
 """
@@ -46,6 +49,7 @@ from . import noise
 from . import online
 from . import ops
 from . import ot
+from . import parallel
 from . import profiling
 from . import proposals
 from . import rbpf
@@ -54,6 +58,7 @@ from . import resampling
 from . import samplers
 from . import smc2
 from . import smoothing
+from . import sharding_utils
 from . import sqmc
 from . import state
 from . import statistics
@@ -67,8 +72,9 @@ __all__ = [
     "blockpf", "checkpoint", "csmc", "device", "distributions", "enkf",
     "forecast",
     "gradients", "if2", "inference", "losses", "math", "models", "noise",
-    "online", "ops", "ot", "profiling", "proposals", "rbpf",
-    "resample_move", "resampling", "samplers", "smc2", "smoothing", "sqmc",
+    "online", "ops", "ot", "parallel", "profiling", "proposals", "rbpf",
+    "resample_move", "resampling", "samplers", "sharding_utils", "smc2",
+    "smoothing", "sqmc",
     "state", "statistics", "tmc", "train", "twisted", "utils", "variance",
     "__version__",
 ]

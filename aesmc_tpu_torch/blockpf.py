@@ -201,7 +201,7 @@ def block_pf(observations,
         resampling_method / resampling_implementation: the per-block
             resampler, one call on the `[J B, K]` weights a step ('auto':
             the kernels for CUDA tensors). A callable (distributed)
-            implementation is slice E of the port and raises
+            implementation is slice E2 of the port and raises
             NotImplementedError.
         remat: recompute each step in the backward
             (`torch.utils.checkpoint`) instead of keeping its activations.
@@ -218,7 +218,7 @@ def block_pf(observations,
     if callable(resampling_implementation):
         raise NotImplementedError(
             "block_pf's distributed (callable) resampling_implementation is "
-            "not ported yet: multi-device is slice E of the port")
+            "not ported yet: multi-device is slice E2 of the port")
     stacked_obs = _inference.stack_observations(observations)
     obs_seq = _inference.ObservationSequence(stacked_obs)
     num_timesteps = len(obs_seq)

@@ -81,7 +81,7 @@ def if2(observations,
             swarm at the start of every iteration.
         resampling_method / resampling_implementation: the joint (state,
             theta) resampler ('auto': the kernels for CUDA tensors). A
-            callable (distributed) implementation is slice E of the port
+            callable (distributed) implementation is slice E2 of the port
             and raises NotImplementedError.
 
     Returns:
@@ -93,7 +93,7 @@ def if2(observations,
     if callable(resampling_implementation):
         raise NotImplementedError(
             "if2's distributed (callable) resampling_implementation is not "
-            "ported yet: multi-device is slice E of the port")
+            "ported yet: multi-device is slice E2 of the port")
     stacked_obs = stack_observations(observations)
     obs_seq = ObservationSequence(stacked_obs)
     num_timesteps = len(obs_seq)

@@ -30,9 +30,20 @@ ESS-adaptive resampling (`resampling_criterion`), the auxiliary particle
 filter (`lookahead`), history windows (`history_window`), entropy-
 regularized OT resampling (`resampling_method='ot'`, `ot`), the NaN guard
 (`nan_check`) and rematerialization (`remat`, `torch.utils.checkpoint`
-per time step) follow the JAX package. Not ported yet: `mesh` and the
-callable (distributed) `resampling_implementation` (slice E of the port,
-multi-device).
+per time step) follow the JAX package.
+
+Several ranks (`mesh`): every rank runs `infer` on its block, the
+observations' rows of its data shard (`[T, B / data, ...]`,
+`parallel.shard_batch`) and K / particle particles of each. Every
+reduction over the particle axis is then a collective over the particle
+group (the log-Z terms, the ESS of adaptive resampling), the per-particle
+draws are this rank's block of the single-device run's draws
+(`noise.ShardNoise`), and resampling is distributed
+(`parallel.dist_resampling`): a callable ``resampling_implementation``, or
+by default the all-gather exchange of the same method. Lineages are
+traced over the whole particle axis: the stacked latents and ancestors
+are gathered over the particle group at the end, O(T B_l K) values a
+rank.
 
 log-Z sums the steps' contributions in time order, one addition a step
 (`_sum_in_order`), as the streaming filter (`online`) accumulates them,
@@ -222,7 +233,10 @@ def infer(inference_algorithm: str,
           return_original_latents: bool = False,
           return_log_weight: bool = True,
           return_log_weights: bool = False,
-          return_ancestral_indices: bool = False) -> dict:
+          return_ancestral_indices: bool = False,
+          mesh=None,
+          data_axis: str = "data",
+          particle_axis: str = "particle") -> dict:
     """Particle filtering ('smc') or importance sampling ('is') on an SSM.
 
     Args:
@@ -259,7 +273,8 @@ def infer(inference_algorithm: str,
             ``return_latents=False``, no ancestral indices, W = 1 and the
             'always' criterion.
         resampling_implementation: 'auto' | 'cuda' | 'torch' (see
-            `resampling`).
+            `resampling`), or a callable resampler of
+            `parallel.dist_resampling` (with ``mesh``).
         resampling_criterion: 'always' (resample at every step) or a
             float ``frac``: ESS-adaptive SMC ('smc' only; not with
             'soft'). Every row goes through the same resampling call at
@@ -293,6 +308,12 @@ def infer(inference_algorithm: str,
             The step's noise is drawn once, in the forward, and handed to
             the recompute.
         return_*: which outputs to materialize, as in the JAX package.
+        mesh, data_axis, particle_axis: a `DeviceMesh` (`parallel.
+            make_mesh`) and the names of its batch and particle axes: this
+            rank runs its block (module docstring). ``num_particles`` is
+            the whole cloud's K; the outputs are this rank's blocks
+            (log-Z `[B_l]`, the same on every particle rank; ancestors
+            as global indices). Not with 'ot' or 'residual'.
 
     Returns:
         dict with keys log_marginal_likelihood `[batch]`, latents
@@ -316,7 +337,8 @@ def infer(inference_algorithm: str,
         return_original_latents=return_original_latents,
         return_log_weight=return_log_weight,
         return_log_weights=return_log_weights,
-        return_ancestral_indices=return_ancestral_indices)
+        return_ancestral_indices=return_ancestral_indices, mesh=mesh,
+        data_axis=data_axis, particle_axis=particle_axis)
     _raise_if_nan(has_nan)
     return result
 
@@ -435,14 +457,44 @@ def _check_options(inference_algorithm, resampling_method,
 
 
 def _resolve_implementation(device, resampling_method,
-                            resampling_implementation):
+                            resampling_implementation, cloud=None,
+                            soft_resampling_alpha=0.5):
     """`resampling.resolve_implementation`, with 'ot' (no kernel: torch ops
-    on every device) checked as a route name only."""
+    on every device) checked as a route name only. On a mesh (``cloud``)
+    a callable must be given or is made: the all-gather exchange of the
+    same method."""
+    if cloud is not None:
+        _check_mesh_method(resampling_method)
+        if callable(resampling_implementation):
+            return resampling_implementation
+        resampling._route(device, resampling_implementation)
+        from .parallel import dist_resampling
+        return dist_resampling.make_distributed_fused_resampler(
+            cloud.mesh, cloud.data_axis, cloud.particle_axis,
+            method=resampling_method, soft_alpha=soft_resampling_alpha)
+    if callable(resampling_implementation):
+        if getattr(resampling_implementation, "mesh", None) is not None:
+            raise ValueError(
+                "a distributed resampler needs mesh= (the engine's "
+                "particle-axis reductions cross the mesh too)")
+        return resampling_implementation
     if resampling_method == "ot":
         resampling._route(device, resampling_implementation)
         return "torch"
     return resampling.resolve_implementation(device, resampling_method,
                                              resampling_implementation)
+
+
+def _check_mesh_method(method):
+    if method == "ot":
+        raise NotImplementedError(
+            "resampling_method='ot' with mesh= is not ported yet; it comes "
+            "with slice E2 of the port (ot.distributed_ot_resample)")
+    if method == "residual":
+        raise ValueError(
+            "residual resampling has no distributed form (its query set is "
+            "not a monotone position grid); use systematic, stratified, "
+            "multinomial or soft with mesh=")
 
 
 def _sum_in_order(values):
@@ -454,7 +506,7 @@ def _sum_in_order(values):
 def _resample_step(prev_log_weight, values, noise, time, prev_latents,
                    observations, method, implementation, need_ancestors,
                    alpha=0.5, lookahead=None, ess_threshold=None, ot=None,
-                   log_sum=None):
+                   log_sum=None, cloud=None):
     """The resampling of an 'smc' step, shared by `infer` and the streaming
     filter (`online`).
 
@@ -473,6 +525,9 @@ def _resample_step(prev_log_weight, values, noise, time, prev_latents,
         ot: (epsilon, num_iterations, block_size, rank) of 'ot'.
         log_sum: ``logsumexp(prev_log_weight, dim=1)`` if the caller has
             it already.
+        cloud: this rank's `sharding_utils.Cloud` on a mesh, or None: the
+            particle-axis reductions then cross the particle group, and
+            ``implementation`` is a distributed callable.
 
     Returns:
         (ancestral_index or None, ``values`` resampled (None for None),
@@ -480,11 +535,19 @@ def _resample_step(prev_log_weight, values, noise, time, prev_latents,
         contribution to log-Z `[B]`, the rows that resampled `[B]` bool or
         None when every row did).
     """
+    lse = _particle_logsumexp(cloud)
+    num_particles = prev_log_weight.shape[1] * (
+        1 if cloud is None else cloud.n_particle)
     if log_sum is None:
-        log_sum = torch.logsumexp(prev_log_weight, dim=1)
-    contribution = log_sum - _stdmath.log(prev_log_weight.shape[1])
+        log_sum = lse(prev_log_weight)
+    contribution = log_sum - _stdmath.log(num_particles)
     base = idx = None
-    if method == "ot":
+    if callable(implementation):
+        idx, out, base = _callable_step(
+            prev_log_weight, values, noise, time, prev_latents,
+            observations, method, implementation, alpha, lookahead,
+            log_sum, lse)
+    elif method == "ot":
         # Transported, not selected: no ancestors; uniform weights next.
         epsilon, num_iterations, block_size, rank = ot
         if rank is not None:
@@ -525,12 +588,12 @@ def _resample_step(prev_log_weight, values, noise, time, prev_latents,
     # Per row, without a host-side branch: rows whose ESS is below the
     # threshold take the resampled particles; the others keep theirs,
     # with identity ancestors and accumulated weights.
-    ess = torch.exp(2 * log_sum -
-                    torch.logsumexp(2 * prev_log_weight, dim=1))
+    ess = torch.exp(2 * log_sum - lse(2 * prev_log_weight))
     do = ess < ess_threshold                                     # [B]
     if idx is not None:
+        offset = 0 if cloud is None else cloud.offset(idx.shape[1])
         identity = torch.arange(
-            prev_log_weight.shape[1], dtype=idx.dtype,
+            offset, offset + prev_log_weight.shape[1], dtype=idx.dtype,
             device=idx.device).expand_as(idx)
         idx = torch.where(do[:, None], idx, identity)
     contribution = torch.where(do, contribution,
@@ -544,6 +607,48 @@ def _resample_step(prev_log_weight, values, noise, time, prev_latents,
     return idx, out, base, contribution, do
 
 
+def _particle_logsumexp(cloud):
+    """logsumexp over the particle axis (dim 1): local, or across the
+    particle group of ``cloud``."""
+    if cloud is None:
+        return lambda x: torch.logsumexp(x, dim=1)
+    return cloud.logsumexp
+
+
+def _callable_step(prev_log_weight, values, noise, time, prev_latents,
+                   observations, method, implementation, alpha, lookahead,
+                   log_sum, lse):
+    """`_resample_step`'s resampling through a callable implementation:
+    (ancestral_index, resampled values, base of the next log-weights or
+    None)."""
+    if method == "soft":
+        resampling.check_soft_callable(implementation, alpha)
+        idx, base, out = resampling._call(implementation, prev_log_weight,
+                                          noise, values, log_sum=log_sum)
+        return idx, out, base
+    if lookahead is not None:
+        log_nu = lookahead(previous_latents=prev_latents, time=time,
+                           observations=observations)
+        first_stage = prev_log_weight + log_nu
+        first_sum = lse(first_stage)
+        wrapped = ({"nu": log_nu} if values is None else
+                   {"latent": values, "nu": log_nu})
+        idx, out = resampling.callable_resample(
+            implementation, first_stage.detach(), noise, wrapped,
+            first_sum.detach())
+        base = first_sum[:, None] - log_sum[:, None] - out["nu"]
+        return idx, out.get("latent"), base
+    # The resampler's normalization is the log-Z term's logsumexp.
+    log_sum = log_sum.detach()
+    if values is None:
+        return resampling.callable_indices(
+            implementation, prev_log_weight.detach(), noise,
+            log_sum), None, None
+    idx, out = resampling.callable_resample(
+        implementation, prev_log_weight.detach(), noise, values, log_sum)
+    return idx, out, None
+
+
 def _infer(inference_algorithm, observations, initial, transition, emission,
            proposal, num_particles, noise=None, lookahead=None,
            resampling_method="systematic", resampling_implementation="auto",
@@ -552,7 +657,8 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
            ot_rank=None, history_window=1, nan_check=False, remat=False,
            return_log_marginal_likelihood=False, return_latents=True,
            return_original_latents=False, return_log_weight=True,
-           return_log_weights=False, return_ancestral_indices=False):
+           return_log_weights=False, return_ancestral_indices=False,
+           mesh=None, data_axis="data", particle_axis="particle"):
     """`infer`, returning (result, NaN flag) without reading the flag: a
     device bool that is True when any pre-resampling log-weight was NaN,
     or None when ``nan_check`` is off or the algorithm is 'is'."""
@@ -568,22 +674,35 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
     if noise is None:
         noise = NoiseSource.seeded(0, first.device)
     is_smc = inference_algorithm == "smc"
-    implementation = _resolve_implementation(
-        first.device, resampling_method, resampling_implementation)
+    cloud = None
+    if mesh is not None:
+        from .sharding_utils import Cloud
+        cloud = Cloud(mesh, data_axis, particle_axis)
+    implementation = (_resolve_implementation(
+        first.device, resampling_method, resampling_implementation, cloud,
+        soft_resampling_alpha) if is_smc or cloud is None else None)
     adaptive = is_smc and resampling_criterion != "always"
     ess_threshold = (float(resampling_criterion) * num_particles
                      if adaptive else None)
     ot_options = (ot_epsilon, ot_num_iterations, ot_block_size, ot_rank)
     window = history_window
 
+    # This rank's particles, and its view of the draws.
+    local_k = (num_particles if cloud is None else
+               cloud.local_particles(num_particles))
+    lse = _particle_logsumexp(cloud)
+
+    def view(source):
+        return source if cloud is None else cloud.noise(source)
+
     # ---- t = 0 (hoisted: `time` is the int 0).
     proposal_dist = proposal(time=0, observations=obs_seq)
-    latent_0 = state.sample(proposal_dist, batch_size, num_particles, noise)
+    latent_0 = state.sample(proposal_dist, batch_size, local_k, view(noise))
     proposal_log_prob = state.log_prob(proposal_dist, latent_0)
     initial_log_prob = state.log_prob(initial(), latent_0)
     emission_log_prob = state.log_prob(
         emission(latents=[latent_0], time=0),
-        state.expand_observation(obs_seq[0], num_particles))
+        state.expand_observation(obs_seq[0], local_k))
     log_weight_0 = initial_log_prob + emission_log_prob - proposal_log_prob
 
     log_num_particles = _stdmath.log(num_particles)
@@ -600,6 +719,7 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
         """Time step t >= 1 from the last W original latents: (latent_t,
         log_weight_t, ancestral_index, contribution to log-Z)."""
         time = TimeIndex(t)
+        noise = view(noise)
         prev_obs_list = [obs_seq[max(t - window + i, 0)]
                          for i in range(window)]
         ancestral_index = contribution = base = None
@@ -611,9 +731,15 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
                     prev_latents, obs_seq, resampling_method,
                     implementation, need_ancestors,
                     alpha=soft_resampling_alpha, lookahead=lookahead,
-                    ess_threshold=ess_threshold, ot=ot_options)
+                    ess_threshold=ess_threshold, ot=ot_options, cloud=cloud)
             if window == 1:
                 previous_latents = [resampled]
+            elif cloud is not None:
+                from .parallel import dist_resampling
+                previous_latents = [
+                    dist_resampling.distributed_resample_particles(
+                        x, ancestral_index, cloud.particle_group)
+                    for x in prev_latents]
             else:
                 previous_latents = [state.resample(x, ancestral_index)
                                     for x in prev_latents]
@@ -624,8 +750,7 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
             previous_latents = prev_latents
         proposal_dist = proposal(previous_latents=previous_latents,
                                  time=time, observations=obs_seq)
-        latent_t = state.sample(proposal_dist, batch_size, num_particles,
-                                noise)
+        latent_t = state.sample(proposal_dist, batch_size, local_k, noise)
         proposal_lp = state.log_prob(proposal_dist, latent_t)
         transition_lp = state.log_prob(
             transition(previous_latents=previous_latents, time=time,
@@ -635,7 +760,7 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
         emission_lp = state.log_prob(
             emission(latents=prev_latents[1:] + [latent_t], time=time,
                      previous_observations=prev_obs_list),
-            state.expand_observation(obs_seq[t], num_particles))
+            state.expand_observation(obs_seq[t], local_k))
         # With no base (always-resampling) the new weight is the increment.
         log_weight_t = transition_lp + emission_lp - proposal_lp
         if base is not None:
@@ -686,7 +811,7 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
     if is_smc:
         ancestral_indices = (
             torch.stack(ancestors, dim=0) if ancestors else
-            torch.zeros((0, batch_size, num_particles), dtype=torch.int32,
+            torch.zeros((0, batch_size, local_k), dtype=torch.int32,
                         device=first.device))
     else:
         ancestral_indices = None
@@ -697,19 +822,24 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
         if return_log_marginal_likelihood:
             summed = _sum_in_order(contributions) if contributions else 0.0
             log_marginal_likelihood = (
-                summed + torch.logsumexp(last_log_weight, dim=1) -
-                log_num_particles)
+                summed + lse(last_log_weight) - log_num_particles)
         else:
             log_marginal_likelihood = None
-        traced = (get_resampled_latents(original_latents, ancestral_indices)
-                  if return_latents else None)
+        if not return_latents:
+            traced = None
+        elif cloud is None:
+            traced = get_resampled_latents(original_latents,
+                                           ancestral_indices)
+        else:
+            traced = _traced_on_mesh(original_latents, ancestral_indices,
+                                     cloud)
         log_weight = last_log_weight if return_log_weight else None
     else:
         if return_log_marginal_likelihood or return_log_weight:
             total_log_weight = stacked_log_weights.sum(dim=0)  # [B, K]
         if return_log_marginal_likelihood:
             log_marginal_likelihood = (
-                torch.logsumexp(total_log_weight, dim=1) - log_num_particles)
+                lse(total_log_weight) - log_num_particles)
         else:
             log_marginal_likelihood = None
         traced = original_latents if return_latents else None
@@ -728,6 +858,23 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
             else None,
         "last_latent": last_latent,
     }, has_nan
+
+
+def _traced_on_mesh(latents, ancestral_indices, cloud):
+    """This rank's columns of the lineages traced over the whole particle
+    axis: the stacked latents `[T, B_l, K_l, ...]` and the global
+    ancestors `[T-1, B_l, K_l]` are gathered over the particle group
+    (O(T B_l K) values a rank), traced, and cut back to this rank's
+    particles."""
+    full = state.tree_map(lambda x: cloud.gather_particles(x, dim=2),
+                          latents)
+    full_ancestors = (cloud.gather_particles(ancestral_indices, dim=2)
+                      if ancestral_indices.shape[0] else ancestral_indices)
+    traced = get_resampled_latents(full, full_ancestors)
+    k_local = ancestral_indices.shape[2] if ancestral_indices.shape[0] \
+        else _first_leaf(latents).shape[2]
+    start = cloud.offset(k_local)
+    return state.tree_map(lambda x: x[:, :, start:start + k_local], traced)
 
 
 def get_resampled_latents(latents, ancestral_indices):

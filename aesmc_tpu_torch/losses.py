@@ -19,6 +19,12 @@ the range-sum kernel (K2). ``gradient_estimator='score'`` ('aesmc' with
 multinomial resampling) adds the score-function term of the ancestor
 draws, which makes the gradient of E[log Z] unbiased (`gradients`); the
 loss value stays the same.
+
+With ``mesh`` (several ranks, `parallel`) every rank runs the objective
+on its block (`inference.infer(mesh=...)`): the batch mean crosses the
+data group, so every rank returns the same loss. The average over the
+mesh's ranks of the gradients their backward passes give is the
+single-device gradient (`parallel.make_sharded_train_step` takes it).
 """
 
 from __future__ import annotations
@@ -83,10 +89,16 @@ def _objective(observations, num_particles, algorithm, initial, transition,
                ot_rank=None, lookahead=None, history_window=1, remat=False,
                gradient_estimator="pathwise", score_baseline="batch",
                pairwise="auto", block_size=None, nan_check=False,
-               with_metrics=False):
+               with_metrics=False, mesh=None, data_axis="data",
+               particle_axis="particle"):
     """(loss, metrics or None, NaN flag): the flag is a device bool left
     unread (None when nothing was checked): `inference._infer`'s, or for
     'tmc' whether the loss is NaN."""
+    if mesh is not None and (algorithm == "tmc" or
+                             gradient_estimator != "pathwise"):
+        raise NotImplementedError(
+            "mesh= covers the 'iwae' and 'aesmc' objectives with the "
+            "pathwise estimator")
     if algorithm == "tmc":
         # Tensor Monte Carlo: no resampling, so the resampling_* options
         # and the estimator do not apply; always rematerialized (the
@@ -118,16 +130,37 @@ def _objective(observations, num_particles, algorithm, initial, transition,
         ot_rank=ot_rank, history_window=history_window, nan_check=nan_check,
         remat=remat, return_log_marginal_likelihood=True,
         return_latents=False, return_log_weight=with_metrics,
-        return_log_weights=score, return_ancestral_indices=score)
-    elbo = result["log_marginal_likelihood"].mean()
+        return_log_weights=score, return_ancestral_indices=score,
+        mesh=mesh, data_axis=data_axis, particle_axis=particle_axis)
+    log_z = result["log_marginal_likelihood"]
+    cloud = None
+    if mesh is not None:
+        from .sharding_utils import Cloud
+        cloud = Cloud(mesh, data_axis, particle_axis)
+    elbo = _batch_mean(log_z, cloud)
     metrics = None
     if with_metrics:
-        ess = statistics.ess(result["log_weight"]).mean()
-        metrics = {"elbo": elbo.detach(), "ess": ess.detach()}
+        if cloud is None:
+            ess = statistics.ess(result["log_weight"])
+        else:
+            lw = result["log_weight"]
+            ess = torch.exp(2 * cloud.logsumexp(lw) - cloud.logsumexp(2 * lw))
+        metrics = {"elbo": elbo.detach(),
+                   "ess": _batch_mean(ess, cloud).detach()}
     if score:
         return (gradients.score_surrogate_from_result(result, score_baseline),
                 metrics, has_nan)
     return -elbo, metrics, has_nan
+
+
+def _batch_mean(values, cloud):
+    """The mean of `[B]` ``values`` over the batch, across the data group
+    on a mesh (every rank gets the same scalar)."""
+    if cloud is None or cloud.data_group is None:
+        return values.mean()
+    # The mean of the ranks' means (equal blocks): over one data rank,
+    # the single-device mean's bits.
+    return cloud.batch_sum(values.mean()) / cloud.n_data
 
 
 def get_loss(observations, num_particles: int, algorithm: str, initial,
@@ -147,7 +180,10 @@ def get_loss(observations, num_particles: int, algorithm: str, initial,
              score_baseline: str = "batch",
              pairwise: str = "auto",
              block_size=None,
-             nan_check: bool = False):
+             nan_check: bool = False,
+             mesh=None,
+             data_axis: str = "data",
+             particle_axis: str = "particle"):
     """Scalar loss ``-mean(ELBO)`` for gradient descent.
 
     Args:
@@ -177,6 +213,11 @@ def get_loss(observations, num_particles: int, algorithm: str, initial,
         nan_check: raise FloatingPointError when a resampling step saw a
             NaN log-weight ('aesmc'), or the 'tmc' loss is NaN (one read
             of the device).
+        mesh, data_axis, particle_axis: run on this rank's block of a
+            `DeviceMesh` (module docstring; 'iwae' and 'aesmc' with the
+            pathwise estimator): ``observations`` are this rank's rows,
+            ``num_particles`` the whole cloud's, and the loss is the
+            global batch mean, the same on every rank.
 
     Returns:
         scalar tensor.
@@ -192,7 +233,8 @@ def get_loss(observations, num_particles: int, algorithm: str, initial,
         ot_rank=ot_rank, lookahead=lookahead,
         history_window=history_window, remat=remat,
         gradient_estimator=gradient_estimator, score_baseline=score_baseline,
-        pairwise=pairwise, block_size=block_size, nan_check=nan_check)
+        pairwise=pairwise, block_size=block_size, nan_check=nan_check,
+        mesh=mesh, data_axis=data_axis, particle_axis=particle_axis)
     inference._raise_if_nan(has_nan)
     return loss
 
@@ -249,7 +291,10 @@ def get_loss_and_metrics(observations, num_particles: int, algorithm: str,
                          score_baseline: str = "batch",
                          pairwise: str = "auto",
                          block_size=None,
-                         nan_check: bool = False):
+                         nan_check: bool = False,
+                         mesh=None,
+                         data_axis: str = "data",
+                         particle_axis: str = "particle"):
     """Like `get_loss`, and also a metrics dict of device scalars:
 
     - 'elbo': mean ELBO over the batch;
@@ -272,6 +317,7 @@ def get_loss_and_metrics(observations, num_particles: int, algorithm: str,
         history_window=history_window, remat=remat,
         gradient_estimator=gradient_estimator, score_baseline=score_baseline,
         pairwise=pairwise, block_size=block_size, nan_check=nan_check,
-        with_metrics=True)
+        with_metrics=True, mesh=mesh, data_axis=data_axis,
+        particle_axis=particle_axis)
     inference._raise_if_nan(has_nan)
     return loss, metrics

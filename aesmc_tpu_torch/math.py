@@ -1,8 +1,9 @@
 """Numerically stable log-space utilities.
 
 Counterpart of `aesmc_tpu.math` (`lognormexp`, `exponentiate_and_normalize`,
-`logsumexp`, `table_lookup`). `torch.logsumexp` shifts by the maximum as
-`jax.nn.logsumexp` does, and an all `-inf` slice gives `-inf`.
+`logsumexp`, `table_lookup`, `distributed_logsumexp`). `torch.logsumexp`
+shifts by the maximum as `jax.nn.logsumexp` does, and an all `-inf` slice
+gives `-inf`.
 """
 
 from __future__ import annotations
@@ -44,3 +45,30 @@ def logsumexp(values: torch.Tensor, axis=None,
     if axis is None:
         axis = tuple(range(values.ndim))
     return torch.logsumexp(values, dim=axis, keepdim=keepdims)
+
+
+def distributed_logsumexp(values: torch.Tensor, group,
+                          dim=None) -> torch.Tensor:
+    """logsumexp over the local axis ``dim`` (if given) and over the ranks
+    of the process group ``group``, whose blocks together make the axis:
+    local max, all-reduce max, local sum of the shifted exponentials,
+    all-reduce sum, log.
+
+    The same arithmetic as `torch.logsumexp`: the shift is detached and an
+    infinite maximum shifts by 0, so over a group of one rank the result
+    has its bits. Differentiable in ``values`` (`collectives.all_reduce`:
+    every rank gets the gradient of its own block).
+    """
+    from .parallel import collectives
+
+    detached = values.detach()
+    local_max = (detached.amax(dim=dim, keepdim=True) if dim is not None
+                 else detached)
+    shift = collectives.all_reduce(local_max, group, "max")
+    shift = shift.masked_fill(shift.abs() == float("inf"), 0.0)
+    shifted = torch.exp(values - shift)
+    local_sum = shifted.sum(dim=dim) if dim is not None else shifted
+    total = collectives.all_reduce(local_sum, group, "sum")
+    if dim is not None:
+        shift = shift.squeeze(dim)
+    return torch.log(total) + shift

@@ -25,6 +25,18 @@ resamples, stream 1 proposes). Here every draw goes through a
 The default source is backed by a `torch.Generator` on the card. Tests
 pass a source with the same methods that replays the reference's draws,
 so both packages compute from the same noise.
+
+Draws in the engine are laid out `[batch, particle, ...]`, except a
+discrete BATCH_EXPANDED sample's, which `jax.random` draws `[particle,
+batch, ...]` (`particle_major`). Two views build on that:
+
+- `ShardNoise`, a rank's view on a mesh: every rank holds the same
+  generator state, draws the GLOBAL shape and keeps its own block, so a
+  mesh run replays the single-device run (the JAX package draws "over
+  the global grid, then slices"). It costs each rank the whole draw,
+  O(B K) numbers a step;
+- `StackedNoise`, N sources side by side along the batch axis (island
+  SMC's islands, each with its own stream from `NoiseSource.fold_in`).
 """
 
 from __future__ import annotations
@@ -55,6 +67,16 @@ class NoiseSource:
     def device(self) -> torch.device:
         return self.generator.device
 
+    def fold_in(self, i: int) -> "NoiseSource":
+        """A new source for stream ``i``, seeded from this source's seed and
+        ``i`` (the counterpart of `jax.random.fold_in`; it does not read or
+        advance this source's state)."""
+        seed = (self.generator.initial_seed() * 6364136223846793005 +
+                (int(i) + 1) * 1442695040888963407) % (1 << 63)
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(seed)
+        return NoiseSource(generator)
+
     def uniform(self, shape: Sequence[int]) -> torch.Tensor:
         return torch.rand(tuple(shape), generator=self.generator,
                           device=self.device, dtype=torch.float32)
@@ -78,3 +100,97 @@ class NoiseSource:
         return torch.randint(0, 1 << 32, tuple(shape),
                              generator=self.generator, device=self.device,
                              dtype=torch.int64)
+
+
+def particle_major(noise, kind: str, shape: Sequence[int]) -> torch.Tensor:
+    """A draw of ``kind`` laid out `[particle, batch, ...]` (a discrete
+    BATCH_EXPANDED sample's); sources without a layout of their own draw
+    it as any other."""
+    draw = getattr(noise, "particle_major", None)
+    if draw is not None:
+        return draw(kind, shape)
+    return getattr(noise, kind)(shape)
+
+
+class _View:
+    """A noise source made of other sources: each kind of draw goes
+    through `_draw(kind, shape, particle_major)`."""
+
+    def uniform(self, shape):
+        return self._draw("uniform", tuple(shape), False)
+
+    def exponential(self, shape):
+        return self._draw("exponential", tuple(shape), False)
+
+    def normal(self, shape):
+        return self._draw("normal", tuple(shape), False)
+
+    def gumbel(self, shape):
+        return self._draw("gumbel", tuple(shape), False)
+
+    def bits(self, shape):
+        return self._draw("bits", tuple(shape), False)
+
+    def particle_major(self, kind, shape):
+        return self._draw(kind, tuple(shape), True)
+
+
+class ShardNoise(_View):
+    """This rank's view of a `[B, K, ...]` draw on a mesh.
+
+    ``replicated`` is a source whose state is the same on every rank;
+    ``rows`` = (data rank, data ranks) and ``particles`` = (particle rank,
+    particle ranks). A draw of the local shape `[B_l, K_l, ...]` draws the
+    global `[B_l n_data, K_l n_particle, ...]` from ``replicated`` and keeps
+    this rank's block, so every rank consumes the generator as the
+    single-device run does. Draws that are the same on every rank (the
+    resampling positions) go to ``replicated`` itself.
+    """
+
+    def __init__(self, replicated, rows, particles):
+        self.replicated = replicated
+        self.rows = rows
+        self.particles = particles
+
+    @property
+    def device(self):
+        return self.replicated.device
+
+    def _draw(self, kind, shape, particle_major_):
+        if len(shape) < 2:
+            raise ValueError(
+                f"a sharded draw needs [batch, particle, ...]; got {shape}")
+        (r, nr), (p, np_) = self.rows, self.particles
+        if particle_major_:
+            (r, nr), (p, np_) = (p, np_), (r, nr)
+        a, b = shape[:2]
+        full = particle_major(self.replicated, kind,
+                              (a * nr, b * np_) + shape[2:]) \
+            if particle_major_ else getattr(self.replicated, kind)(
+                (a * nr, b * np_) + shape[2:])
+        return full[r * a:(r + 1) * a, p * b:(p + 1) * b]
+
+
+class StackedNoise(_View):
+    """N sources side by side: a draw of `[N B, ...]` is each source's
+    `[B, ...]` draw, concatenated along the batch axis (the second axis of
+    a particle-major draw)."""
+
+    def __init__(self, sources):
+        self.sources = list(sources)
+
+    @property
+    def device(self):
+        return self.sources[0].device
+
+    def _draw(self, kind, shape, particle_major_):
+        axis = 1 if particle_major_ else 0
+        n = len(self.sources)
+        if shape[axis] % n:
+            raise ValueError(f"a draw of {shape} does not split over {n} "
+                             "sources")
+        part = list(shape)
+        part[axis] //= n
+        draws = [particle_major(s, kind, part) if particle_major_ else
+                 getattr(s, kind)(part) for s in self.sources]
+        return torch.cat(draws, dim=axis)

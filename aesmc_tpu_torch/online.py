@@ -43,9 +43,15 @@ Causality: components receive `observations` as a view that returns the
 current observation for any index (a stream cannot look ahead);
 ``previous_observations[-1]`` is y_{t-1}, as in the batch engine.
 
-Not ported yet: ``mesh``, ``data_axis``, ``particle_axis`` and a callable
-``resampling_implementation`` (slice E of the port, multi-device); they
-raise NotImplementedError.
+Several ranks (``mesh``): every rank serves its block of the cloud, its
+rows of the batch (`parallel.shard_batch`) and K / particle particles of
+each, as `inference.infer(mesh=...)` does: the log-Z terms and the ESS
+cross the particle group, the draws are this rank's block of the
+single-device run's (`noise.ShardNoise`), and resampling is distributed
+(a callable ``resampling_implementation``, or the all-gather exchange of
+the same method). Not ported yet with a mesh (slice E2 of the port):
+``paris_h`` (with `smoothing`), ``track_genealogy`` and 'ot'; they raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -59,7 +65,9 @@ import torch
 from torch.utils import _pytree as pytree
 
 from . import resampling, smoothing, state, variance
-from .inference import DeviceTimeIndex, _resample_step, _resolve_implementation
+from .inference import (DeviceTimeIndex, _check_mesh_method,
+                        _particle_logsumexp, _resample_step,
+                        _resolve_implementation)
 
 __all__ = [
     "OnlineFilterState", "make_online_filter", "log_marginal_likelihood",
@@ -101,21 +109,38 @@ class OnlineFilterState(NamedTuple):
     tau: Any = None
 
 
-def log_marginal_likelihood(filter_state: OnlineFilterState) -> torch.Tensor:
-    """The running log-Z estimate `[batch]` after the observations consumed
-    so far: ``sum(contributions) + logsumexp(log_weight) - log K``, the
-    batch engine's estimator at the same step."""
-    num_particles = filter_state.log_weight.shape[-1]
-    return (filter_state.log_z_contrib +
-            torch.logsumexp(filter_state.log_weight, dim=-1) -
+def _cloud(mesh, data_axis="data", particle_axis="particle"):
+    if mesh is None:
+        return None
+    from .sharding_utils import Cloud
+    return Cloud(mesh, data_axis, particle_axis)
+
+
+def _log_z(filter_state, cloud):
+    lse = _particle_logsumexp(cloud)
+    num_particles = filter_state.log_weight.shape[-1] * (
+        1 if cloud is None else cloud.n_particle)
+    return (filter_state.log_z_contrib + lse(filter_state.log_weight) -
             _stdmath.log(num_particles))
 
 
-def effective_sample_size(filter_state: OnlineFilterState) -> torch.Tensor:
-    """Kish ESS `[batch]` of the current weights (1 .. num_particles)."""
+def log_marginal_likelihood(filter_state: OnlineFilterState, mesh=None,
+                            particle_axis: str = "particle"
+                            ) -> torch.Tensor:
+    """The running log-Z estimate `[batch]` after the observations consumed
+    so far: ``sum(contributions) + logsumexp(log_weight) - log K``, the
+    batch engine's estimator at the same step. With ``mesh``, of a
+    sharded carry (a collective over the particle group)."""
+    return _log_z(filter_state, _cloud(mesh, particle_axis=particle_axis))
+
+
+def effective_sample_size(filter_state: OnlineFilterState, mesh=None,
+                          particle_axis: str = "particle") -> torch.Tensor:
+    """Kish ESS `[batch]` of the current weights (1 .. num_particles); with
+    ``mesh``, of the whole sharded cloud."""
+    lse = _particle_logsumexp(_cloud(mesh, particle_axis=particle_axis))
     lw = filter_state.log_weight
-    return torch.exp(2 * torch.logsumexp(lw, dim=-1) -
-                     torch.logsumexp(2 * lw, dim=-1))
+    return torch.exp(2 * lse(lw) - lse(2 * lw))
 
 
 class _CausalObservations:
@@ -138,8 +163,8 @@ class _CausalObservations:
 
 def _not_ported(name):
     raise NotImplementedError(
-        f"{name} is not ported yet; it comes with slice E of the port "
-        "(multi-device)")
+        f"{name} with mesh= is not ported yet; it comes with slice E2 of "
+        "the port (multi-device)")
 
 
 def _check_options(resampling_method, resampling_implementation,
@@ -148,14 +173,13 @@ def _check_options(resampling_method, resampling_implementation,
                    paris_num_draws, paris_backward, paris_pairwise, mesh,
                    data_axis, particle_axis):
     """The JAX package's ValueErrors, and NotImplementedError for what
-    waits for the multi-device slice."""
+    waits for slice E2 of the port on a mesh."""
     if mesh is not None:
-        _not_ported("mesh= (sharding the particle cloud over devices)")
-    if (data_axis, particle_axis) != ("data", "particle"):
-        _not_ported("data_axis= and particle_axis= (the mesh's axes)")
-    if callable(resampling_implementation):
-        _not_ported("a callable resampling_implementation (distributed "
-                    "resampling)")
+        if paris_h is not None:
+            _not_ported("paris_h= (streaming PaRIS)")
+        if track_genealogy:
+            _not_ported("track_genealogy=True")
+        _check_mesh_method(resampling_method)
     if resampling_method == "soft" and resampling_criterion != "always":
         raise ValueError(
             "soft resampling does not combine with ESS-adaptive "
@@ -235,7 +259,9 @@ def make_online_filter(initial,
         lookahead: the APF's score callable, as in `infer`.
         resampling_method: 'systematic', 'stratified', 'multinomial',
             'residual', 'soft' or 'ot'.
-        resampling_implementation: 'auto', 'cuda' or 'torch'.
+        resampling_implementation: 'auto', 'cuda' or 'torch', or a
+            distributed callable of `parallel.dist_resampling` (with
+            ``mesh``).
         resampling_criterion: 'always' or an ESS fraction.
         soft_resampling_alpha, ot_epsilon, ot_num_iterations,
             ot_block_size, ot_rank: as in `infer`.
@@ -260,8 +286,12 @@ def make_online_filter(initial,
             with 'rejection', ``paris_accept_rate`` and
             ``paris_unconverged``; that mode reads the host and is eager
             only).
-        mesh, data_axis, particle_axis: slice E; ``mesh`` must be None
-            and the axes keep their default names.
+        mesh, data_axis, particle_axis: a `DeviceMesh` and the names of
+            its batch and particle axes: this rank serves its block
+            (module docstring). ``num_particles`` is the whole cloud's K;
+            observations and the carry are this rank's blocks (ancestors
+            as global indices). Not with ``paris_h``,
+            ``track_genealogy``, 'ot' or 'residual'.
 
     Returns:
         ``init_fn(observation, noise) -> OnlineFilterState`` consumes y_0
@@ -284,6 +314,16 @@ def make_online_filter(initial,
     need_indices = bool(return_ancestors or track_genealogy or fixed_lag > 0)
     ot_options = (ot_epsilon, ot_num_iterations, ot_block_size, ot_rank)
     pairwise_mode = [paris_pairwise]
+    cloud = _cloud(mesh, data_axis, particle_axis)
+    local_k = (num_particles if cloud is None else
+               cloud.local_particles(num_particles))
+    lse = _particle_logsumexp(cloud)
+    # The resolved implementation (on a mesh the distributed resampler is
+    # made once, at the first step).
+    resolved = []
+
+    def view(noise):
+        return noise if cloud is None else cloud.noise(noise)
 
     def init_fn(observation, noise) -> OnlineFilterState:
         """Consumes y_0: the batch engine's hoisted t = 0 step (``time``
@@ -291,13 +331,13 @@ def make_online_filter(initial,
         batch_size = resampling._leaves(observation)[0].shape[0]
         obs_view = _CausalObservations(observation)
         proposal_dist = proposal(time=0, observations=obs_view)
-        latent_0 = state.sample(proposal_dist, batch_size, num_particles,
-                                noise)
+        latent_0 = state.sample(proposal_dist, batch_size, local_k,
+                                view(noise))
         proposal_lp = state.log_prob(proposal_dist, latent_0)
         initial_lp = state.log_prob(initial(), latent_0)
         emission_lp = state.log_prob(
             emission(latents=[latent_0], time=0),
-            state.expand_observation(observation, num_particles))
+            state.expand_observation(observation, local_k))
         log_weight_0 = initial_lp + emission_lp - proposal_lp
         device = log_weight_0.device
         eve = num_events = lag_buffer = tau = None
@@ -337,31 +377,33 @@ def make_online_filter(initial,
         time = DeviceTimeIndex(filter_state.t)
         obs_view = _CausalObservations(observation)
         prev_obs_list = [filter_state.prev_observation]
-        implementation = _resolve_implementation(
-            prev_log_weight.device, resampling_method,
-            resampling_implementation)
+        noise = view(noise)
+        if cloud is None or not resolved:
+            resolved[:] = [_resolve_implementation(
+                prev_log_weight.device, resampling_method,
+                resampling_implementation, cloud, soft_resampling_alpha)]
+        implementation = resolved[0]
         # log_marginal_likelihood and effective_sample_size of the carry,
         # sharing one logsumexp with the resampling step.
-        log_sum = torch.logsumexp(prev_log_weight, dim=1)
+        log_sum = lse(prev_log_weight)
         log_pred_base = (filter_state.log_z_contrib + log_sum -
                          _stdmath.log(num_particles))
-        pre_ess = torch.exp(2 * log_sum -
-                            torch.logsumexp(2 * prev_log_weight, dim=1))
+        pre_ess = torch.exp(2 * log_sum - lse(2 * prev_log_weight))
 
         ancestral_index, previous_latent, base, contribution, do = \
             _resample_step(
                 prev_log_weight, prev_latent, noise, time, [prev_latent],
                 obs_view, resampling_method, implementation, need_indices,
                 alpha=soft_resampling_alpha, lookahead=lookahead,
-                ess_threshold=ess_threshold, ot=ot_options, log_sum=log_sum)
+                ess_threshold=ess_threshold, ot=ot_options, log_sum=log_sum,
+                cloud=cloud)
         did_resample = (torch.ones((batch_size,), dtype=torch.bool,
                                    device=prev_log_weight.device)
                         if do is None else do)
 
         proposal_dist = proposal(previous_latents=[previous_latent],
                                  time=time, observations=obs_view)
-        latent_t = state.sample(proposal_dist, batch_size, num_particles,
-                                noise)
+        latent_t = state.sample(proposal_dist, batch_size, local_k, noise)
         proposal_lp = state.log_prob(proposal_dist, latent_t)
         transition_lp = state.log_prob(
             transition(previous_latents=[previous_latent], time=time,
@@ -370,7 +412,7 @@ def make_online_filter(initial,
         emission_lp = state.log_prob(
             emission(latents=[latent_t], time=time,
                      previous_observations=prev_obs_list),
-            state.expand_observation(observation, num_particles))
+            state.expand_observation(observation, local_k))
         # `infer`'s arithmetic, in its order: the same bits.
         log_weight_t = transition_lp + emission_lp - proposal_lp
         if base is not None:
@@ -395,9 +437,12 @@ def make_online_filter(initial,
             # Regather the whole buffer with this step's ancestors (so
             # buffer[0] is x_{t-L} traced to the current particles), report
             # the oldest entry, shift in x_t.
+            # On a mesh the ancestors are global: the buffer's whole
+            # particle axis is gathered first.
             gathered = state.tree_map(
                 lambda x: torch.take_along_dim(
-                    x, ancestral_index.long().reshape(
+                    x if cloud is None else cloud.gather_particles(x, dim=2),
+                    ancestral_index.long().reshape(
                         (1,) + tuple(ancestral_index.shape) +
                         (1,) * (x.ndim - 3)), dim=2),
                 filter_state.lag_buffer)
@@ -411,7 +456,7 @@ def make_online_filter(initial,
             prev_observation=observation, t=filter_state.t + 1, eve=eve,
             num_events=num_events, lag_buffer=lag_buffer, tau=tau)
         info.update({
-            "log_pred": log_marginal_likelihood(new_state) - log_pred_base,
+            "log_pred": _log_z(new_state, cloud) - log_pred_base,
             "ess": pre_ess,
             "resampled": did_resample,
         })

@@ -36,7 +36,7 @@ from `split(key)`.
 
 The products are torch ops (the JAX package computes them with XLA, not
 in a Pallas kernel). Not ported yet: `distributed_ot_resample` (the ring
-over a sharded particle axis), slice E of the port; it raises
+over a sharded particle axis), slice E2 of the port; it raises
 NotImplementedError.
 """
 
@@ -302,10 +302,10 @@ def distributed_ot_resample(log_weight, value, axis_name: str,
                             epsilon: float = 0.5, num_iterations: int = 50,
                             scale_cost: bool = True):
     """OT resampling over a particle axis sharded across devices: not
-    ported yet (slice E of the port, multi-device)."""
+    ported yet (slice E2 of the port, multi-device)."""
     raise NotImplementedError(
         "distributed_ot_resample (the ring-streamed Sinkhorn over a sharded "
-        "particle axis) is not ported yet; it comes with slice E of the "
+        "particle axis) is not ported yet; it comes with slice E2 of the "
         "port (multi-device)")
 
 

@@ -219,7 +219,7 @@ def rbpf(observations, initial, transition, linear_initial,
             every step, so the noise drawn does not depend on the weights.
         return_history: also return the per-step particles and moments.
         mesh, data_axis, particle_axis: the sharded filter, not ported
-            yet (slice E of the port, multi-device); a mesh raises
+            yet (slice E2 of the port, multi-device); a mesh raises
             NotImplementedError.
 
     Returns:
@@ -236,7 +236,7 @@ def rbpf(observations, initial, transition, linear_initial,
         raise NotImplementedError(
             "rbpf's mesh, data_axis, particle_axis and distributed "
             "(callable) resampling_implementation are not ported yet: "
-            "multi-device is slice E of the port")
+            "multi-device is slice E2 of the port")
     if num_particles < 1:
         raise ValueError(
             f"num_particles must be >= 1. currently = {num_particles}")

@@ -92,7 +92,7 @@ def resample_move_filter(observations, initial, transition, emission,
         adaptation_gain: the Robbins-Monro gain.
         resampling_method / resampling_implementation: as in `infer`
             ('auto': the kernels for CUDA tensors). A callable
-            (distributed) implementation is slice E of the port and
+            (distributed) implementation is slice E2 of the port and
             raises NotImplementedError.
         return_latents: include the filtered latents `[T, B, K, ...]`.
 
@@ -109,7 +109,7 @@ def resample_move_filter(observations, initial, transition, emission,
         raise NotImplementedError(
             "resample_move_filter's distributed (callable) "
             "resampling_implementation is not ported yet: multi-device is "
-            "slice E of the port")
+            "slice E2 of the port")
     stacked_obs = stack_observations(observations)
     obs_seq = ObservationSequence(stacked_obs)
     num_timesteps = len(obs_seq)

@@ -36,6 +36,10 @@ Two implementations:
   one-hot gather (`dense_indices_and_gather`): one compare gives the
   indices and a one-hot selector whose batched matmul gathers the
   particles and whose transpose is the backward, with no scatter.
+A callable implementation is a resampler of the multi-device layer
+(`parallel.dist_resampling`): ``(log_weight, noise) -> indices``, or,
+with ``.fused``, ``(log_weight, noise, value) -> (indices, value)`` (and
+with ``.soft``, the corrected weights too).
 'auto' picks 'cuda' for a CUDA tensor and 'torch' otherwise, at every K,
 and 'torch' for residual resampling: on an H100 the dense route's graphed
 train step at (T, B) = (200, 10) was slower than the kernels' at K = 256
@@ -222,7 +226,10 @@ def resolve_implementation(device, method: str, implementation: str) -> str:
     """'auto' -> 'cuda' for a CUDA device, 'torch' otherwise, and 'torch'
     for residual resampling (no kernel). Explicit strings pass through;
     'cuda' for a tensor off the card, or for residual, raises. ``method``
-    may also be 'soft', which resolves as multinomial does."""
+    may also be 'soft', which resolves as multinomial does. A callable
+    (a distributed resampler of `parallel`) passes through."""
+    if callable(implementation):
+        return implementation
     _check_method(method, METHODS + ("soft",))
     if method == "residual":
         if implementation == "cuda":
@@ -258,6 +265,9 @@ def sample_ancestral_index(log_weight, noise, method: str = "systematic",
     The 'torch' route runs `torch.searchsorted`. Both draw the same noise.
     Residual resampling runs torch ops on every device.
     """
+    if callable(implementation):
+        _check_nan_eager(log_weight)
+        return callable_indices(implementation, log_weight.detach(), noise)
     _check_method(method)
     if log_weight.ndim != 2:
         raise ValueError(
@@ -267,6 +277,75 @@ def sample_ancestral_index(log_weight, noise, method: str = "systematic",
     implementation = resolve_implementation(log_weight.device, method,
                                             implementation)
     return sample_indices(log_weight, noise, method, implementation)
+
+
+def _check_not_soft(implementation):
+    if getattr(implementation, "soft", False):
+        raise ValueError(
+            "got a soft fused resampler (returns corrected weights) for "
+            "plain resampling; use resampling_method='soft' / "
+            "soft_resample_and_gather with it instead")
+
+
+def _call(implementation, *args, log_sum=None):
+    """``implementation(*args)``, handing it ``log_sum`` when it takes one
+    (``.takes_log_sum``)."""
+    if log_sum is not None and getattr(implementation, "takes_log_sum",
+                                       False):
+        return implementation(*args, log_sum=log_sum)
+    return implementation(*args)
+
+
+def callable_indices(implementation, log_weight, noise, log_sum=None):
+    """Ancestor indices from a callable ``resampling_implementation``: a
+    ``(log_weight, noise) -> indices`` one, or the indices of a fused
+    ``(log_weight, noise, value)`` one (with no value). ``log_sum`` (the
+    logsumexp of each row, if the caller has it) goes to a callable that
+    takes it."""
+    _check_not_soft(implementation)
+    if getattr(implementation, "fused", False):
+        return _call(implementation, log_weight, noise, None,
+                     log_sum=log_sum)[0]
+    return _call(implementation, log_weight, noise, log_sum=log_sum)
+
+
+def callable_resample(implementation, log_weight, noise, value,
+                      log_sum=None):
+    """(indices, ``value`` resampled) from a callable
+    ``resampling_implementation``: a fused one resamples ``value`` itself;
+    with an index-only one the particles are gathered by its indices,
+    across the particle axis for a distributed resampler (its
+    ``particle_group``), else locally. ``log_sum``: as
+    `callable_indices`'."""
+    _check_not_soft(implementation)
+    if getattr(implementation, "fused", False):
+        return _call(implementation, log_weight, noise, value,
+                     log_sum=log_sum)
+    idx = _call(implementation, log_weight, noise, log_sum=log_sum)
+    group = getattr(implementation, "particle_group", None)
+    if group is not None:
+        from .parallel import dist_resampling
+        return idx, dist_resampling.distributed_resample_particles(
+            value, idx, group)
+    from . import state
+    return idx, state.resample(value, idx)
+
+
+def check_soft_callable(implementation, alpha):
+    """The JAX package's ValueErrors for a callable in soft resampling: it
+    must be a soft fused resampler built with the same alpha."""
+    if not getattr(implementation, "soft", False):
+        raise ValueError(
+            "soft resampling with a callable implementation needs a "
+            "soft-aware fused resampler (e.g. "
+            "parallel.make_distributed_fused_resampler(method='soft')); "
+            "got a callable without .soft")
+    bound = getattr(implementation, "soft_alpha", None)
+    if bound is not None and bound != alpha:
+        raise ValueError(
+            f"the distributed soft resampler was built with "
+            f"soft_alpha={bound} but alpha={alpha} was requested; rebuild "
+            f"it with the matching soft_alpha")
 
 
 def sample_indices(log_weight, noise, method, implementation):
@@ -508,8 +587,13 @@ def sample_ancestral_index_and_resample(log_weight, noise, value,
 
     Returns (indices `[B, K]` int32 - detached - or None, resampled value).
     """
-    _check_method(method)
     _check_nan_eager(log_weight)
+    if callable(implementation):
+        # e.g. parallel.make_distributed_fused_resampler: indices and the
+        # cross-rank particle exchange in one pass.
+        return callable_resample(implementation, log_weight.detach(), noise,
+                                 value)
+    _check_method(method)
     implementation = resolve_implementation(log_weight.device, method,
                                             implementation)
     return _resample(log_weight, noise, value, method, implementation,
@@ -536,18 +620,23 @@ def _soft_tempered_log_weights(log_weight, alpha: float):
     The constants are float32 logs on the device, as the JAX package
     computes them, made by fills (a copy from the host could not be
     captured in a CUDA graph)."""
-    k = log_weight.shape[1]
     log_w = amath.lognormexp(log_weight, dim=-1)
+    return log_w, _soft_mixture(log_w, alpha, log_weight.shape[1])
+
+
+def _soft_mixture(log_w, alpha: float, k: int):
+    """log q = log(alpha w + (1 - alpha) / K) from normalized log-weights
+    ``log_w`` (``log_w`` itself at alpha >= 1); K is the whole cloud's
+    particle count."""
     if alpha >= 1.0:
-        return log_w, log_w
+        return log_w
 
     def log_const(x):
         return torch.log(torch.full((), x, dtype=log_w.dtype,
                                     device=log_w.device))
 
-    log_q = torch.logaddexp(log_const(alpha) + log_w,
-                            log_const((1.0 - alpha) / k).expand_as(log_w))
-    return log_w, log_q
+    return torch.logaddexp(log_const(alpha) + log_w,
+                           log_const((1.0 - alpha) / k).expand_as(log_w))
 
 
 def soft_indices_and_weights(log_weight, noise, alpha: float = 0.5):
@@ -586,6 +675,9 @@ def soft_resample_and_gather(log_weight, noise, value, alpha: float = 0.5,
     'cuda' route, corrected log-weights `[B, K]`, resampled value).
     """
     _check_nan_eager(log_weight)
+    if callable(implementation):
+        check_soft_callable(implementation, alpha)
+        return implementation(log_weight, noise, value)
     implementation = resolve_implementation(log_weight.device, "soft",
                                             implementation)
     return _soft_resample(log_weight, noise, value, alpha, implementation,

@@ -99,7 +99,7 @@ def smc_sampler(log_prior, log_likelihood, initial_particles,
         resampling_method: 'systematic', 'stratified' or 'multinomial'.
         resampling_implementation: 'auto' (the kernels for CUDA
             tensors), 'cuda' or 'torch'. A callable (distributed)
-            implementation is slice E of the port and raises
+            implementation is slice E2 of the port and raises
             NotImplementedError.
         waste_free_chains: M (dividing K, 1 <= M < K), or None for
             classic resample-move.
@@ -115,7 +115,7 @@ def smc_sampler(log_prior, log_likelihood, initial_particles,
     if callable(resampling_implementation):
         raise NotImplementedError(
             "smc_sampler's distributed (callable) resampling_implementation "
-            "is not ported yet: multi-device is slice E of the port")
+            "is not ported yet: multi-device is slice E2 of the port")
     if not 0.0 < float(ess_target) < 1.0:
         raise ValueError(
             f"ess_target must be in (0, 1). currently = {ess_target}")

@@ -99,7 +99,7 @@ def smc2(observations, build_components, theta0, log_prior,
             cloud's resampling uses the same method on the 'torch' route.
         return_history: also return the per-step theta cloud and weights.
         mesh, theta_axis, particle_axis: the sharded sampler, not ported
-            yet (slice E of the port, multi-device); a mesh, other axis
+            yet (slice E2 of the port, multi-device); a mesh, other axis
             names or a callable ``resampling_implementation`` raise
             NotImplementedError.
 
@@ -117,7 +117,7 @@ def smc2(observations, build_components, theta0, log_prior,
         raise NotImplementedError(
             "smc2's mesh, theta_axis, particle_axis and distributed "
             "(callable) resampling_implementation are not ported yet: "
-            "multi-device is slice E of the port")
+            "multi-device is slice E2 of the port")
     stacked_obs = stack_observations(observations)
     first = _first_leaf(stacked_obs)
     device = first.device

@@ -37,7 +37,7 @@ chunk. The filter of `paris` resamples with `resampling` (K1 for
 systematic on the card).
 
 Not ported yet: the ``mesh``, ``data_axis`` and ``particle_axis``
-arguments (slice E of the port, multi-device); a mesh raises
+arguments (slice E2 of the port, multi-device); a mesh raises
 NotImplementedError.
 """
 
@@ -72,7 +72,7 @@ def _check_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (sharding the particle cloud over devices) is not ported "
-            "yet; it comes with slice E of the port (multi-device)")
+            "yet; it comes with slice E2 of the port (multi-device)")
 
 
 def _check_backward(backward):
@@ -357,7 +357,7 @@ def backward_simulation(original_latents, log_weights, transition,
             transition density (default: log_prob at the mean, exact for
             the Gaussians).
         max_rejection_rounds, max_exact_lanes: the rejection loop's caps.
-        mesh: slice E (multi-device); must be None.
+        mesh: slice E2 (multi-device); must be None.
 
     Returns:
         `[T, B, M, ...]` smoothing trajectories.
@@ -450,7 +450,7 @@ def paris(observations, initial, transition, emission, proposal,
             `backward_simulation`.
         remat: recompute each step in the backward pass
             (`torch.utils.checkpoint`), for callers that differentiate.
-        mesh: slice E (multi-device); must be None.
+        mesh: slice E2 (multi-device); must be None.
 
     Returns:
         dict with 'smoothed' `[batch(, D)]`, 'tau' `[batch, K(, D)]`,

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from . import distributions as dists
+from . import noise as noise_
 
 
 class BatchShapeMode(enum.Enum):
@@ -109,7 +110,10 @@ def sample(distribution, batch_size: int, num_particles: int, noise):
     sample_shape = _SAMPLE_SHAPES[mode](batch_size, num_particles)
     kind = distribution.noise_kind
     if not distribution.has_rsample:
-        draw = getattr(noise, kind)(distribution.noise_shape(sample_shape))
+        shape = distribution.noise_shape(sample_shape)
+        draw = (noise_.particle_major(noise, kind, shape)
+                if mode == BatchShapeMode.BATCH_EXPANDED else
+                getattr(noise, kind)(shape))
         with torch.no_grad():
             result = distribution.sample(sample_shape, draw)
         if mode == BatchShapeMode.BATCH_EXPANDED:

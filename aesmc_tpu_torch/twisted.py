@@ -462,12 +462,12 @@ def twisted_smc(observations, spec, emission, twist, num_particles: int,
     (continuous latents) or `DiscreteSSMSpec` with a `TabularTwist` (HMM).
     The log-evidence estimate is unbiased in Z for the original model at
     any twist, and exact at the optimal twist. ``mesh`` (sharding over
-    devices) is slice E of the port and raises.
+    devices) is slice E2 of the port and raises.
     """
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (sharding the particle cloud over devices) is not ported "
-            "yet; it comes with slice E of the port (multi-device)")
+            "yet; it comes with slice E2 of the port (multi-device)")
     stacked = _inference.stack_observations(observations)
     lead = _inference._first_leaf(stacked)
     batch_size = lead.shape[1]

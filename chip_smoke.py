@@ -182,7 +182,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    (`benchmarks/ot_engine_probe.py:32`): the plan's marginals and the
    weighted mean at (4, 4,096) at the bounds of `tests/test_ot.py:28-30,
    44`; `infer('smc', 'ot')` with 20 iterations at (50, 4, 4,096) dense
-   (and blocked with block 2,048, the crossover) and at (4, 4, 16,384)
+   (and blocked with block 2,048, the crossover) and at (5, 4, 16,384)
    blocked and with rank 32 (T cut from the probe's 50 for the time
    limit): ms a step eager and graphed (a replay equal to an eager call),
    peak MiB, log-Z against Kalman beside systematic's; no kernel
@@ -293,7 +293,34 @@ Phases, in order; any failure raises and the exit code is not 0:
    stochastic EnKF with Gaspari-Cohn localization (radius 2) and
    inflation 1.05, graphed, and ETKF with inflation 1.05, eager only
    (`torch.linalg.eigh` fails inside a capture), each with its RMSE over
-   the second half below 1. Phases 31-34 print their seconds.
+   the second half below 1. Phases 31-34 print their seconds;
+35. the multi-device layer (`aesmc_tpu_torch.parallel`), its ranks
+   spawned (any rank's failure fails the script): (c) first, in this
+   process, K4, K3 (D = 3) and K2 at the all-gather exchange's shapes,
+   Kc = 10,000 against Kp = 2,500 and 5,000 positions, and K3 on a ring
+   slice (10, 2,500, 2,500), exact (K2 on integer cotangents) and timed;
+   (a) a NCCL world of torch.cuda.device_count() ranks, one card each, on
+   a (ranks, 1) mesh: the LGSSM filter at (200, 10, 10,000) through the
+   default route and the all-gather and ring exchanges (K3 199 a call),
+   each equal to the single-device call bit for bit (ancestors, log-Z),
+   the HMM filter (D = 8, int32 particles: K4 and K5 199 each) likewise,
+   and 5 sharded AESMC train steps at (200, 10, 100) (K3 and K2 199 each)
+   against `train.make_train_step`: every loss equal, the parameters
+   within 1e-5 relative; (b) 4 gloo ranks sharing cuda:0 (NCCL refuses
+   two ranks on one card; gloo aborts on send/recv of CUDA tensors, so
+   the ring runs in (a) only) on (2, 2) and (1, 4) meshes: the filter
+   with the exact proposal, log-Z within the Kalman bound, the first
+   step's ancestors within one particle of the single-device call's;
+   the distributed resamplers (systematic, multinomial, soft; the
+   index-only one on K4) against their plain versions on the same block,
+   bit for bit, gradients through K2 within 1e-5; a soft (alpha 0.5)
+   sharded train step at (50, 10, 1,000) on (2, 2), loss equal on both
+   routes and gradients within 1e-5, loss within 5% of the single-device
+   step's; island SMC with one island of 2,048 particles a rank (4
+   islands, criterion 0.5) at (100, 4) x 16 replicate row blocks, mean
+   Z-hat / Z in (0.85, 1.15) on the mesh and on one device
+   (`tests/test_islands.py:144-162`); every path's launches counted on
+   each rank and added to the JSON line. Phase 35 prints its seconds.
 
 It prints a `{"kernels": [...]}` JSON line before the last, and, as the
 last line, `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -412,8 +439,13 @@ LAUNCHES = {name: {} for name in KERNELS}
 EAGER_MS = {}
 
 
+# The script's start, for the seconds at which each phase begins.
+_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _START:.1f} s)",
+          flush=True)
 
 
 def reset_counts():
@@ -1466,9 +1498,10 @@ def _profile(fn, label):
                   flush=True)
 
 
-def _bench_lgssm(dev, transition_mult):
+def _bench_lgssm(dev, transition_mult, batch=B):
     """bench.py's LGSSM components on the card, the transition trainable
-    from ``transition_mult``, and observations from the true model."""
+    from ``transition_mult``, and ``batch`` rows of observations from the
+    true model."""
     initial = lgssm.Initial(0.0, 1.0)
     emission = lgssm.Emission(EMISSION_MULT, EMISSION_SCALE).to(dev)
     proposal = lgssm.Proposal.create(
@@ -1477,7 +1510,7 @@ def _bench_lgssm(dev, transition_mult):
         _, obs = statistics.sample_from_prior(
             initial, lgssm.Transition(TRANSITION_MULT,
                                       TRANSITION_SCALE).to(dev),
-            emission, T, B, NoiseSource.seeded(0, dev))
+            emission, T, batch, NoiseSource.seeded(0, dev))
     transition = lgssm.Transition(transition_mult, TRANSITION_SCALE).to(dev)
     return (initial, transition, emission, proposal), obs
 
@@ -1780,8 +1813,9 @@ def hmm_train_phase(dev):
 # and Adam's learning rate (bench.py:266).
 GRAPH_STEPS, GRAPH_BLOCK = 400, 100
 GRAPH_LR = 1e-2
-# The graphed plain route's run, twice (before and after the main run).
-GRAPH_PLAIN_STEPS, GRAPH_PLAIN_BLOCK = 300, 50
+# The graphed plain route's run, twice (before and after the main run;
+# cut from 300 steps each for the time limit).
+GRAPH_PLAIN_STEPS, GRAPH_PLAIN_BLOCK = 150, 50
 # Steps compared with eager `make_train_step` steps from the same seed:
 # the losses must be bit-equal.
 GRAPH_EQUAL_STEPS = 8
@@ -3540,9 +3574,10 @@ def _serving_options(dev, comps, obs):
 # Phase 20: OT resampling at the JAX package's engine sizes
 # (benchmarks/ot_engine_probe.py:32, benchmarks/BENCH_NOTES.md:220-227).
 OT_T, OT_B, OT_K, OT_ITERATIONS = 50, 4, 4096, 20
-# K = 16,384 cut to T = 10 for the time limit: the probe's T = 50 takes
-# ~70 s a call blocked on an H100. The loss with its gradient at OT_T.
-OT_LARGE_T, OT_LARGE_K, OT_RANK = 10, 16384, 32
+# K = 16,384 cut to T = 5 for the time limit (from 10, itself cut from
+# the probe's T = 50, ~70 s a call blocked on an H100); the phase makes ~7
+# calls at this K. The loss with its gradient at OT_T.
+OT_LARGE_T, OT_LARGE_K, OT_RANK = 5, 16384, 32
 OT_MARGINAL_TOL, OT_MEAN_TOL = 1e-3, 5e-3
 OT_TIMED_CALLS = 1
 
@@ -5534,6 +5569,615 @@ def enkf_phase(dev):
     _phase_seconds("34", start)
 
 
+# Phase 35 (slice E1): the multi-device layer. (a) A NCCL world of
+# torch.cuda.device_count() ranks, one card each, on a (ranks, 1) mesh:
+# the batch is sharded and every particle cloud whole on one rank, so the
+# arithmetic is the single-device run's and the checks are bit for bit.
+# (b) MD_GLOO_RANKS gloo ranks with every tensor on cuda:0 (NCCL refuses two
+# ranks on one card), on (data, particle) meshes that shard the particle
+# axis. gloo takes CUDA tensors in its all-gather, all-reduce and
+# reduce-scatter but aborts the process on send/recv (torch 2.11), so
+# the ring exchange runs in (a) only. (c) K2-K4 at the distributed
+# shapes, in this process.
+MD_GLOO_RANKS = 4
+MD_GLOO_MESHES = ((2, 2), (1, 4))
+MD_TRAIN_STEPS = 5
+MD_SOFT_K = 1000
+# The soft step on gloo runs T = 50 of the bench's 200 steps: a gloo
+# collective on CUDA tensors stages through host memory and loopback TCP,
+# and a sharded soft step makes ~8 a time step, forward and backward.
+MD_SOFT_GLOO_T = 50
+# With the particle axis sharded, each CDF entry is a shard prefix plus a
+# local scan, summed in another order than the single-device scan: the
+# two CDFs differ by float rounding (~1e-6 at K = 10,000), far below the
+# bins' width (~1e-4 under the exact proposal's near-even weights), so on
+# the first resampling step (same particles, same weights) an ancestor
+# may move to a neighbouring particle, never further.
+MD_FIRST_STEP_MAX_SHIFT = 1
+# The JAX island test's bootstrap LGSSM and its bar on the mean of Z-hat
+# / Z over replicates (tests/test_islands.py:24-45, 144-162).
+# The 16 seeds are 16 blocks of the 4 rows in one call (every row draws
+# its own noise), one call's collectives for 64 replicates.
+MD_ISLANDS, MD_ISLAND_K = 4, 2048
+MD_ISLAND_T, MD_ISLAND_B, MD_ISLAND_SEEDS = 100, 4, 16
+MD_ISLAND_A, MD_ISLAND_R = 0.9, 2.0
+MD_ISLAND_BAND = (0.85, 1.15)
+# K2-K4 with Kc = K against one rank's positions for n = 4 and 2 ranks
+# (Kp = K / n), and K3 on the ring's visiting slice (B, K / 4) (D = 3:
+# soft resampling's particle and two weight columns).
+MD_KP = (2500, 5000)
+MD_D = 3
+
+
+def _md_worker(rank, world, port, backend, task, out_dir):
+    """One rank of a phase-35 world: runs ``task`` (a function of this
+    module) on its card and saves what it returns."""
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.distributed.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world, **({"device_id": dev} if backend == "nccl" else
+                             {}))
+    try:
+        result = globals()[task](dev)
+        torch.save(result, pathlib.Path(out_dir) / f"{rank}.pt")
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _md_world(world, backend, task):
+    """Runs ``task`` on ``world`` spawned ranks of ``backend``; a rank that
+    fails fails the script. Returns the ranks' results and adds their
+    kernel launches to `LAUNCHES`."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.start_processes(_md_worker,
+                           args=(world, port, backend, task, out_dir),
+                           nprocs=world, start_method="spawn", join=True)
+        results = [torch.load(pathlib.Path(out_dir) / f"{r}.pt",
+                              weights_only=False) for r in range(world)]
+    for result in results:
+        for path, counts in result["launches"].items():
+            for name, n in counts.items():
+                if n:
+                    LAUNCHES[name][path] = LAUNCHES[name].get(path, 0) + n
+    _phase_seconds(f"35 {task}, {world} {backend} ranks", start)
+    return results
+
+
+def _md_print(*args):
+    if torch.distributed.get_rank() == 0:
+        print(*args, flush=True)
+
+
+def _md_counts(launches, path):
+    """This rank's launches since `reset_counts`, kept under ``path``."""
+    torch.cuda.synchronize()
+    counts = {name: getattr(module, counter)
+              for name, (module, counter, _, _) in KERNELS.items()}
+    launches[path] = counts
+    _md_print(f"launches on {path} (rank 0): {counts}")
+    return counts
+
+
+def _md_expect(counts, path, **want):
+    got = {name: counts[name] for name in KERNELS}
+    expected = {name: want.get(name, 0) for name in KERNELS}
+    if got != expected:
+        raise AssertionError(f"{path}: launched {got}, not {expected}")
+
+
+def _md_param_rel(a, b):
+    """The largest relative difference between two models' parameters."""
+    with torch.no_grad():
+        return max(float(((p - q).abs() / q.abs().clamp(min=1e-30)).max())
+                   for p, q in zip(train.get_chained_params(*a),
+                                   train.get_chained_params(*b)))
+
+
+def _md_median_ms(fn, calls=2):
+    times = _cuda_ms(fn, warmup=1, repeat=calls, each=True)
+    return float(np.median(times)), [round(t, 3) for t in times]
+
+
+def _md_collective_ms(dev, mesh, label):
+    """Host-clock ms a collective over the particle group: an all-reduce of
+    B scalars and an all-gather of a [B, K / n] block (20 each)."""
+    from aesmc_tpu_torch.parallel import collectives
+
+    group = mesh.get_group("particle")
+    n = collectives.size(group)
+    small = torch.ones(B, device=dev)
+    block = torch.ones(B, K // n, device=dev)
+    out = {}
+    for name, fn in (("all-reduce", lambda: collectives.all_reduce(
+            small, group)), ("all-gather", lambda: collectives.all_gather(
+                block, group, dim=1))):
+        fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - start) / 20 * 1e3
+    _md_print(f"{label}: {out['all-reduce']:.3f} ms an all-reduce of {B} "
+              f"floats, {out['all-gather']:.3f} ms an all-gather of [{B}, "
+              f"{K // n}] over {n} rank(s) (host clock, rank 0)")
+    return out
+
+
+def _md_filter_kwargs():
+    return dict(return_log_marginal_likelihood=True, return_latents=False,
+                return_ancestral_indices=True)
+
+
+def _md_nccl_task(dev):
+    """(a): the filter and the train step on a (ranks, 1) NCCL mesh, each
+    against the single-device call bit for bit."""
+    from aesmc_tpu_torch import parallel
+
+    world = torch.distributed.get_world_size()
+    batch = -(-B // world) * world
+    mesh = parallel.make_mesh(world, 1)
+    rows = parallel.data_particle_specs(mesh, batch, K)[0]
+    launches, times = {}, {}
+    times["35a NCCL collectives"] = _md_collective_ms(dev, mesh,
+                                                      "35a NCCL")
+    comps, obs = _bench_lgssm(dev, TRANSITION_MULT, batch)
+    obs_b = parallel.shard_batch(obs, mesh)
+    with torch.no_grad():
+        want = inference.infer("smc", obs, *comps, K,
+                               noise=NoiseSource.seeded(35, dev),
+                               **_md_filter_kwargs())
+    routes = {"default": "auto"}
+    for exchange in ("allgather", "ring"):
+        routes[exchange] = parallel.make_distributed_fused_resampler(
+            mesh, exchange=exchange)
+    for label, impl in routes.items():
+        def call(impl=impl):
+            return inference.infer(
+                "smc", obs_b, *comps, K, noise=NoiseSource.seeded(35, dev),
+                resampling_implementation=impl, mesh=mesh,
+                **_md_filter_kwargs())
+
+        path = f"35a NCCL filter, {label} exchange"
+        with torch.no_grad():
+            reset_counts()
+            got = call()
+            _md_expect(_md_counts(launches, path), path,
+                       resample_sorted=T - 1)
+            if not (torch.equal(got["ancestral_indices"],
+                                want["ancestral_indices"][:, rows]) and
+                    torch.equal(got["log_marginal_likelihood"],
+                                want["log_marginal_likelihood"][rows])):
+                raise AssertionError(f"{path}: ancestors or log-Z differ "
+                                     f"from the single-device call")
+            times[path] = _md_median_ms(call)
+        _md_print(f"{path}: ancestors and log-Z equal to the single-device "
+                  f"call bit for bit; {times[path][0]:.3f} ms/call (runs "
+                  f"{times[path][1]})")
+
+    # The HMM's int32 particles ride the exchange apart from the CDF: K4
+    # finds the indices on the gathered CDF and K5 gathers the particles.
+    hmm_comps, hmm_obs = _hmm_data(dev, T, batch, 0, num_states=HMM_STATES)
+    path = f"35a NCCL HMM filter (D = {HMM_STATES}, int32 particles)"
+
+    def hmm_call(mesh_=None):
+        return inference.infer(
+            "smc", hmm_obs if mesh_ is None else
+            parallel.shard_batch(hmm_obs, mesh_), *hmm_comps, K,
+            noise=NoiseSource.seeded(36, dev), mesh=mesh_,
+            **_md_filter_kwargs())
+
+    with torch.no_grad():
+        want = hmm_call()
+        reset_counts()
+        got = hmm_call(mesh)
+        _md_expect(_md_counts(launches, path), path,
+                   searchsorted_sorted=T - 1, gather_sorted=T - 1)
+        if not (torch.equal(got["ancestral_indices"],
+                            want["ancestral_indices"][:, rows]) and
+                torch.equal(got["log_marginal_likelihood"],
+                            want["log_marginal_likelihood"][rows])):
+            raise AssertionError(f"{path}: ancestors or log-Z differ from "
+                                 f"the single-device call")
+        times[path] = _md_median_ms(lambda: hmm_call(mesh), calls=1)
+    _md_print(f"{path}: ancestors and log-Z equal to the single-device call "
+              f"bit for bit; {times[path][0]:.3f} ms/call")
+
+    # Sharded AESMC train steps against train.make_train_step.
+    (comps_m, obs_t), (comps_1, _) = (_bench_lgssm(dev, 0.5, batch),
+                                      _bench_lgssm(dev, 0.5, batch))
+    opt_m = torch.optim.Adam(train.get_chained_params(*comps_m), lr=1e-2)
+    opt_1 = torch.optim.Adam(train.get_chained_params(*comps_1), lr=1e-2)
+    sharded = parallel.make_sharded_train_step(TRAIN_K, "aesmc", opt_m, mesh)
+    single = train.make_train_step(TRAIN_K, "aesmc", opt_1)
+    obs_tb = parallel.shard_batch(obs_t, mesh)
+    path = f"35a NCCL sharded train step K={TRAIN_K}"
+    for i in range(MD_TRAIN_STEPS):
+        reset_counts()
+        loss_m = sharded(comps_m, obs_tb, NoiseSource.seeded(350 + i, dev))
+        if i == 0:
+            _md_expect(_md_counts(launches, path), path,
+                       resample_sorted=T - 1, range_sum=T - 1)
+        loss_1 = single(comps_1, obs_t, NoiseSource.seeded(350 + i, dev))
+        same = (torch.equal(loss_m, loss_1) if world == 1 else
+                torch.allclose(loss_m, loss_1, rtol=1e-6, atol=0))
+        if not same:
+            raise AssertionError(f"{path}: step {i} loss {float(loss_m)} "
+                                 f"vs {float(loss_1)}")
+    worst = _md_param_rel(comps_m, comps_1)
+    if worst > GRAD_RTOL:
+        raise AssertionError(f"{path}: parameters after {MD_TRAIN_STEPS} "
+                             f"steps off by {worst} relative")
+    noise = NoiseSource.seeded(360, dev)
+    times[path] = _md_median_ms(lambda: sharded(comps_m, obs_tb, noise))
+    _md_print(f"{path}: {MD_TRAIN_STEPS} steps, every loss equal to "
+              f"train.make_train_step's, parameters within {worst:.3g} "
+              f"relative (bound {GRAD_RTOL}); {times[path][0]:.3f} ms/step "
+              f"(runs {times[path][1]})")
+    return {"launches": launches, "times": times}
+
+
+@contextlib.contextmanager
+def _md_plain_route():
+    """Every resampling of the block on the plain PyTorch route (the
+    kernels' plain versions), for the kernel-against-plain checks."""
+    original = resampling._route
+    resampling._route = lambda device, implementation: "torch"
+    try:
+        yield
+    finally:
+        resampling._route = original
+
+
+def _md_resampler_checks(dev, mesh, dp, pp, launches):
+    """The distributed resamplers on this rank's block of [B, K] weights:
+    the kernels (K3, K4, K2 in the backward) against their plain versions
+    on the same inputs, bit for bit (the gradient within
+    RANGE_SUM_REL_TOL)."""
+    from aesmc_tpu_torch import parallel
+    from aesmc_tpu_torch.sharding_utils import local_block
+
+    generator = torch.Generator(device=dev).manual_seed(36)
+    lw = local_block(torch.randn(B, K, generator=generator, device=dev) * 3,
+                     mesh, {0: "data", 1: "particle"})
+    value = local_block(torch.randn(B, K, 2, generator=generator,
+                                    device=dev), mesh,
+                        {0: "data", 1: "particle"})
+    for method in ("systematic", "multinomial", "soft"):
+        resampler = parallel.make_distributed_fused_resampler(
+            mesh, method=method)
+        outs = []
+        for plain in (False, True):
+            x = lw.clone().requires_grad_(method == "soft")
+            v = value.clone().requires_grad_(True)
+            with (_md_plain_route() if plain else contextlib.nullcontext()):
+                out = resampler(x, NoiseSource.seeded(37, dev), v)
+                loss = out[-1].sum() + (out[1].sum() if method == "soft"
+                                        else 0.0)
+                loss.backward()
+            outs.append((out, x.grad, v.grad))
+        (kernel, kx, kv), (plain, px, pv) = outs
+        if not all(torch.equal(a, b) for a, b in zip(kernel, plain)):
+            raise AssertionError(f"{dp}x{pp} {method}: the kernels' "
+                                 f"exchange differs from the plain one")
+        for a, b in ((kv, pv),) + (((kx, px),) if method == "soft" else ()):
+            if not torch.allclose(a, b, rtol=0, atol=RANGE_SUM_REL_TOL *
+                                  float(b.abs().max())):
+                raise AssertionError(f"{dp}x{pp} {method}: the gradient "
+                                     f"through K2 differs from the plain "
+                                     f"one")
+    indices = parallel.make_distributed_resampler(mesh, method="stratified")
+    reset_counts()
+    got = indices(lw, NoiseSource.seeded(38, dev))
+    _md_expect(_md_counts(launches, f"35b gloo {dp}x{pp} index-only "
+                          f"resampler"), "index-only",
+               searchsorted_sorted=1)
+    with _md_plain_route():
+        plain = indices(lw, NoiseSource.seeded(38, dev))
+    if not torch.equal(got, plain):
+        raise AssertionError(f"{dp}x{pp}: K4 differs inside the resampler")
+    _md_print(f"gloo {dp}x{pp}: the all-gather exchange (systematic, "
+              f"multinomial, soft) and the index-only resampler equal their "
+              f"plain versions bit for bit; gradients through K2 within "
+              f"{RANGE_SUM_REL_TOL} of the plain backward's")
+
+
+def _md_island_model(dev):
+    model = (lgssm.Initial(0.0, 1.0),
+             lgssm.Transition(MD_ISLAND_A, 1.0),
+             lgssm.Emission(1.0, MD_ISLAND_R),
+             lgssm.Proposal(0.0, 0.0, [MD_ISLAND_A, 0.0], 0.0, 1.0, 1.0))
+    return tuple(m.to(dev) for m in model)
+
+
+def _md_island_data(dev):
+    """Observations from the model (as `tests/test_islands.py` makes them)
+    and each row's exact log-Z."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(0.0, 1.0, size=MD_ISLAND_B)
+    ys = []
+    for t in range(MD_ISLAND_T):
+        if t:
+            x = MD_ISLAND_A * x + rng.normal(0.0, 1.0, size=MD_ISLAND_B)
+        ys.append(x + rng.normal(0.0, MD_ISLAND_R, size=MD_ISLAND_B))
+    obs = np.stack(ys).astype(np.float32)
+    params = kalman.KalmanParams(
+        initial_mean=0.0, initial_variance=1.0,
+        transition_mult=MD_ISLAND_A, transition_offset=0.0,
+        transition_variance=1.0, emission_mult=1.0, emission_offset=0.0,
+        emission_variance=MD_ISLAND_R ** 2)
+    exact = np.array([kalman.kalman_filter(obs[:, b], params)[4]
+                      for b in range(MD_ISLAND_B)])
+    return torch.tensor(obs, device=dev), exact
+
+
+def _md_gloo_task(dev):
+    """(b): the filter, the resamplers, the soft train step and island SMC
+    on gloo ranks sharing one card."""
+    from aesmc_tpu_torch import parallel
+
+    launches, times = {}, {}
+    comps, obs = _optimal_lgssm(dev)
+    exact = _lgssm_exact(obs)
+    with torch.no_grad():
+        want = inference.infer("smc", obs, *comps, K,
+                               noise=NoiseSource.seeded(35, dev),
+                               **_md_filter_kwargs())
+    meshes = {}
+    for dp, pp in MD_GLOO_MESHES:
+        mesh = meshes[(dp, pp)] = parallel.make_mesh(dp, pp, backend="gloo")
+        times[f"35b gloo {dp}x{pp} collectives"] = _md_collective_ms(
+            dev, mesh, f"35b gloo {dp}x{pp}")
+        rows, parts = parallel.data_particle_specs(mesh, B, K)
+        path = f"35b gloo filter {dp}x{pp}, all-gather exchange"
+
+        def call(mesh=mesh):
+            return inference.infer(
+                "smc", parallel.shard_batch(obs, mesh), *comps, K,
+                noise=NoiseSource.seeded(35, dev), mesh=mesh,
+                **_md_filter_kwargs())
+
+        with torch.no_grad():
+            reset_counts()
+            got, ms = _timed(call)
+            _md_expect(_md_counts(launches, path), path,
+                       resample_sorted=T - 1)
+            times[path] = (ms, [round(ms, 3)])
+        log_z = got["log_marginal_likelihood"]
+        if not bool(torch.isfinite(log_z).all()):
+            raise AssertionError(f"{path}: log-Z {log_z}")
+        _check_log_z(f"{path} (rank {torch.distributed.get_rank()})",
+                     log_z, exact[rows])
+        shift = (got["ancestral_indices"][0].long() -
+                 want["ancestral_indices"][0][rows, parts].long()).abs()
+        first = float((shift == 0).float().mean())
+        if int(shift.max()) > MD_FIRST_STEP_MAX_SHIFT:
+            raise AssertionError(f"{path}: a first-step ancestor moved "
+                                 f"{int(shift.max())} particles from the "
+                                 f"single-device call's")
+        delta = float((log_z - want["log_marginal_likelihood"][rows]).abs()
+                      .max())
+        print(f"{path} (rank {torch.distributed.get_rank()}): log-Z finite, "
+              f"within the Kalman bound; first step's ancestors equal to the "
+              f"single-device call's on {first:.6f} of its slots, the others "
+              f"one particle over (bound {MD_FIRST_STEP_MAX_SHIFT}); |log-Z "
+              f"- single device| <= {delta:.4g}; {times[path][0]:.3f} "
+              f"ms/call", flush=True)
+        _md_resampler_checks(dev, mesh, dp, pp, launches)
+
+    # Soft (alpha 0.5) sharded train step on the (2, 2) mesh: the kernels'
+    # gradients against the plain route's on the same noise.
+    mesh = meshes[MD_GLOO_MESHES[0]]
+    path = (f"35b gloo soft train step 2x2 (T, B, K) = ({MD_SOFT_GLOO_T}, "
+            f"{B}, {MD_SOFT_K})")
+
+    def soft_model():
+        comps_s, obs_s = _bench_lgssm(dev, 0.5)
+        return comps_s, obs_s[:MD_SOFT_GLOO_T]
+
+    grads, losses_ = {}, {}
+    for plain in (False, True):
+        comps_s, obs_s = soft_model()
+        params = train.get_chained_params(*comps_s)
+        step = parallel.make_sharded_train_step(
+            MD_SOFT_K, "aesmc", torch.optim.SGD(params, lr=0.0), mesh,
+            resampling_method="soft")
+        reset_counts()
+        with (_md_plain_route() if plain else contextlib.nullcontext()):
+            losses_[plain] = step(comps_s, parallel.shard_batch(obs_s, mesh),
+                                  NoiseSource.seeded(39, dev))
+        if not plain:
+            _md_expect(_md_counts(launches, path), path,
+                       resample_sorted=MD_SOFT_GLOO_T - 1,
+                       range_sum=MD_SOFT_GLOO_T - 1)
+        grads[plain] = [p.grad.clone() for p in params]
+    if not torch.equal(losses_[False], losses_[True]):
+        raise AssertionError(f"{path}: the loss differs between routes")
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(grads[False], grads[True]))
+    if worst > GRAD_RTOL:
+        raise AssertionError(f"{path}: gradients off the plain route's by "
+                             f"{worst}")
+    comps_1, obs_1 = soft_model()
+    single = train.make_train_step(
+        MD_SOFT_K, "aesmc", torch.optim.SGD(train.get_chained_params(
+            *comps_1), lr=0.0), resampling_method="soft")
+    loss_1 = single(comps_1, obs_1, NoiseSource.seeded(39, dev))
+    rel = float((losses_[False] - loss_1).abs() / loss_1.abs())
+    if rel > LOG_Z_REL_TOL:
+        raise AssertionError(f"{path}: loss {float(losses_[False])} vs the "
+                             f"single-device step's {float(loss_1)}")
+    step = parallel.make_sharded_train_step(
+        MD_SOFT_K, "aesmc", torch.optim.SGD(train.get_chained_params(
+            *comps_s), lr=0.0), mesh, resampling_method="soft")
+    noise = NoiseSource.seeded(40, dev)
+    times[path] = _md_median_ms(lambda: step(
+        comps_s, parallel.shard_batch(obs_s, mesh), noise), calls=1)
+    _md_print(f"{path}: loss equal on the kernel and plain routes, "
+              f"gradients within {worst:.3g} relative (bound {GRAD_RTOL}); "
+              f"loss {float(losses_[False]):.4f} vs the single-device "
+              f"step's {float(loss_1):.4f} ({rel:.3g} relative, bound "
+              f"{LOG_Z_REL_TOL}); {times[path][0]:.3f} ms/step (runs "
+              f"{times[path][1]})")
+
+    # Island SMC: one island of MD_ISLAND_K particles a rank.
+    island_mesh = parallel.make_island_mesh(MD_GLOO_RANKS, backend="gloo")
+    model = _md_island_model(dev)
+    obs_i, exact_i = _md_island_data(dev)
+    path = f"35b islands {MD_ISLANDS} x {MD_ISLAND_K}"
+
+    replicated = obs_i.repeat(1, MD_ISLAND_SEEDS)
+
+    def islands(seed, mesh=island_mesh):
+        return parallel.island_infer(
+            replicated, *model, num_particles=MD_ISLAND_K,
+            num_islands=MD_ISLANDS, noise=NoiseSource.seeded(seed, dev),
+            island_resampling_criterion=0.5, mesh=mesh)
+
+    with torch.no_grad():
+        reset_counts()
+        out, ms = _timed(lambda: islands(0))
+        _md_expect(_md_counts(launches, path), path,
+                   resample_systematic=2 * (MD_ISLAND_T - 1))
+        times[path] = (ms, [round(ms, 3)])
+        single = islands(0, mesh=None)
+    # The mesh's rows and the single device's (all islands as [N B, K]
+    # rows of one filter) reduce their logsumexps over rows of other
+    # counts, whose float sums may differ in the last bit; the runs then
+    # part, so each is held to the bar on its own (on the CPU the two are
+    # equal bit for bit, tests/test_torch_islands.py).
+    ratios = {}
+    for label, log_z in (("mesh", out["log_marginal_likelihood"]),
+                         ("single device",
+                          single["log_marginal_likelihood"])):
+        lml = log_z.double().cpu().numpy()
+        if not np.isfinite(lml).all():
+            raise AssertionError(f"{path}, {label}: log-Z not finite")
+        ratios[label] = float(np.exp(
+            lml - np.tile(exact_i, MD_ISLAND_SEEDS)).mean())
+        if not MD_ISLAND_BAND[0] < ratios[label] < MD_ISLAND_BAND[1]:
+            raise AssertionError(f"{path}, {label}: mean Z-hat / Z "
+                                 f"{ratios[label]} outside {MD_ISLAND_BAND}")
+    delta = float((out["log_marginal_likelihood"] -
+                   single["log_marginal_likelihood"]).abs().max())
+    _md_print(f"{path}, criterion 0.5, (T, B) = ({MD_ISLAND_T}, "
+              f"{MD_ISLAND_B}) x {MD_ISLAND_SEEDS} replicate blocks of rows: "
+              f"mean Z-hat / Z over the {MD_ISLAND_SEEDS * MD_ISLAND_B} rows "
+              f"{ratios['mesh']:.4f} on the mesh, "
+              f"{ratios['single device']:.4f} on one device (band "
+              f"{MD_ISLAND_BAND}); |log-Z mesh - one device| <= "
+              f"{delta:.4g}; {times[path][0]:.3f} ms/call")
+    return {"launches": launches, "times": times}
+
+
+def _md_kernel_phase(dev):
+    """(c): K4, K3 and K2 at the shapes of the distributed exchanges, bit
+    for bit against their plain versions (K2 on integer cotangents), and
+    timed."""
+    generator = torch.Generator(device=dev).manual_seed(35)
+    lw = torch.randn(B, K, generator=generator, device=dev) * 3.0
+    cdf = resampling._normalized_cumsum(lw)
+    u = torch.rand(B, 1, generator=generator, device=dev)
+    value = torch.randn(B, K, MD_D, generator=generator, device=dev)
+    f = 4
+    for kp in MD_KP:
+        # The last rank's slots [K - Kp, K) of the systematic grid.
+        grid = resample_cuda.systematic_positions(u, K)[:, K - kp:]
+        pos = grid.contiguous()
+        g = torch.randint(-5, 6, (B, kp, MD_D), generator=generator,
+                          device=dev).float()
+        checks = {
+            "K4": (searchsorted_sorted_cuda.searchsorted_sorted(cdf, pos),
+                   searchsorted_sorted_cuda.searchsorted_sorted_torch(cdf,
+                                                                      pos)),
+            "K3": (resample_sorted_cuda.resample_and_gather_sorted(
+                cdf, pos, value),
+                resample_sorted_cuda.resample_and_gather_sorted_torch(
+                    cdf, pos, value)),
+            "K2": (range_sum_cuda.range_sum(cdf, pos, g),
+                   range_sum_cuda.range_sum_torch(cdf, pos, g)),
+        }
+        for label, (got, want) in checks.items():
+            if not all(torch.equal(a, b) for a, b in zip(_as_tuple(got),
+                                                         _as_tuple(want))):
+                raise AssertionError(f"{label} differs from its plain "
+                                     f"version at Kc = {K}, Kp = {kp}")
+        print(f"K4, K3 and K2 at (B, Kc, Kp, D) = ({B}, {K}, {kp}, {MD_D}): "
+              f"exact (tolerance 0; K2 on integer cotangents)", flush=True)
+        n_p, steps = B * kp, _search_steps(K)
+        ancestors = torch.searchsorted(cdf, pos, right=True).clamp_(
+            max=K - 1).unsqueeze(-1).expand(B, kp, MD_D)
+        _kernel_row("searchsorted_sorted", (B, K, kp),
+                    lambda: searchsorted_sorted_cuda.searchsorted_sorted(
+                        cdf, pos),
+                    lambda: searchsorted_sorted_cuda.searchsorted_sorted_torch(
+                        cdf, pos),
+                    lambda: torch.searchsorted(cdf, pos, right=True),
+                    f * (B * K + 2 * n_p), n_p * steps,
+                    "torch.searchsorted")
+        _kernel_row("resample_sorted", (B, K, kp, MD_D),
+                    lambda: resample_sorted_cuda.resample_and_gather_sorted(
+                        cdf, pos, value),
+                    lambda: (resample_sorted_cuda
+                             .resample_and_gather_sorted_torch(cdf, pos,
+                                                               value)),
+                    None, f * (B * K * (1 + MD_D) + n_p * (2 + MD_D)),
+                    n_p * steps)
+        _kernel_row("range_sum", (B, K, kp, MD_D),
+                    lambda: range_sum_cuda.range_sum(cdf, pos, g),
+                    lambda: range_sum_cuda.range_sum_torch(cdf, pos, g),
+                    lambda: torch.zeros((B, K, MD_D), device=dev)
+                    .scatter_add_(1, ancestors, g),
+                    f * (B * K * (1 + MD_D) + n_p * (1 + MD_D)),
+                    n_p * steps + n_p * MD_D,
+                    "scatter_add_ over the given ancestors (non-"
+                    "deterministic)")
+    # The ring: rank 0's positions against the visiting slice of rank 1.
+    kl = K // MD_GLOO_RANKS
+    cdf_slice = cdf[:, kl:2 * kl].contiguous()
+    value_slice = value[:, kl:2 * kl].contiguous()
+    pos = resample_cuda.systematic_positions(u, K)[:, :kl].contiguous()
+    got = resample_sorted_cuda.resample_and_gather_sorted(cdf_slice, pos,
+                                                          value_slice)
+    want = resample_sorted_cuda.resample_and_gather_sorted_torch(
+        cdf_slice, pos, value_slice)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("K3 differs from its plain version on a ring "
+                             "slice")
+    print(f"K3 on a ring slice (B, Kc, Kp, D) = ({B}, {kl}, {kl}, {MD_D}): "
+          f"exact (tolerance 0)", flush=True)
+    n_p = B * kl
+    _kernel_row("resample_sorted", (B, kl, kl, MD_D),
+                lambda: resample_sorted_cuda.resample_and_gather_sorted(
+                    cdf_slice, pos, value_slice),
+                lambda: resample_sorted_cuda.resample_and_gather_sorted_torch(
+                    cdf_slice, pos, value_slice),
+                None, f * (n_p * (1 + MD_D) * 2 + n_p),
+                n_p * _search_steps(kl))
+
+
+def multi_device_phase(dev):
+    phase(f"35 multi-device: NCCL world of {torch.cuda.device_count()} "
+          f"rank(s), one card each; {MD_GLOO_RANKS} gloo ranks on cuda:0 "
+          f"on meshes {MD_GLOO_MESHES}; K2-K4 at the distributed shapes")
+    start = time.perf_counter()
+    _md_kernel_phase(dev)
+    _md_world(torch.cuda.device_count(), "nccl", "_md_nccl_task")
+    _md_world(MD_GLOO_RANKS, "gloo", "_md_gloo_task")
+    _phase_seconds("35", start)
+
+
 def _build_other(other, sources):
     """Builds each of ``sources`` from directory ``other`` with `_build`'s
     flags, one nvcc each, all started together, into `compare/` of the
@@ -5696,6 +6340,7 @@ def main():
     twisted_hmm_phase(dev)
     deep_twist_phase(dev)
     enkf_phase(dev)
+    multi_device_phase(dev)
     kernels = []
     for name, (module, _, _, replaces) in KERNELS.items():
         launches = sum(LAUNCHES[name].values())

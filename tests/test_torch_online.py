@@ -306,11 +306,16 @@ def test_time_reading_component_sees_every_step():
      "paris_backward"),
     (dict(paris_h=lambda a, b, t: b, paris_pairwise="bogus"), ValueError,
      "paris_pairwise"),
-    (dict(mesh=object()), NotImplementedError, "slice E"),
-    (dict(data_axis="batch"), NotImplementedError, "slice E"),
-    (dict(particle_axis="k"), NotImplementedError, "slice E"),
-    (dict(resampling_implementation=lambda *a: a), NotImplementedError,
+    # On a mesh (slice E1), what waits for slice E2 and what has no
+    # distributed form.
+    (dict(mesh=object(), paris_h=lambda a, b, t: b), NotImplementedError,
      "slice E"),
+    (dict(mesh=object(), track_genealogy=True), NotImplementedError,
+     "slice E"),
+    (dict(mesh=object(), resampling_method="ot"), NotImplementedError,
+     "slice E"),
+    (dict(mesh=object(), resampling_method="residual"), ValueError,
+     "residual"),
 ])
 def test_validation(kwargs, error, match):
     with pytest.raises(error, match=match):
