@@ -29,6 +29,16 @@ bootstrap weight, (prior or transition log-density + emission) - the same
 log-density as the proposal's, which differs from the emission alone in
 float32 rounding (and would move ancestors across bin edges); J > 1
 blocks take the local emission weights alone, as the JAX package does.
+
+A callable ``resampling_implementation`` draws the `[J B, K]` indices
+(as `infer` takes one). A distributed one (`parallel.dist_resampling`,
+carrying ``.mesh``) runs the filter on its mesh: every rank holds the
+observations' rows of its data shard and K / n particles of each, and
+draws its block of the single-device draws. Its `[B_l J, K_l]` weights go
+to the resampler batch-major, so that a data rank's rows are
+consecutive, and the resampling draws are reordered from the
+single-device block-major rows to match; the parents' blocks are
+gathered over the particle group and the log-Z terms reduce over it.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from . import distributions as dists
 from . import inference as _inference
 from . import resampling, state
 from .noise import NoiseSource
+from .sharding_utils import cloud_of, particle_logsumexp
 
 __all__ = ["block_pf", "block_filtered_mean", "contiguous_blocks",
            "diag_emission_local_log_weights"]
@@ -164,6 +175,33 @@ def block_filtered_mean(latent: torch.Tensor, log_weight: torch.Tensor,
     return torch.sum(latent * w_dim, dim=-2)
 
 
+class _BlockMajorDraws:
+    """The replicated source of a mesh's resampling draws, with each
+    `[J B, ...]` draw's rows reordered from block-major (row j B + b, the
+    single-device layout) to batch-major (row b J + j), the layout of
+    the rows handed to a distributed resampler."""
+
+    def __init__(self, source, num_blocks):
+        self.source = source
+        self.num_blocks = num_blocks
+
+    @property
+    def device(self):
+        return self.source.device
+
+    def _draw(self, kind, shape):
+        draw = getattr(self.source, kind)(shape)
+        j = self.num_blocks
+        return draw.reshape((j, shape[0] // j) + tuple(shape[1:])).transpose(
+            0, 1).reshape(tuple(shape))
+
+    def uniform(self, shape):
+        return self._draw("uniform", tuple(shape))
+
+    def exponential(self, shape):
+        return self._draw("exponential", tuple(shape))
+
+
 def block_pf(observations,
              initial,
              transition,
@@ -200,9 +238,9 @@ def block_pf(observations,
             component (for the default local weights).
         resampling_method / resampling_implementation: the per-block
             resampler, one call on the `[J B, K]` weights a step ('auto':
-            the kernels for CUDA tensors). A callable (distributed)
-            implementation is slice E2 of the port and raises
-            NotImplementedError.
+            the kernels for CUDA tensors), or a callable; a distributed one
+            runs on its mesh (module docstring: ``num_particles`` is the
+            whole cloud's K and the outputs are this rank's blocks).
         remat: recompute each step in the backward
             (`torch.utils.checkpoint`) instead of keeping its activations.
         return_*: `infer`-style output selection. `latents` are the
@@ -215,10 +253,6 @@ def block_pf(observations,
         ancestral_indices `[T-1, n_blocks, B, K]` int32, log_weight
         `[B, K, n_blocks]`, last_latent.
     """
-    if callable(resampling_implementation):
-        raise NotImplementedError(
-            "block_pf's distributed (callable) resampling_implementation is "
-            "not ported yet: multi-device is slice E2 of the port")
     stacked_obs = _inference.stack_observations(observations)
     obs_seq = _inference.ObservationSequence(stacked_obs)
     num_timesteps = len(obs_seq)
@@ -227,6 +261,15 @@ def block_pf(observations,
     if noise is None:
         noise = NoiseSource.seeded(0, first.device)
     log_num_particles = _stdmath.log(num_particles)
+    cloud = cloud_of(None, resampling_implementation)
+    if cloud is not None:
+        num_particles = cloud.local_particles(num_particles)
+
+    def view(source):
+        return source if cloud is None else cloud.noise(source)
+
+    def lse(x):
+        return particle_logsumexp(x, cloud)
 
     init_dist = initial()
     dim = (int(init_dist.event_shape[-1]) if tuple(init_dist.event_shape)
@@ -260,14 +303,38 @@ def block_pf(observations,
             return latent[:, :, b[0]:b[-1] + 1]
         return latent[:, :, dim_index[j]]
 
+    def block_ancestors(prev_log_weight, noise):
+        """`[J, B, K]` ancestor indices of the J blocks."""
+        lw = prev_log_weight.detach()
+        if not callable(implementation):
+            return resampling.sample_indices(
+                lw.permute(2, 0, 1).reshape(num_blocks * batch_size,
+                                            num_particles),
+                noise, resampling_method, implementation).reshape(
+                    num_blocks, batch_size, num_particles)
+        if cloud is None:
+            lw = lw.permute(2, 0, 1).reshape(num_blocks * batch_size,
+                                             num_particles)
+            return resampling.callable_indices(
+                implementation, lw, noise, torch.logsumexp(lw, dim=1)
+            ).reshape(num_blocks, batch_size, num_particles)
+        # Batch-major rows: this data rank's rows are consecutive.
+        lw = lw.permute(0, 2, 1).reshape(batch_size * num_blocks,
+                                         num_particles)
+        idx = resampling.callable_indices(
+            implementation, lw, _BlockMajorDraws(noise.replicated,
+                                                 num_blocks),
+            lse(lw))
+        return idx.reshape(batch_size, num_blocks,
+                           num_particles).permute(1, 0, 2)
+
     def step(t, prev_latent, prev_log_weight, noise):
         time = _inference.TimeIndex(t)
-        lw = prev_log_weight.detach().permute(2, 0, 1).reshape(
-            num_blocks * batch_size, num_particles)
-        anc = resampling.sample_indices(
-            lw, noise, resampling_method, implementation).reshape(
-                num_blocks, batch_size, num_particles)
-        parts = [torch.take_along_dim(block_slice(prev_latent, j),
+        noise = view(noise)
+        anc = block_ancestors(prev_log_weight, noise)
+        parents = (prev_latent if cloud is None else
+                   cloud.gather_particles(prev_latent))
+        parts = [torch.take_along_dim(block_slice(parents, j),
                                       anc[j].long()[:, :, None], dim=1)
                  for j in range(num_blocks)]
         mixed = parts[0] if num_blocks == 1 else torch.cat(parts, dim=-1)
@@ -277,7 +344,7 @@ def block_pf(observations,
         latent_t = state.sample(trans_dist, batch_size, num_particles,
                                 noise)
         log_weight_t = weight(trans_dist, latent_t, time)
-        contribution = (torch.logsumexp(prev_log_weight, dim=1) -
+        contribution = (lse(prev_log_weight) -
                         log_num_particles)                 # [B, J]
         return latent_t, log_weight_t, anc, contribution
 
@@ -295,7 +362,8 @@ def block_pf(observations,
         return proposal_lp + local - proposal_lp
 
     # ---- t = 0: sample from the prior; weights are the local emission lp.
-    latent_0 = state.sample(init_dist, batch_size, num_particles, noise)
+    latent_0 = state.sample(init_dist, batch_size, num_particles,
+                            view(noise))
     log_weight_0 = weight(init_dist, latent_0, 0)            # [B, K, J]
 
     latents, log_weights = [latent_0], [log_weight_0]
@@ -322,7 +390,7 @@ def block_pf(observations,
         summed = (_inference._sum_in_order(contributions) if contributions
                   else 0.0)
         log_marginal_likelihood = torch.sum(
-            summed + torch.logsumexp(log_weight, dim=1) - log_num_particles,
+            summed + lse(log_weight) - log_num_particles,
             dim=-1)                                          # [B]
     ancestral_indices = None
     if return_ancestral_indices:

@@ -27,6 +27,15 @@ perturbation normals and the proposal's normals, and last the final
 draw's resampling noise. They are the JAX package's `(resample, propose,
 perturb)` streams of `split(key, (M, T, 3))[m, t]`, the final draw from
 stream `[m, 0, 0]`.
+
+A callable ``resampling_implementation`` draws the indices, and the
+latent and parameters move with them (as leaves of a fused exchange). A
+distributed one (`parallel.dist_resampling`, carrying ``.mesh``) runs
+the fit on its mesh: every rank holds the observations' rows of its
+data shard and K / n particles of each (theta0's `[B]` and `[B, K]`
+leaves are cut to this rank's block), draws its block of the
+single-device draws, and log-Z and the swarm means reduce over the
+particle group.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from . import resampling, state
 from .inference import (ObservationSequence, TimeIndex, _first_leaf,
                         _sum_in_order, stack_observations)
 from .noise import NoiseSource
+from .sharding_utils import cloud_of, particle_logsumexp, particle_mean
 from .utils.pytree import rebuild, sorted_leaves
 
 __all__ = ["if2"]
@@ -68,7 +78,8 @@ def if2(observations,
             `[B, K]` latents (`lgssm.Transition(mult=theta["mult"],
             scale=s)`). The proposal is used as-is.
         theta0: a number, tensor or dict of them, each scalar, `[B]` or
-            `[B, K]`: the starting centre of the swarm.
+            `[B, K]`: the starting centre of the swarm (the global batch
+            and K on a mesh).
         rw_scale: theta0's structure: each parameter's random-walk
             standard deviation at cooling 1.
         num_particles: the swarm size K.
@@ -80,9 +91,10 @@ def if2(observations,
         initial_perturbation: multiplier on the t = 0 re-dispersal of the
             swarm at the start of every iteration.
         resampling_method / resampling_implementation: the joint (state,
-            theta) resampler ('auto': the kernels for CUDA tensors). A
-            callable (distributed) implementation is slice E2 of the port
-            and raises NotImplementedError.
+            theta) resampler ('auto': the kernels for CUDA tensors), or a
+            callable; a distributed one runs on its mesh (module
+            docstring: the observations are this rank's rows and the
+            outputs this rank's blocks).
 
     Returns:
         dict with `theta` (the final swarm, `[B, K]` leaves), `theta_mean`
@@ -90,10 +102,6 @@ def if2(observations,
         means after each iteration) and `log_likelihoods` (`[M, B]`: each
         iteration's log-Z of the perturbed filter).
     """
-    if callable(resampling_implementation):
-        raise NotImplementedError(
-            "if2's distributed (callable) resampling_implementation is not "
-            "ported yet: multi-device is slice E2 of the port")
     stacked_obs = stack_observations(observations)
     obs_seq = ObservationSequence(stacked_obs)
     num_timesteps = len(obs_seq)
@@ -102,10 +110,22 @@ def if2(observations,
     device = first.device
     if noise is None:
         noise = NoiseSource.seeded(0, device)
-    k = num_particles
-    log_num_particles = _stdmath.log(k)
+    cloud = cloud_of(None, resampling_implementation)
+    k = (num_particles if cloud is None else
+         cloud.local_particles(num_particles))
+    log_num_particles = _stdmath.log(num_particles)
     implementation = resampling.resolve_implementation(
         device, resampling_method, resampling_implementation)
+    rows = particles = slice(None)
+    global_batch = batch_size
+    if cloud is not None:
+        noise = cloud.noise(noise)
+        global_batch = batch_size * cloud.n_data
+        rows = cloud.rows(global_batch)
+        particles = cloud.particles(num_particles)
+
+    def lse(x):
+        return particle_logsumexp(x, cloud)
 
     def expand_theta(x):
         if not isinstance(x, torch.Tensor):
@@ -115,10 +135,10 @@ def if2(observations,
             x = x.to(device)
         if x.ndim == 0:
             return x.to(torch.float32).expand(batch_size, k)
-        if tuple(x.shape) == (batch_size,):
-            return x[:, None].expand(batch_size, k)
-        if tuple(x.shape) == (batch_size, k):
-            return x
+        if tuple(x.shape) == (global_batch,):
+            return x[rows, None].expand(batch_size, k)
+        if tuple(x.shape) == (global_batch, num_particles):
+            return x[rows, particles]
         raise ValueError(
             "theta0 leaves must be scalar, [batch], or "
             f"[batch, particles]; got shape {tuple(x.shape)}")
@@ -140,6 +160,19 @@ def if2(observations,
                                          resampling_method,
                                          implementation).long()
 
+    def resample(log_weight, latent, theta):
+        """(latent, theta) at the step's ancestors."""
+        if not callable(implementation):
+            index = indices(log_weight)
+            return (None if latent is None else
+                    state.resample(latent, index)), gather(theta, index)
+        value = {"theta": theta} if latent is None else {
+            "latent": latent, "theta": theta}
+        _, out = resampling.callable_resample(
+            implementation, log_weight.detach(), noise, value,
+            lse(log_weight).detach())
+        return out.get("latent"), out["theta"]
+
     def one_iteration(theta_swarm, sigma):
         # Re-disperse the swarm at t = 0 (seeds iteration 0 from theta0).
         theta = perturb(theta_swarm, sigma * initial_perturbation)
@@ -154,16 +187,14 @@ def if2(observations,
         contributions = []
         for t in range(1, num_timesteps):
             time = TimeIndex(t)
-            index = indices(log_weight)
-            prev_latent = state.resample(latent, index)
-            theta = perturb(gather(theta, index), sigma)
+            prev_latent, theta = resample(log_weight, latent, theta)
+            theta = perturb(theta, sigma)
             _, transition, emission, proposal = build_components(theta)
             proposal_dist = proposal(previous_latents=[prev_latent],
                                      time=time, observations=obs_seq)
             latent = state.sample(proposal_dist, batch_size, k, noise)
             obs_prev = [obs_seq[t - 1]]
-            contributions.append(torch.logsumexp(log_weight, dim=1) -
-                                 log_num_particles)
+            contributions.append(lse(log_weight) - log_num_particles)
             log_weight = (
                 state.log_prob(
                     transition(previous_latents=[prev_latent], time=time,
@@ -174,17 +205,16 @@ def if2(observations,
                     state.expand_observation(obs_seq[t], k)) -
                 state.log_prob(proposal_dist, latent))
         total = _sum_in_order(contributions) if contributions else 0.0
-        log_z = (total + torch.logsumexp(log_weight, dim=1) -
-                 log_num_particles)
+        log_z = total + lse(log_weight) - log_num_particles
         # Weight-average the final swarm before the next iteration, so
         # that the last observation's information survives the handoff.
-        theta_end = gather(theta, indices(log_weight))
+        _, theta_end = resample(log_weight, None, theta)
         return theta_end, log_z
 
     means, log_liks = [], []
     for m in range(num_iterations):
         theta, log_z = one_iteration(theta, cooling ** m)
-        means.append(rebuild(theta, [th.mean(dim=1)
+        means.append(rebuild(theta, [particle_mean(th, cloud)
                                      for th in sorted_leaves(theta)]))
         log_liks.append(log_z)
 
@@ -194,7 +224,7 @@ def if2(observations,
 
     return {
         "theta": theta,
-        "theta_mean": rebuild(theta, [th.mean(dim=1)
+        "theta_mean": rebuild(theta, [particle_mean(th, cloud)
                                       for th in sorted_leaves(theta)]),
         "theta_trajectory": stack(means) if means else None,
         "log_likelihoods": (torch.stack(log_liks, dim=0) if log_liks

@@ -40,7 +40,8 @@ group (the log-Z terms, the ESS of adaptive resampling), the per-particle
 draws are this rank's block of the single-device run's draws
 (`noise.ShardNoise`), and resampling is distributed
 (`parallel.dist_resampling`): a callable ``resampling_implementation``, or
-by default the all-gather exchange of the same method. Lineages are
+by default the all-gather exchange of the same method ('ot': the
+ring-streamed Sinkhorn of `ot.distributed_ot_resample`). Lineages are
 traced over the whole particle axis: the stacked latents and ancestors
 are gathered over the particle group at the end, O(T B_l K) values a
 rank.
@@ -313,7 +314,9 @@ def infer(inference_algorithm: str,
             rank runs its block (module docstring). ``num_particles`` is
             the whole cloud's K; the outputs are this rank's blocks
             (log-Z `[B_l]`, the same on every particle rank; ancestors
-            as global indices). Not with 'ot' or 'residual'.
+            as global indices). 'ot' runs the ring-streamed Sinkhorn
+            (`ot.distributed_ot_resample`; ``ot_block_size`` unused). Not
+            with 'residual' or ``ot_rank``.
 
     Returns:
         dict with keys log_marginal_likelihood `[batch]`, latents
@@ -462,12 +465,16 @@ def _resolve_implementation(device, resampling_method,
     """`resampling.resolve_implementation`, with 'ot' (no kernel: torch ops
     on every device) checked as a route name only. On a mesh (``cloud``)
     a callable must be given or is made: the all-gather exchange of the
-    same method."""
+    same method ('ot': the ring-streamed Sinkhorn, chosen in
+    `_resample_step`)."""
+    _check_ot_callable(resampling_method, resampling_implementation)
     if cloud is not None:
         _check_mesh_method(resampling_method)
         if callable(resampling_implementation):
             return resampling_implementation
         resampling._route(device, resampling_implementation)
+        if resampling_method == "ot":
+            return "torch"
         from .parallel import dist_resampling
         return dist_resampling.make_distributed_fused_resampler(
             cloud.mesh, cloud.data_axis, cloud.particle_axis,
@@ -485,11 +492,22 @@ def _resolve_implementation(device, resampling_method,
                                              resampling_implementation)
 
 
-def _check_mesh_method(method):
-    if method == "ot":
-        raise NotImplementedError(
-            "resampling_method='ot' with mesh= is not ported yet; it comes "
-            "with slice E2 of the port (ot.distributed_ot_resample)")
+def _check_ot_callable(method, implementation):
+    """The JAX package's ValueError for a distributed OT resampler under
+    another method."""
+    if (callable(implementation) and getattr(implementation, "ot", False)
+            and method != "ot"):
+        raise ValueError(
+            "got a distributed OT resampler (.ot callable) but "
+            f"resampling_method={method!r}; pass resampling_method='ot' "
+            "with it")
+
+
+def _check_mesh_method(method, ot_rank=None):
+    if method == "ot" and ot_rank is not None:
+        raise ValueError(
+            "the low-rank OT resampler (ot_rank) has no distributed form; "
+            "use ot_rank=None (the ring-streamed Sinkhorn) with mesh=")
     if method == "residual":
         raise ValueError(
             "residual resampling has no distributed form (its query set is "
@@ -542,15 +560,19 @@ def _resample_step(prev_log_weight, values, noise, time, prev_latents,
         log_sum = lse(prev_log_weight)
     contribution = log_sum - _stdmath.log(num_particles)
     base = idx = None
-    if callable(implementation):
-        idx, out, base = _callable_step(
-            prev_log_weight, values, noise, time, prev_latents,
-            observations, method, implementation, alpha, lookahead,
-            log_sum, lse)
-    elif method == "ot":
+    if method == "ot":
         # Transported, not selected: no ancestors; uniform weights next.
         epsilon, num_iterations, block_size, rank = ot
-        if rank is not None:
+        if callable(implementation) and getattr(implementation, "ot",
+                                                False):
+            # A distributed OT resampler binds its own epsilon and
+            # iterations (`parallel.make_distributed_ot_resampler`).
+            out, _ = implementation(prev_log_weight, values)
+        elif cloud is not None:
+            out, _ = _ot.distributed_ot_resample(
+                prev_log_weight, values, cloud.particle_group,
+                epsilon=epsilon, num_iterations=num_iterations)
+        elif rank is not None:
             out, _ = _ot.lowrank_ot_resample(
                 prev_log_weight, values, rank=rank,
                 num_iterations=num_iterations, noise=noise)
@@ -558,6 +580,11 @@ def _resample_step(prev_log_weight, values, noise, time, prev_latents,
             out, _ = _ot.ot_resample(
                 prev_log_weight, values, epsilon=epsilon,
                 num_iterations=num_iterations, block_size=block_size)
+    elif callable(implementation):
+        idx, out, base = _callable_step(
+            prev_log_weight, values, noise, time, prev_latents,
+            observations, method, implementation, alpha, lookahead,
+            log_sum, lse)
     elif method == "soft":
         idx, base, out = resampling._soft_resample(
             prev_log_weight, noise, values, alpha, implementation,
@@ -678,6 +705,7 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
     if mesh is not None:
         from .sharding_utils import Cloud
         cloud = Cloud(mesh, data_axis, particle_axis)
+        _check_mesh_method(resampling_method, ot_rank)
     implementation = (_resolve_implementation(
         first.device, resampling_method, resampling_implementation, cloud,
         soft_resampling_alpha) if is_smc or cloud is None else None)

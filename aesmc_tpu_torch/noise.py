@@ -145,30 +145,54 @@ class ShardNoise(_View):
     this rank's block, so every rank consumes the generator as the
     single-device run does. Draws that are the same on every rank (the
     resampling positions) go to ``replicated`` itself.
+
+    ``row_dim`` and ``particle_dim`` name the axes the two groups cut (0
+    and 1 by default; None: not cut, the draw is the same on every rank
+    of that group): a backward tile `[B, M, K_parents]` cuts its parents
+    on axis 2, a sampler's `[K, ...]` cloud its particles on axis 0
+    (`along`). A particle-major draw swaps the roles of axes 0 and 1.
     """
 
-    def __init__(self, replicated, rows, particles):
+    def __init__(self, replicated, rows, particles, row_dim=0,
+                 particle_dim=1):
         self.replicated = replicated
         self.rows = rows
         self.particles = particles
+        self.row_dim = row_dim
+        self.particle_dim = particle_dim
 
     @property
     def device(self):
         return self.replicated.device
 
+    def along(self, row_dim=0, particle_dim=1) -> "ShardNoise":
+        """The same view with the data group cutting axis ``row_dim`` and
+        the particle group axis ``particle_dim`` (None: no cut)."""
+        return ShardNoise(self.replicated, self.rows, self.particles,
+                          row_dim, particle_dim)
+
     def _draw(self, kind, shape, particle_major_):
-        if len(shape) < 2:
-            raise ValueError(
-                f"a sharded draw needs [batch, particle, ...]; got {shape}")
-        (r, nr), (p, np_) = self.rows, self.particles
+        cuts = [(self.row_dim, self.rows), (self.particle_dim,
+                                            self.particles)]
         if particle_major_:
-            (r, nr), (p, np_) = (p, np_), (r, nr)
-        a, b = shape[:2]
-        full = particle_major(self.replicated, kind,
-                              (a * nr, b * np_) + shape[2:]) \
-            if particle_major_ else getattr(self.replicated, kind)(
-                (a * nr, b * np_) + shape[2:])
-        return full[r * a:(r + 1) * a, p * b:(p + 1) * b]
+            swap = {0: 1, 1: 0}
+            cuts = [(swap.get(dim, dim), part) for dim, part in cuts]
+        cuts = [(dim, part) for dim, part in cuts
+                if dim is not None and part[1] > 1]
+        for dim, _ in cuts:
+            if dim >= len(shape):
+                raise ValueError(f"a sharded draw cuts axis {dim}; got "
+                                 f"{shape}")
+        full = list(shape)
+        for dim, (_, n) in cuts:
+            full[dim] *= n
+        full = tuple(full)
+        draw = (particle_major(self.replicated, kind, full)
+                if particle_major_ else
+                getattr(self.replicated, kind)(full))
+        for dim, (r, _) in cuts:
+            draw = draw.narrow(dim, r * shape[dim], shape[dim])
+        return draw
 
 
 class StackedNoise(_View):

@@ -49,9 +49,11 @@ each, as `inference.infer(mesh=...)` does: the log-Z terms and the ESS
 cross the particle group, the draws are this rank's block of the
 single-device run's (`noise.ShardNoise`), and resampling is distributed
 (a callable ``resampling_implementation``, or the all-gather exchange of
-the same method). Not ported yet with a mesh (slice E2 of the port):
-``paris_h`` (with `smoothing`), ``track_genealogy`` and 'ot'; they raise
-NotImplementedError.
+the same method; 'ot' the ring-streamed Sinkhorn,
+`ot.distributed_ot_resample`). Streaming PaRIS gathers the parents, their
+weights and statistics once a step and updates this rank's children
+(`smoothing`); genealogy tracking gathers the time-0 labels as the lag
+buffer is gathered, and sums the family weights over the particle group.
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ from . import resampling, smoothing, state, variance
 from .inference import (DeviceTimeIndex, _check_mesh_method,
                         _particle_logsumexp, _resample_step,
                         _resolve_implementation)
+from .sharding_utils import particle_softmax
 
 __all__ = [
     "OnlineFilterState", "make_online_filter", "log_marginal_likelihood",
@@ -161,25 +164,14 @@ class _CausalObservations:
             "not call len(observations) in streaming mode")
 
 
-def _not_ported(name):
-    raise NotImplementedError(
-        f"{name} with mesh= is not ported yet; it comes with slice E2 of "
-        "the port (multi-device)")
-
-
 def _check_options(resampling_method, resampling_implementation,
                    resampling_criterion, lookahead, return_ancestors,
                    track_genealogy, fixed_lag, paris_h, paris_h0,
                    paris_num_draws, paris_backward, paris_pairwise, mesh,
-                   data_axis, particle_axis):
-    """The JAX package's ValueErrors, and NotImplementedError for what
-    waits for slice E2 of the port on a mesh."""
+                   data_axis, particle_axis, ot_rank=None):
+    """The JAX package's ValueErrors, and those of a mesh."""
     if mesh is not None:
-        if paris_h is not None:
-            _not_ported("paris_h= (streaming PaRIS)")
-        if track_genealogy:
-            _not_ported("track_genealogy=True")
-        _check_mesh_method(resampling_method)
+        _check_mesh_method(resampling_method, ot_rank)
     if resampling_method == "soft" and resampling_criterion != "always":
         raise ValueError(
             "soft resampling does not combine with ESS-adaptive "
@@ -290,8 +282,8 @@ def make_online_filter(initial,
             its batch and particle axes: this rank serves its block
             (module docstring). ``num_particles`` is the whole cloud's K;
             observations and the carry are this rank's blocks (ancestors
-            as global indices). Not with ``paris_h``,
-            ``track_genealogy``, 'ot' or 'residual'.
+            and genealogy labels as global indices). Not with 'residual'
+            or ``ot_rank``.
 
     Returns:
         ``init_fn(observation, noise) -> OnlineFilterState`` consumes y_0
@@ -307,7 +299,7 @@ def make_online_filter(initial,
                    resampling_criterion, lookahead, return_ancestors,
                    track_genealogy, fixed_lag, paris_h, paris_h0,
                    paris_num_draws, paris_backward, paris_pairwise, mesh,
-                   data_axis, particle_axis)
+                   data_axis, particle_axis, ot_rank)
     adaptive = resampling_criterion != "always"
     ess_threshold = (float(resampling_criterion) * num_particles
                      if adaptive else None)
@@ -342,9 +334,10 @@ def make_online_filter(initial,
         device = log_weight_0.device
         eve = num_events = lag_buffer = tau = None
         if track_genealogy:
-            eve = torch.arange(num_particles, dtype=torch.int32,
+            offset = 0 if cloud is None else cloud.offset(local_k)
+            eve = torch.arange(offset, offset + local_k, dtype=torch.int32,
                                device=device).expand(
-                                   batch_size, num_particles).contiguous()
+                                   batch_size, local_k).contiguous()
             num_events = torch.zeros((batch_size,), dtype=torch.int32,
                                      device=device)
         if fixed_lag > 0:
@@ -421,8 +414,12 @@ def make_online_filter(initial,
         eve = num_events = lag_buffer = tau = None
         info = {}
         if track_genealogy:
-            eve = torch.take_along_dim(filter_state.eve,
-                                       ancestral_index.long(), dim=1)
+            # On a mesh the ancestors are global: the labels of the whole
+            # particle axis are gathered first, as the lag buffer is.
+            eve = torch.take_along_dim(
+                filter_state.eve if cloud is None else
+                cloud.gather_particles(filter_state.eve),
+                ancestral_index.long(), dim=1)
             num_events = filter_state.num_events + did_resample.to(
                 torch.int32)
         if paris_h is not None:
@@ -432,7 +429,7 @@ def make_online_filter(initial,
                 filter_state.tau, transition, time, prev_obs_list, paris_h,
                 paris_num_draws, paris_backward, pairwise_mode[0],
                 paris_transition_log_bound, paris_max_rejection_rounds,
-                paris_max_exact_lanes)
+                paris_max_exact_lanes, cloud=cloud)
         if fixed_lag > 0:
             # Regather the whole buffer with this step's ancestors (so
             # buffer[0] is x_{t-L} traced to the current particles), report
@@ -460,15 +457,24 @@ def make_online_filter(initial,
             "ess": pre_ess,
             "resampled": did_resample,
         })
+        if paris_h is not None or track_genealogy:
+            w = particle_softmax(log_weight_t, cloud)
         if paris_h is not None:
-            w = torch.softmax(log_weight_t, dim=1)
-            info["paris_smoothed"] = torch.einsum("bk,bk...->b...", w, tau)
+            smoothed = torch.einsum("bk,bk...->b...", w, tau)
+            info["paris_smoothed"] = (smoothed if cloud is None else
+                                      cloud.particle_sum(smoothed))
             if paris_backward == "rejection":
                 info["paris_accept_rate"] = paris_acc
                 info["paris_unconverged"] = paris_unconv
         if track_genealogy:
-            s = variance._family_sums(torch.softmax(log_weight_t, dim=-1),
-                                      eve)
+            if cloud is None:
+                s = variance._family_sums(w, eve)
+            else:
+                # Family labels are global: this rank's weights land in a
+                # [B_l, K] table, summed over the particle group.
+                s = cloud.particle_sum(torch.zeros(
+                    (batch_size, num_particles), dtype=w.dtype,
+                    device=w.device).scatter_add_(1, eve.long(), w))
             cross = 1.0 - (s * s).sum(dim=-1)
             factor = (num_particles / (num_particles - 1.0)) ** (
                 num_events.to(log_weight_t.dtype) + 1.0)

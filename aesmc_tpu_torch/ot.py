@@ -34,10 +34,17 @@ draws of `[B, K, r]` from the `NoiseSource`, in this order: the source
 anchors' (Q), then the target anchors' (R); the JAX package draws them
 from `split(key)`.
 
+`distributed_ot_resample` is the Sinkhorn over a particle axis sharded
+across ranks: the blocked form's source blocks are the other ranks'
+particle slices, pulled one rank along the ring (`parallel.collectives.
+ring_shift`, differentiable) n times an update, so a rank does O(K_l K)
+cost work and holds O(K_l^2) tiles; the cost scale and the normalization
+come from all-reduces over the particle group, and each Sinkhorn
+iteration is recomputed in the backward pass, which keeps O(iterations
+K_l) potentials.
+
 The products are torch ops (the JAX package computes them with XLA, not
-in a Pallas kernel). Not ported yet: `distributed_ot_resample` (the ring
-over a sharded particle axis), slice E2 of the port; it raises
-NotImplementedError.
+in a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -298,15 +305,97 @@ def ot_resample(log_weight, value, epsilon: float = 0.5,
     return rebuild(transported), torch.zeros_like(log_weight)
 
 
-def distributed_ot_resample(log_weight, value, axis_name: str,
+def _ring_smoothed_lse(phi, x, sq, inv_scale, epsilon, group):
+    """lse over the GLOBAL sources s of (phi_s - C(q, s)) / epsilon for this
+    rank's queries q: the source slices (x, sq, phi) visit in ring order,
+    starting with this rank's own, into an online (max, sum)
+    accumulator. Every rank applies the same order, so the result is
+    reproducible; it differs from one device's by float association."""
+    from .parallel import collectives
+
+    n = collectives.size(group)
+    batch, k_local = phi.shape
+    m = torch.full((batch, k_local), float("-inf"), dtype=x.dtype,
+                   device=x.device)
+    s = torch.zeros((batch, k_local), dtype=x.dtype, device=x.device)
+    xv, sqv, phiv = x, sq, phi
+    for step in range(n):
+        m, s = _lse_block(m, s, x, xv, sq, sqv, phiv, inv_scale, epsilon)
+        if step < n - 1:
+            xv, sqv, phiv = collectives.ring_shift([xv, sqv, phiv], group)
+    return m + torch.log(s)
+
+
+def _ring_transport(f, g, x, sq, inv_scale, epsilon, group, k_global):
+    """x_tilde_j = K sum_i P_ij x_i with the sources i visiting around the
+    ring; j runs over this rank's queries."""
+    from .parallel import collectives
+
+    n = collectives.size(group)
+    acc = torch.zeros_like(x)
+    xv, sqv, fv = x, sq, f
+    for step in range(n):
+        acc = _transport_block(acc, x, xv, sq, sqv, fv, g, inv_scale,
+                               epsilon)
+        if step < n - 1:
+            xv, sqv, fv = collectives.ring_shift([xv, sqv, fv], group)
+    return k_global * acc
+
+
+def _ring_iteration(f, g, x, sq, inv_scale, log_a, log_b, epsilon, group):
+    f = epsilon * log_a - epsilon * _ring_smoothed_lse(
+        g, x, sq, inv_scale, epsilon, group)
+    g = epsilon * log_b - epsilon * _ring_smoothed_lse(
+        f, x, sq, inv_scale, epsilon, group)
+    return f, g
+
+
+def distributed_ot_resample(log_weight, value, group,
                             epsilon: float = 0.5, num_iterations: int = 50,
                             scale_cost: bool = True):
-    """OT resampling over a particle axis sharded across devices: not
-    ported yet (slice E2 of the port, multi-device)."""
-    raise NotImplementedError(
-        "distributed_ot_resample (the ring-streamed Sinkhorn over a sharded "
-        "particle axis) is not ported yet; it comes with slice E2 of the "
-        "port (multi-device)")
+    """`ot_resample` over a particle axis sharded across the ranks of
+    ``group`` (the particle axis's process group).
+
+    Args:
+        log_weight: this rank's block `[B, K_l]` (differentiable).
+        value: this rank's `[B, K_l, ...]` particles (a tensor or a dict).
+        group: the particle group; its ranks hold consecutive blocks.
+        epsilon, num_iterations, scale_cost: as `ot_resample`; the cost
+            scale is the mean over the GLOBAL cloud (all-reduced), the
+            single-device scale to float rounding.
+
+    Returns:
+        (this rank's block of the transported particles, zeros `[B,
+        K_l]`). Differentiable in both inputs; each Sinkhorn iteration is
+        recomputed in the backward pass when a gradient is recorded.
+    """
+    from . import math as amath
+    from .parallel import collectives
+
+    x, rebuild = _flatten_particles(value)                   # [B, K_l, D]
+    k_global = x.shape[1] * collectives.size(group)
+    sq = (x * x).sum(dim=-1)                                 # [B, K_l]
+    if scale_cost:
+        xbar = collectives.all_reduce(x.sum(dim=1), group) / k_global
+        mean_sq = collectives.all_reduce(sq.sum(dim=1), group) / k_global
+        mean_cost = 2.0 * mean_sq - 2.0 * (xbar * xbar).sum(dim=1)
+        inv_scale = 1.0 / (mean_cost[:, None, None] + 1e-12)
+    else:
+        inv_scale = torch.ones((x.shape[0], 1, 1), dtype=x.dtype,
+                               device=x.device)
+    log_a = log_weight - amath.distributed_logsumexp(
+        log_weight, group, dim=1)[:, None]
+    log_b = torch.full_like(log_a, -_stdmath.log(k_global))
+    recompute = _recording_grad(log_weight, x)
+    f = torch.zeros_like(log_a)
+    g = torch.zeros_like(log_a)
+    for _ in range(num_iterations):
+        f, g = _maybe_checkpoint(_ring_iteration, f, g, x, sq, inv_scale,
+                                 log_a, log_b, epsilon, group,
+                                 recompute=recompute)
+    transported = _ring_transport(f, g, x, sq, inv_scale, epsilon, group,
+                                  k_global)
+    return rebuild(transported), torch.zeros_like(log_weight)
 
 
 # ---------------------------------------------------------------------------

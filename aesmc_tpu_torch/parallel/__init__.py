@@ -4,12 +4,14 @@ Counterpart of `aesmc_tpu.parallel`, on `torch.distributed`: every rank
 runs the same program on its block of the batch and of the particle axis
 (SPMD by hand), over the process groups of a named `DeviceMesh`, and the
 collectives are explicit (`collectives`). `infer`, `losses.get_loss`,
-`losses.get_loss_and_metrics` and `online.make_online_filter` take
-``mesh=``; this package adds the distributed resamplers (all-gather and
-ring exchanges, soft resampling), the sharded train step and island SMC.
-
-Not ported yet (slice E2 of the port): `make_distributed_ot_resampler`,
-which raises NotImplementedError.
+`losses.get_loss_and_metrics`, `online.make_online_filter` (streaming
+PaRIS and genealogy too), `smoothing.backward_simulation`,
+`smoothing.paris`, `rbpf.rbpf`, `smc2.smc2`, `twisted.twisted_smc` and
+`twisted.learn_twist` take ``mesh=``; `resample_move`, `blockpf`, `samplers` and `if2` take a
+distributed resampler as their ``resampling_implementation`` and run on
+this rank's block of its mesh. This package adds the distributed
+resamplers (all-gather and ring exchanges, soft resampling, the
+ring-streamed OT), the sharded train step and island SMC.
 """
 
 from .mesh import make_mesh, make_island_mesh, data_particle_specs

@@ -141,21 +141,46 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     raise ValueError(f"op must be 'sum' or 'max'. currently = {op}")
 
 
-def _shift(tensors, group, step):
-    """Sends each tensor to the rank ``step`` places back on the ring and
-    receives the one from ``step`` places ahead (one batch of P2P ops)."""
+def _peers(group, step):
     n = size(group)
     me = rank_in(group)
-    to = dist.get_global_rank(group, (me - step) % n)
-    frm = dist.get_global_rank(group, (me + step) % n)
+    return (dist.get_global_rank(group, (me - step) % n),
+            dist.get_global_rank(group, (me + step) % n))
+
+
+def _shift_direct(tensors, group, step):
+    """`_shift` with the tensors themselves (NCCL, or gloo on host
+    tensors): one batch of P2P ops."""
+    to, frm = _peers(group, step)
+    tensors = [t.contiguous() for t in tensors]
     received = [torch.empty_like(t) for t in tensors]
     ops = []
     for t, r in zip(tensors, received):
-        ops.append(dist.P2POp(dist.isend, t.contiguous(), to, group))
+        ops.append(dist.P2POp(dist.isend, t, to, group))
         ops.append(dist.P2POp(dist.irecv, r, frm, group))
     for request in dist.batch_isend_irecv(ops):
         request.wait()
     return received
+
+
+def _shift_staged(tensors, group, step):
+    """`_shift` through host copies: gloo's point-to-point ops take host
+    tensors only (its collectives stage device tensors through host
+    memory themselves; its send/recv abort the process on a CUDA
+    tensor). The received host copies go back to each tensor's device."""
+    host = [t.detach().contiguous().cpu() for t in tensors]
+    received = _shift_direct(host, group, step)
+    return [r.to(t.device) for r, t in zip(received, tensors)]
+
+
+def _shift(tensors, group, step):
+    """Sends each tensor to the rank ``step`` places back on the ring and
+    receives the one from ``step`` places ahead. A gloo group stages
+    device tensors through host memory (`_shift_staged`)."""
+    if (dist.get_backend(group) == "gloo" and
+            any(t.device.type != "cpu" for t in tensors)):
+        return _shift_staged(tensors, group, step)
+    return _shift_direct(tensors, group, step)
 
 
 class _RingShift(torch.autograd.Function):

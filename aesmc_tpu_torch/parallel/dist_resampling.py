@@ -1,7 +1,7 @@
 """Resampling over a particle axis sharded across ranks.
 
-Counterpart of `aesmc_tpu.parallel.dist_resampling` (all of it but the
-OT resampler, which comes with `ot.distributed_ot_resample`). Systematic,
+Counterpart of `aesmc_tpu.parallel.dist_resampling` (the OT resampler
+wraps `ot.distributed_ot_resample`, the ring-streamed Sinkhorn). Systematic,
 stratified and multinomial resampling need the GLOBAL cumulative weight
 distribution, while the weights and particles live in blocks on the
 ranks of the particle group. Per batch row, with K particles over n
@@ -447,10 +447,9 @@ def make_distributed_fused_resampler(mesh, data_axis: str = "data",
         resampler.soft = False
     resampler.takes_log_sum = True
     resampler.fused = True
-    resampler.mesh = mesh
     resampler.method = method
     resampler.exchange = exchange
-    resampler.particle_group = group
+    _tag(resampler, mesh, data_axis, particle_axis, group)
     return resampler
 
 
@@ -459,11 +458,36 @@ def make_distributed_ot_resampler(mesh, data_axis: str = "data",
                                   epsilon: float = 0.5,
                                   num_iterations: int = 50,
                                   scale_cost: bool = True):
-    """Distributed OT resampling: not ported yet (slice E2 of the port,
-    with `ot.distributed_ot_resample`)."""
-    raise NotImplementedError(
-        "make_distributed_ot_resampler is not ported yet; it comes with "
-        "slice E2 of the port (ot.distributed_ot_resample)")
+    """A ``(log_weight, value) -> (value, new_log_weight)`` callable for
+    `infer(resampling_method='ot', resampling_implementation=...)` with
+    ``mesh``: entropy-regularized transport over the sharded particle
+    axis (the ring-streamed Sinkhorn, `ot.distributed_ot_resample`), on
+    this rank's blocks. Carries ``.ot = True``; epsilon and the
+    iterations are bound here (the engine's ``ot_*`` options are then
+    unused)."""
+    from .. import ot as _ot
+
+    group, _ = _axes(mesh, data_axis, particle_axis)
+
+    def resampler(log_weight, value):
+        return _ot.distributed_ot_resample(
+            log_weight, value, group, epsilon=epsilon,
+            num_iterations=num_iterations, scale_cost=scale_cost)
+
+    resampler.ot = True
+    resampler.fused = False
+    resampler.soft = False
+    _tag(resampler, mesh, data_axis, particle_axis, group)
+    return resampler
+
+
+def _tag(resampler, mesh, data_axis, particle_axis, group):
+    """The attributes a module reads off a distributed resampler: its
+    mesh and axis names (`sharding_utils.cloud_of`) and particle group."""
+    resampler.mesh = mesh
+    resampler.data_axis = data_axis
+    resampler.particle_axis = particle_axis
+    resampler.particle_group = group
 
 
 def make_distributed_resampler(mesh, data_axis: str = "data",
@@ -487,9 +511,8 @@ def make_distributed_resampler(mesh, data_axis: str = "data",
     resampler.fused = False
     resampler.takes_log_sum = True
     resampler.soft = False
-    resampler.mesh = mesh
     resampler.method = method
-    resampler.particle_group = group
+    _tag(resampler, mesh, data_axis, particle_axis, group)
     return resampler
 
 

@@ -24,6 +24,14 @@ resampling mixes identity and resampled rows per batch row; the ancestors
 come from the port's resampling router (on the card systematic runs K1
 with indices only, stratified and multinomial run K4), and the regime,
 mean and covariance gathers are `take_along_dim`.
+
+Several ranks (``mesh``, or a distributed ``resampling_implementation``,
+whose mesh is then used): every rank runs its block, the observations'
+rows of its data shard and K / n particles of each; the draws are its
+block of the single-device run's (`noise.ShardNoise`). The moments (m,
+P) ride the distributed exchange beside u (`parallel.dist_resampling`;
+K3 on the card for the default fused exchange), and log-Z, the ESS test
+and the filtered means reduce over the particle group.
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ from . import distributions as dists
 from . import inference as _inference
 from . import resampling, state
 from .noise import NoiseSource
+from .sharding_utils import (cloud_of, particle_logsumexp,
+                             particle_softmax)
 
 __all__ = ["rbpf"]
 
@@ -215,12 +225,18 @@ def rbpf(observations, initial, transition, linear_initial,
             1.0 (the default) resamples every step, 0.0 never.
         resampling_method: 'systematic' | 'stratified' | 'multinomial'.
         resampling_implementation: 'auto' | 'torch' | 'cuda' (see
-            `resampling`); every row goes through the resampling launch at
-            every step, so the noise drawn does not depend on the weights.
+            `resampling`), or a callable resampler (a distributed one of
+            `parallel.dist_resampling` runs the filter on its mesh, with
+            or without ``mesh``); every row goes through the resampling
+            launch at every step, so the noise drawn does not depend on
+            the weights.
         return_history: also return the per-step particles and moments.
-        mesh, data_axis, particle_axis: the sharded filter, not ported
-            yet (slice E2 of the port, multi-device); a mesh raises
-            NotImplementedError.
+        mesh, data_axis, particle_axis: a `DeviceMesh` and its axis
+            names: this rank runs its block (module docstring): the
+            observations are this rank's rows, ``num_particles`` the
+            whole cloud's K, and the outputs this rank's blocks (the
+            filtered means `[T, B_l, D]`, the same on every particle
+            rank).
 
     Returns:
         dict: log_marginal_likelihood `[B]`, nonlinear_latents u_T `[B, K,
@@ -230,13 +246,6 @@ def rbpf(observations, initial, transition, linear_initial,
         nonlinear_latents_history `[T, B, K, ...]`, linear_means_history
         `[T, B, K, D]` and log_weights_history `[T, B, K]`.
     """
-    if (mesh is not None or data_axis != "data" or
-            particle_axis != "particle" or
-            callable(resampling_implementation)):
-        raise NotImplementedError(
-            "rbpf's mesh, data_axis, particle_axis and distributed "
-            "(callable) resampling_implementation are not ported yet: "
-            "multi-device is slice E2 of the port")
     if num_particles < 1:
         raise ValueError(
             f"num_particles must be >= 1. currently = {num_particles}")
@@ -256,10 +265,20 @@ def rbpf(observations, initial, transition, linear_initial,
     obs_seq = _inference.ObservationSequence(obs_arr)
     if noise is None:
         noise = NoiseSource.seeded(0, obs_arr.device)
-    implementation = resampling.resolve_implementation(
-        obs_arr.device, resampling_method, resampling_implementation)
+    cloud = cloud_of(mesh, resampling_implementation, data_axis,
+                     particle_axis)
+    total_particles = num_particles
+    log_k = _stdmath.log(total_particles)
+    if cloud is None:
+        implementation = resampling.resolve_implementation(
+            obs_arr.device, resampling_method, resampling_implementation)
+    else:
+        num_particles = cloud.local_particles(total_particles)
+        implementation = _inference._resolve_implementation(
+            obs_arr.device, resampling_method, resampling_implementation,
+            cloud)
+        noise = cloud.noise(noise)
     k_shape = (batch_size, num_particles)
-    log_k = _stdmath.log(num_particles)
     like = obs_arr if obs_arr.is_floating_point() else obs_arr.float()
 
     def propose(dist_prior, dist_q):
@@ -290,22 +309,39 @@ def rbpf(observations, initial, transition, linear_initial,
     p = _bc(p0, k_shape + (lin_dim, lin_dim), like)
     inc, m, p = _gaussian_update(m, p, *emission_terms(u, 0), obs_arr[0])
     log_w = inc + correction                                 # [B, K]
-    log_z = torch.logsumexp(log_w, dim=1) - log_k            # [B]
-    fmeans = [torch.einsum("bk,bkd->bd", torch.softmax(log_w, dim=1), m)]
+    def lse(x):
+        return particle_logsumexp(x, cloud)
+
+    def filtered_mean(log_w, m):
+        local = torch.einsum("bk,bkd->bd", particle_softmax(log_w, cloud),
+                             m)
+        return local if cloud is None else cloud.particle_sum(local)
+
+    def resample(log_w, u, m, p):
+        """(u, m, p) at the step's ancestors `[B, K]`."""
+        if not callable(implementation):
+            idx = resampling.sample_indices(
+                log_w, noise, resampling_method, implementation).long()
+            return (state.tree_map(lambda x: _gather_particles(x, idx), u),
+                    _gather_particles(m, idx), _gather_particles(p, idx))
+        # A callable: the moments ride the exchange as leaves.
+        _, out = resampling.callable_resample(
+            implementation, log_w.detach(), noise,
+            {"u": u, "m": m, "p": p}, lse(log_w).detach())
+        return out["u"], out["m"], out["p"]
+
+    log_z = lse(log_w) - log_k                               # [B]
+    fmeans = [filtered_mean(log_w, m)]
     history = [(u, m, log_w)]
 
-    iota = torch.arange(num_particles, device=like.device)
     for t in range(1, num_timesteps):
         # ---- per-row adaptive resampling (identity rows mix in).
-        ess = torch.exp(2.0 * torch.logsumexp(log_w, dim=1) -
-                        torch.logsumexp(2.0 * log_w, dim=1))  # [B]
-        do_res = ess <= ess_threshold * num_particles
-        idx = resampling.sample_indices(log_w, noise, resampling_method,
-                                        implementation)      # [B, K]
-        idx = torch.where(do_res[:, None], idx.long(), iota[None, :])
-        u_r = state.tree_map(lambda x: _gather_particles(x, idx), u)
-        m_r = _gather_particles(m, idx)
-        p_r = _gather_particles(p, idx)
+        ess = torch.exp(2.0 * lse(log_w) - lse(2.0 * log_w))  # [B]
+        do_res = ess <= ess_threshold * total_particles
+        u_s, m_s, p_s = resample(log_w, u, m, p)
+        u_r = _inference._where_rows(do_res, u_s, u)
+        m_r = _inference._where_rows(do_res, m_s, m)
+        p_r = _inference._where_rows(do_res, p_s, p)
         log_w = torch.where(do_res[:, None], torch.zeros_like(log_w), log_w)
 
         # ---- propose u_t; Kalman predict and update.
@@ -323,11 +359,9 @@ def rbpf(observations, initial, transition, linear_initial,
         inc, m, p = _gaussian_update(m_pred, p_pred,
                                      *emission_terms(u, time), obs_arr[t])
         new_log_w = log_w + inc + correction
-        log_z = log_z + (torch.logsumexp(new_log_w, dim=1) -
-                         torch.logsumexp(log_w, dim=1))
+        log_z = log_z + (lse(new_log_w) - lse(log_w))
         log_w = new_log_w
-        fmeans.append(torch.einsum("bk,bkd->bd",
-                                   torch.softmax(log_w, dim=1), m))
+        fmeans.append(filtered_mean(log_w, m))
         if return_history:
             history.append((u, m, log_w))
 

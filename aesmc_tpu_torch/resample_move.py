@@ -24,6 +24,13 @@ normal like the head (one a leaf, in the head's leaf order) and `[B, K]`
 uniforms kept off 0 (as the JAX package draws them with minval 1e-38),
 then the proposal's normals. The time loop reads nothing from the device,
 so a call can be captured in a CUDA graph. Continuous latents only.
+
+A callable ``resampling_implementation`` resamples the pairs (as `infer`
+takes one). A distributed one (`parallel.dist_resampling`, carrying
+``.mesh``) runs the filter on its mesh: every rank holds its block, the
+observations' rows of its data shard and K / n particles of each, draws
+its block of the single-device draws, and log-Z, the acceptance means
+and the random walk's weighted std reduce over the particle group.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from . import resampling, state
 from .inference import (ObservationSequence, TimeIndex, _first_leaf,
                         _stack_time, stack_observations)
 from .noise import NoiseSource
+from .sharding_utils import (cloud_of, particle_logsumexp, particle_mean,
+                             particle_softmax)
 
 __all__ = ["resample_move_filter"]
 
@@ -45,15 +54,20 @@ __all__ = ["resample_move_filter"]
 _MIN_UNIFORM = 1e-38
 
 
-def _weighted_std(tree, log_weight):
+def _weighted_std(tree, log_weight, cloud=None):
     """Per-leaf, per-trailing-dim weighted std over the particle axis,
-    shape `[B, 1(, D)]`: the random walk's bandwidth base."""
-    w = torch.softmax(log_weight, dim=1)
+    shape `[B, 1(, D)]`: the random walk's bandwidth base (over the whole
+    cloud on a mesh)."""
+    w = particle_softmax(log_weight, cloud)
+
+    def total(x):
+        x = torch.sum(x, dim=1, keepdim=True)
+        return x if cloud is None else cloud.particle_sum(x)
 
     def leaf_std(x):
         wx = w.reshape(tuple(w.shape) + (1,) * (x.ndim - 2))
-        mean = torch.sum(wx * x, dim=1, keepdim=True)
-        var = torch.sum(wx * (x - mean) ** 2, dim=1, keepdim=True)
+        mean = total(wx * x)
+        var = total(wx * (x - mean) ** 2)
         return torch.sqrt(torch.clamp(var, min=1e-12))
 
     return state.tree_map(leaf_std, tree)
@@ -91,9 +105,10 @@ def resample_move_filter(observations, initial, transition, emission,
             after every step, `log_mult += gain * (rate - target)`.
         adaptation_gain: the Robbins-Monro gain.
         resampling_method / resampling_implementation: as in `infer`
-            ('auto': the kernels for CUDA tensors). A callable
-            (distributed) implementation is slice E2 of the port and
-            raises NotImplementedError.
+            ('auto': the kernels for CUDA tensors, or a callable; a
+            distributed one runs on its mesh: module docstring, with
+            ``num_particles`` the whole cloud's K and the outputs this
+            rank's blocks).
         return_latents: include the filtered latents `[T, B, K, ...]`.
 
     Returns:
@@ -105,11 +120,6 @@ def resample_move_filter(observations, initial, transition, emission,
     if num_move_steps < 0:
         raise ValueError("num_move_steps must be >= 0. currently = "
                          f"{num_move_steps}")
-    if callable(resampling_implementation):
-        raise NotImplementedError(
-            "resample_move_filter's distributed (callable) "
-            "resampling_implementation is not ported yet: multi-device is "
-            "slice E2 of the port")
     stacked_obs = stack_observations(observations)
     obs_seq = ObservationSequence(stacked_obs)
     num_timesteps = len(obs_seq)
@@ -117,12 +127,24 @@ def resample_move_filter(observations, initial, transition, emission,
     batch_size = first.shape[1]
     if noise is None:
         noise = NoiseSource.seeded(0, first.device)
-    k = num_particles
-    log_k = _stdmath.log(k)
+    cloud = cloud_of(None, resampling_implementation)
+    k = (num_particles if cloud is None else
+         cloud.local_particles(num_particles))
+    log_k = _stdmath.log(num_particles)
     implementation = resampling.resolve_implementation(
         first.device, resampling_method, resampling_implementation)
+    if cloud is not None:
+        noise = cloud.noise(noise)
+
+    def lse(x):
+        return particle_logsumexp(x, cloud)
 
     def resample(log_weight, value):
+        if callable(implementation):
+            _, out = resampling.callable_resample(
+                implementation, log_weight.detach(), noise, value,
+                lse(log_weight).detach())
+            return out
         _, out = resampling._resample(log_weight, noise, value,
                                       resampling_method, implementation,
                                       need_indices=False)
@@ -173,7 +195,7 @@ def resample_move_filter(observations, initial, transition, emission,
             return out
 
         scale = state.tree_map(
-            leaf_scale, _weighted_std(head, log_weight_for_scale))
+            leaf_scale, _weighted_std(head, log_weight_for_scale, cloud))
         lp = head_log_target(head, parent, time_head, obs_head,
                              prev_obs_head)
         accepted_total = torch.zeros((batch_size,), dtype=lp.dtype,
@@ -192,8 +214,8 @@ def resample_move_filter(observations, initial, transition, emission,
                     acc.reshape(tuple(acc.shape) + (1,) * (x.ndim - 2)),
                     c, x), cand, head)
             lp = torch.where(acc, cand_lp, lp)
-            accepted_total = accepted_total + torch.mean(
-                acc.to(lp.dtype), dim=1)
+            accepted_total = accepted_total + particle_mean(
+                acc.to(lp.dtype), cloud)
         return head, accepted_total / num_move_steps
 
     def propose_and_weight(moved, t, obs_prev):
@@ -213,8 +235,7 @@ def resample_move_filter(observations, initial, transition, emission,
         return latent_t, log_weight_t
 
     if num_timesteps == 1:
-        out = {"log_marginal_likelihood":
-                   torch.logsumexp(log_weight_0, dim=1) - log_k,
+        out = {"log_marginal_likelihood": lse(log_weight_0) - log_k,
                "log_weight": log_weight_0,
                "acceptance_rate": torch.zeros((0, batch_size),
                                               device=first.device)}
@@ -230,7 +251,7 @@ def resample_move_filter(observations, initial, transition, emission,
                            obs_seq[0], None, log_mult)
     if target_acceptance is not None:
         log_mult = log_mult + adaptation_gain * (rate - target_acceptance)
-    log_z = torch.logsumexp(log_weight_0, dim=1) - log_k
+    log_z = lse(log_weight_0) - log_k
     latent, log_weight = propose_and_weight(parent, 1, obs_seq[0])
     latents, rates = [latent_0, latent], [rate]
 
@@ -238,7 +259,7 @@ def resample_move_filter(observations, initial, transition, emission,
     for t in range(2, num_timesteps):
         # 1. resample the (parent, head) pairs with the head weights.
         pair = resample(log_weight, {"parent": parent, "head": latent})
-        log_z = log_z + torch.logsumexp(log_weight, dim=1) - log_k
+        log_z = log_z + lse(log_weight) - log_k
         # 2. move the head x_{t-1} | x_{t-2}, y_{t-1}.
         moved, rate = mh_move(pair["head"], pair["parent"], log_weight,
                               TimeIndex(t - 1), obs_seq[t - 1],
@@ -253,8 +274,7 @@ def resample_move_filter(observations, initial, transition, emission,
         if return_latents:
             latents.append(latent)
 
-    out = {"log_marginal_likelihood":
-               log_z + torch.logsumexp(log_weight, dim=1) - log_k,
+    out = {"log_marginal_likelihood": log_z + lse(log_weight) - log_k,
            "log_weight": log_weight,
            "acceptance_rate": torch.stack(rates, dim=0)}
     if return_latents:

@@ -34,6 +34,15 @@ method's noise on one row; waste-free: one uniform `()` for systematic,
 `[M]` uniforms for stratified and multinomial), then per Metropolis sweep
 one normal like each particle leaf (dicts in sorted key order) and one
 uniform a chain (`[K]`, or `[M]` in waste-free mode).
+
+A distributed ``resampling_implementation`` (`parallel.dist_resampling`,
+carrying ``.mesh``) runs the sampler on its mesh's particle group: each
+rank holds its block `[K_l, ...]` of the cloud and draws its block of
+the `[K, ...]` draws; the ESS of every bisection step, log Z and the
+acceptance means reduce over the group, so every rank reads the same
+``beta < 1``. A waste-free rung runs its M chains on every rank from the
+gathered weights and particles and keeps this rank's block of the new
+cloud.
 """
 
 from __future__ import annotations
@@ -48,6 +57,8 @@ from . import device as _device
 from . import resampling
 from .noise import NoiseSource
 from .ops import searchsorted_sorted_cuda
+from .sharding_utils import (cloud_of, particle_ess, particle_gather,
+                             particle_logsumexp, particle_mean)
 from .utils.pytree import rebuild, sorted_leaves
 
 __all__ = ["smc_sampler"]
@@ -55,11 +66,6 @@ __all__ = ["smc_sampler"]
 # Bisection steps of the adaptive increment (the JAX package's
 # `fori_loop(0, 40, ...)`).
 _BISECTION_STEPS = 40
-
-
-def _ess_from_logw(log_w):
-    return torch.exp(2.0 * torch.logsumexp(log_w, dim=-1) -
-                     torch.logsumexp(2.0 * log_w, dim=-1))
 
 
 def _take(tree, idx):
@@ -81,7 +87,8 @@ def smc_sampler(log_prior, log_likelihood, initial_particles,
         log_likelihood: `one_particle -> scalar` tempered term L(x). Both
             run under `torch.func.vmap` over the cloud.
         initial_particles: a `[K, ...]` tensor or a dict of them, iid draws
-            from p0. Tensors stay on their device; numpy arrays go to
+            from p0 (with a distributed resampler this rank's block `[K_l,
+            ...]`). Tensors stay on their device; numpy arrays go to
             ``device`` (default: the card; raises without one).
         noise: the source of every draw (order in the module docstring);
             default `NoiseSource.seeded(0)` on the particles' device.
@@ -98,9 +105,9 @@ def smc_sampler(log_prior, log_likelihood, initial_particles,
             adaptive schedule.
         resampling_method: 'systematic', 'stratified' or 'multinomial'.
         resampling_implementation: 'auto' (the kernels for CUDA
-            tensors), 'cuda' or 'torch'. A callable (distributed)
-            implementation is slice E2 of the port and raises
-            NotImplementedError.
+            tensors), 'cuda' or 'torch', or a callable resampler; a
+            distributed one runs the sampler on its mesh (module
+            docstring; the particles returned are this rank's block).
         waste_free_chains: M (dividing K, 1 <= M < K), or None for
             classic resample-move.
         return_history: also return the per-rung beta/ESS/acceptance
@@ -112,10 +119,6 @@ def smc_sampler(log_prior, log_likelihood, initial_particles,
         int32), acceptance_rate (0-d), reached_final (0-d bool), and with
         `return_history` beta_history, ess_history, acceptance_history.
     """
-    if callable(resampling_implementation):
-        raise NotImplementedError(
-            "smc_sampler's distributed (callable) resampling_implementation "
-            "is not ported yet: multi-device is slice E2 of the port")
     if not 0.0 < float(ess_target) < 1.0:
         raise ValueError(
             f"ess_target must be in (0, 1). currently = {ess_target}")
@@ -133,7 +136,14 @@ def smc_sampler(log_prior, log_likelihood, initial_particles,
         as_tensor(x) for x in sorted_leaves(initial_particles)])
     first = sorted_leaves(particles)[0]
     dev = first.device
-    num_particles = int(first.shape[0])
+    cloud = cloud_of(None, resampling_implementation)
+    if cloud is not None and cloud.n_data > 1:
+        raise ValueError(
+            "the sampler's cloud has no batch axis to shard: its "
+            "distributed resampler needs a mesh whose data axis has one "
+            f"rank (this one has {cloud.n_data})")
+    local_k = int(first.shape[0])
+    num_particles = local_k * (1 if cloud is None else cloud.n_particle)
     log_k = _stdmath.log(num_particles)
     m = None
     if waste_free_chains is not None:
@@ -154,6 +164,12 @@ def smc_sampler(log_prior, log_likelihood, initial_particles,
         chain_len = num_particles // m
     if noise is None:
         noise = NoiseSource.seeded(0, dev)
+    # The cloud's draws: this rank's block of each `[K, ...]` draw; the
+    # replicated draws (waste-free chains): the whole draw on every rank.
+    replicated = noise
+    if cloud is not None:
+        noise = cloud.noise(noise).along(None, 0)
+        replicated = noise.replicated
     implementation = resampling.resolve_implementation(
         dev, resampling_method, resampling_implementation)
     v_log_lik = torch.func.vmap(log_likelihood)
@@ -167,7 +183,7 @@ def smc_sampler(log_prior, log_likelihood, initial_particles,
         target = ess_target * num_particles
 
         def ess_at(b):
-            return _ess_from_logw((b - beta) * loglik)
+            return particle_ess((b - beta) * loglik, cloud, dim=0)
 
         lo, hi = beta, torch.ones_like(beta)
         for _ in range(_BISECTION_STEPS):
@@ -177,21 +193,25 @@ def smc_sampler(log_prior, log_likelihood, initial_particles,
         one = torch.ones_like(beta)
         return torch.where(ess_at(one) >= target, one, lo)
 
-    def sweep(particles, logp, accepted, target_logp):
+    def sweep(particles, logp, accepted, target_logp, chains=False):
         """One vectorized random-walk Metropolis sweep over a cloud of any
-        leading size (K, or M chains in waste-free mode)."""
+        leading size (K, or M chains in waste-free mode, which every rank
+        of a mesh runs whole)."""
+        draws = replicated if chains else noise
         leaves = sorted_leaves(particles)
-        prop = rebuild(particles, [x + s * noise.normal(tuple(x.shape))
+        prop = rebuild(particles, [x + s * draws.normal(tuple(x.shape))
                                    for x, s in zip(leaves, steps)])
         prop_logp = target_logp(prop)
-        u = noise.uniform(tuple(logp.shape))
+        u = draws.uniform(tuple(logp.shape))
         acc = torch.log(u) < prop_logp - logp
         particles = rebuild(particles, [
             torch.where(acc.reshape(tuple(acc.shape) + (1,) * (a.ndim - 1)),
                         a, b)
             for a, b in zip(sorted_leaves(prop), leaves)])
         logp = torch.where(acc, prop_logp, logp)
-        accepted = accepted + torch.mean(acc.to(torch.float32))
+        rate = acc.to(torch.float32)
+        accepted = accepted + (torch.mean(rate) if chains else
+                               particle_mean(rate, cloud, dim=0))
         return particles, logp, accepted
 
     def target_at(beta):
@@ -216,10 +236,10 @@ def smc_sampler(log_prior, log_likelihood, initial_particles,
         """M inverse-CDF query positions over the K-weight CDF."""
         grid = torch.arange(m, dtype=dtype, device=dev)
         if resampling_method == "systematic":
-            return (noise.uniform(()) + grid) / m
+            return (replicated.uniform(()) + grid) / m
         if resampling_method == "stratified":
-            return (noise.uniform((m,)) + grid) / m
-        return noise.uniform((m,))
+            return (replicated.uniform((m,)) + grid) / m
+        return replicated.uniform((m,))
 
     search = (searchsorted_sorted_cuda.searchsorted_sorted
               if implementation == "cuda" else
@@ -239,27 +259,47 @@ def smc_sampler(log_prior, log_likelihood, initial_particles,
         for _ in range(chain_len - 1):
             for _ in range(num_moves):
                 current, logp, accepted = sweep(current, logp, accepted,
-                                                target_logp)
+                                                target_logp, chains=True)
             states.append(current)
-        cloud = rebuild(roots, [
+        new = rebuild(roots, [
             torch.stack(col, dim=0).reshape((num_particles,) +
                                             tuple(col[0].shape[1:]))
             for col in zip(*[sorted_leaves(s) for s in states])])
-        return cloud, accepted / ((chain_len - 1) * num_moves)
+        if cloud is not None:
+            new = rebuild(new, [x.narrow(0, cloud.offset(local_k), local_k)
+                                for x in sorted_leaves(new)])
+        return new, accepted / ((chain_len - 1) * num_moves)
+
+    def resampled(particles, log_w):
+        """The resample-move rung's resampled cloud."""
+        if not callable(implementation):
+            idx = resampling.sample_indices(
+                log_w[None], noise, resampling_method,
+                implementation)[0].long()
+            return _take(particles, idx)
+        leaves = sorted_leaves(particles)
+        _, out = resampling.callable_resample(
+            implementation, log_w.detach()[None], noise,
+            [x[None] for x in leaves][0] if len(leaves) == 1 else
+            {str(i): x[None] for i, x in enumerate(leaves)},
+            particle_logsumexp(log_w, cloud, dim=0).detach()[None])
+        out = [out] if len(leaves) == 1 else [out[str(i)] for i in
+                                              range(len(leaves))]
+        return rebuild(particles, [x[0] for x in out])
 
     def rung(particles, delta, new_beta, log_z, loglik):
         """One rung from b to ``new_beta`` = b + ``delta``."""
         log_w = delta * loglik
-        log_z = log_z + torch.logsumexp(log_w, dim=0) - log_k
-        ess = _ess_from_logw(log_w)
+        log_z = log_z + particle_logsumexp(log_w, cloud, dim=0) - log_k
+        ess = particle_ess(log_w, cloud, dim=0)
         if m is None:
-            idx = resampling.sample_indices(
-                log_w[None], noise, resampling_method,
-                implementation)[0].long()
-            particles, acc = move(_take(particles, idx), new_beta)
+            particles, acc = move(resampled(particles, log_w), new_beta)
         else:
             pos = waste_free_positions(log_w.dtype)
-            roots = _take(particles, root_indices(log_w, pos))
+            full = rebuild(particles, [particle_gather(x, cloud, 0)
+                                       for x in sorted_leaves(particles)])
+            roots = _take(full, root_indices(
+                particle_gather(log_w, cloud, 0), pos))
             particles, acc = waste_free_move(roots, new_beta)
         return particles, log_z, ess, acc
 

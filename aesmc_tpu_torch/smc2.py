@@ -38,6 +38,16 @@ rejuvenates, the theta resampling noise (`[1, 1]` uniforms for
 systematic), then per move one `[M, ...]` normal a theta leaf (dicts in
 sorted key order), the rerun's draws (its t = 0 proposal draw, then its
 steps 1 ... t as above) and `[M]` accept uniforms.
+
+Several ranks (``mesh``): theta is sharded over ``theta_axis`` and the
+inner particles over ``particle_axis``. A rank holds M / n thetas, their
+`[M_l B, K_l]` inner rows (consecutive rows of the single-device layout)
+and draws its block of every draw. The inner filters resample through
+the distributed exchange (`parallel.dist_resampling`); the evidence
+logsumexp over M, the theta ESS (the host read, the same on every rank)
+and the theta resampling (the index-only exchange over the theta group;
+the chosen thetas and their inner rows come from their owners) cross the
+theta group, and the PMMH reruns stay on the rank's own thetas.
 """
 
 from __future__ import annotations
@@ -51,16 +61,13 @@ import torch
 from . import device as _device
 from . import resampling, state
 from .inference import (ObservationSequence, TimeIndex, _first_leaf,
-                        stack_observations)
+                        _resolve_implementation, stack_observations)
 from .noise import NoiseSource
+from .sharding_utils import (cloud_of, particle_ess, particle_gather,
+                             particle_logsumexp, particle_mean)
 from .utils.pytree import rebuild, sorted_leaves
 
 __all__ = ["smc2"]
-
-
-def _ess(log_w):
-    return torch.exp(2.0 * torch.logsumexp(log_w, dim=-1) -
-                     torch.logsumexp(2.0 * log_w, dim=-1))
 
 
 def smc2(observations, build_components, theta0, log_prior,
@@ -95,13 +102,17 @@ def smc2(observations, build_components, theta0, log_prior,
         step_size: the random walk's scale: a number, or a dict matching
             one theta.
         resampling_method / resampling_implementation: the inner filters'
-            resampling ('auto': the kernels for CUDA tensors); the theta
-            cloud's resampling uses the same method on the 'torch' route.
+            resampling ('auto': the kernels for CUDA tensors, or a
+            callable; on a mesh a distributed one over ``theta_axis`` and
+            ``particle_axis``); the theta cloud's resampling uses the same
+            method on the 'torch' route (on a mesh, the distributed
+            index-only exchange over the theta group).
         return_history: also return the per-step theta cloud and weights.
-        mesh, theta_axis, particle_axis: the sharded sampler, not ported
-            yet (slice E2 of the port, multi-device); a mesh, other axis
-            names or a callable ``resampling_implementation`` raise
-            NotImplementedError.
+        mesh, theta_axis, particle_axis: a `DeviceMesh` and the names of
+            its theta and inner-particle axes (module docstring): theta0
+            and the observations are global, ``num_particles`` the whole
+            K; theta, log_theta_weight, inner_log_marginal_likelihood and
+            theta_history are this rank's thetas, the rest global.
 
     Returns:
         dict: theta (`[M, ...]` leaves), log_theta_weight `[M]`,
@@ -111,13 +122,6 @@ def smc2(observations, build_components, theta0, log_prior,
         and with `return_history` theta_history (`[T, M, ...]` leaves)
         and log_theta_weight_history `[T, M]`.
     """
-    if (mesh is not None or theta_axis != "data" or
-            particle_axis != "particle" or
-            callable(resampling_implementation)):
-        raise NotImplementedError(
-            "smc2's mesh, theta_axis, particle_axis and distributed "
-            "(callable) resampling_implementation are not ported yet: "
-            "multi-device is slice E2 of the port")
     stacked_obs = stack_observations(observations)
     first = _first_leaf(stacked_obs)
     device = first.device
@@ -141,13 +145,38 @@ def smc2(observations, build_components, theta0, log_prior,
     num_timesteps, batch_size = first.shape[0], first.shape[1]
     if noise is None:
         noise = NoiseSource.seeded(0, device)
-    m, k = num_theta, num_particles
+    cloud = cloud_of(mesh, resampling_implementation, theta_axis,
+                     particle_axis)
+    m_total, log_k = num_theta, _stdmath.log(num_particles)
+    theta_draws = noise
+    if cloud is None:
+        m, k = num_theta, num_particles
+        implementation = resampling.resolve_implementation(
+            device, resampling_method, resampling_implementation)
+    else:
+        m, k = num_theta // cloud.n_data, cloud.local_particles(
+            num_particles)
+        if num_theta % cloud.n_data:
+            raise ValueError(f"num_theta={num_theta} does not split over "
+                             f"{cloud.n_data} theta shards")
+        mine = cloud.rows(num_theta)
+        theta0 = rebuild(theta0, [x[mine] for x in sorted_leaves(theta0)])
+        implementation = _resolve_implementation(
+            device, resampling_method, resampling_implementation, cloud)
+        noise = cloud.noise(noise)
+        theta_draws = noise.along(0, None)
+    # The theta cloud `[M_l]` lies along the theta (data) axis: its
+    # reductions and gathers cross the data group.
+    thetas = None if cloud is None else cloud.over_data()
+    theta_split = thetas is not None and thetas.n_particle > 1
     rows = m * batch_size
-    log_k = _stdmath.log(k)
-    implementation = resampling.resolve_implementation(
-        device, resampling_method, resampling_implementation)
     obs_seq = ObservationSequence(state.tree_map(
         lambda x: x.repeat((1, m) + (1,) * (x.ndim - 2)), stacked_obs))
+
+    def all_thetas(x):
+        """Every theta shard's ``x`` `[M_l, ...]`, in order."""
+        return particle_gather(x, thetas, dim=0)
+
     num_leaves = len(sorted_leaves(theta0))
     steps = ([step_size] * num_leaves if isinstance(step_size, (int, float))
              else sorted_leaves(step_size))
@@ -178,14 +207,19 @@ def smc2(observations, build_components, theta0, log_prior,
         return latent, log_weight
 
     def increments(log_weight):
-        return by_theta(torch.logsumexp(log_weight, dim=1) - log_k)
+        return by_theta(particle_logsumexp(log_weight, cloud) - log_k)
 
     def advance(theta, latent, log_weight, t):
         """One inner step of all M filters: the new (latent, log-weight)
         and the per-theta increments `[M, B]`."""
-        _, previous = resampling._resample(
-            log_weight, noise, latent, resampling_method, implementation,
-            need_indices=False)
+        if callable(implementation):
+            _, previous = resampling.callable_resample(
+                implementation, log_weight.detach(), noise, latent,
+                particle_logsumexp(log_weight, cloud).detach())
+        else:
+            _, previous = resampling._resample(
+                log_weight, noise, latent, resampling_method,
+                implementation, need_indices=False)
         _, transition, emission, proposal = build_components(
             theta_rows(theta))
         time = TimeIndex(t)
@@ -224,24 +258,34 @@ def smc2(observations, build_components, theta0, log_prior,
     def rejuvenate(theta, latent, log_weight, cum, log_theta_w, t_now):
         """The theta resampling and num_moves PMMH moves at time t_now;
         the theta weights reset to uniform."""
-        anc = resampling.sample_indices(
-            log_theta_w[None, :], noise, resampling_method, "torch")[0]
+        if theta_split:
+            from .parallel import dist_resampling
+            anc = dist_resampling.distributed_resampling_indices(
+                log_theta_w[None, :], noise, cloud.data_group,
+                method=resampling_method)[0]
+        else:
+            # The whole theta cloud on every rank: its `[1, M]` draw is
+            # the same on every rank of the particle group.
+            anc = resampling.sample_indices(
+                log_theta_w[None, :], theta_draws, resampling_method,
+                "torch")[0]
         anc = anc.long()
-        theta = rebuild(theta, [torch.index_select(x, 0, anc)
+        theta = rebuild(theta, [torch.index_select(all_thetas(x), 0, anc)
                                 for x in sorted_leaves(theta)])
-        latent = state.tree_map(lambda x: by_row(by_theta(x)[anc]), latent)
-        log_weight = by_row(by_theta(log_weight)[anc])
-        cum = cum[anc]
+        latent = state.tree_map(
+            lambda x: by_row(all_thetas(by_theta(x))[anc]), latent)
+        log_weight = by_row(all_thetas(by_theta(log_weight))[anc])
+        cum = all_thetas(cum)[anc]
         accepted = torch.zeros((), dtype=torch.float32, device=device)
         for _ in range(num_moves):
             leaves = sorted_leaves(theta)
             theta_prop = rebuild(theta, [
-                x + s * noise.normal(tuple(x.shape))
+                x + s * theta_draws.normal(tuple(x.shape))
                 for x, s in zip(leaves, steps)])
             lat_p, logw_p, cum_p = rerun(theta_prop, t_now)
             log_ratio = (v_log_prior(theta_prop) + torch.sum(cum_p, dim=1) -
                          v_log_prior(theta) - torch.sum(cum, dim=1))
-            u = noise.uniform((m,))
+            u = theta_draws.uniform((m,))
             acc = torch.log(u) < log_ratio
             theta = rebuild(theta, [select(acc, a, b) for a, b in
                                     zip(sorted_leaves(theta_prop), leaves)])
@@ -251,7 +295,8 @@ def smc2(observations, build_components, theta0, log_prior,
             ]))
             log_weight = select(acc, logw_p, log_weight)
             cum = select(acc, cum_p, cum)
-            accepted = accepted + torch.mean(acc.to(torch.float32))
+            accepted = accepted + particle_mean(acc.to(torch.float32),
+                                                thetas, dim=0)
         return (theta, latent, log_weight, cum,
                 torch.zeros_like(log_theta_w), accepted)
 
@@ -260,8 +305,9 @@ def smc2(observations, build_components, theta0, log_prior,
     latent, log_weight = inner_init(theta)
     cum = increments(log_weight)
     log_theta_w = torch.sum(cum, dim=1)                        # [M]
-    log_evidence = torch.logsumexp(log_theta_w, dim=0) - _stdmath.log(m)
-    ess_path = [_ess(log_theta_w)]
+    log_evidence = (particle_logsumexp(log_theta_w, thetas, 0) -
+                    _stdmath.log(m_total))
+    ess_path = [particle_ess(log_theta_w, thetas, dim=0)]
     theta_hist, w_hist = [theta], [log_theta_w]
     accepted = torch.zeros((), dtype=torch.float32, device=device)
     num_rejuvenations = 0
@@ -270,13 +316,15 @@ def smc2(observations, build_components, theta0, log_prior,
         latent, log_weight, inc = advance(theta, latent, log_weight, t)
         cum = cum + inc
         new_w = log_theta_w + torch.sum(inc, dim=1)
-        log_evidence = log_evidence + (torch.logsumexp(new_w, dim=0) -
-                                       torch.logsumexp(log_theta_w, dim=0))
+        log_evidence = log_evidence + (
+            particle_logsumexp(new_w, thetas, 0) -
+            particle_logsumexp(log_theta_w, thetas, 0))
         log_theta_w = new_w
-        ess = _ess(log_theta_w)
+        ess = particle_ess(log_theta_w, thetas, dim=0)
         ess_path.append(ess)
-        # The one host read a step: rejuvenate or not.
-        if bool(ess < ess_threshold * m):
+        # The one host read a step: rejuvenate or not (the same value on
+        # every rank of a mesh).
+        if bool(ess < ess_threshold * m_total):
             theta, latent, log_weight, cum, log_theta_w, acc = rejuvenate(
                 theta, latent, log_weight, cum, log_theta_w, t)
             accepted = accepted + acc

@@ -36,9 +36,28 @@ streamed and exact Gumbel-max draw one `[B, chunk, ...]` block a parent
 chunk. The filter of `paris` resamples with `resampling` (K1 for
 systematic on the card).
 
-Not ported yet: the ``mesh``, ``data_axis`` and ``particle_axis``
-arguments (slice E2 of the port, multi-device); a mesh raises
-NotImplementedError.
+Several ranks (``mesh``): every rank holds its block of the filter's
+cloud, the rows of its data shard and K / n particles of each, as
+`inference.infer(mesh=...)` returns them, and the draws are its block of
+the single-device run's (`noise.ShardNoise`, which names the axis a tile
+cuts):
+
+- `backward_simulation`: the candidate parents stay sharded and the M
+  trajectories are replicated over the particle group. A step's
+  Gumbel-max runs over this rank's parents (its block of the `[B, M, K]`
+  Gumbel draw), one gather of the `[B_l, M]` (score, global index) pairs
+  picks the maximum (ties to the lowest index, as `torch.argmax`), and
+  the chosen parents come from their owners in one all-reduce. The
+  rejection mode gathers the parents and runs on the replicated
+  trajectories;
+- `paris`: the children (this rank's particles) are sharded; the parents
+  (latents, log-weights, tau) are gathered once a step, and the `[B_l,
+  K_l, K]` backward tile is local. The filter resamples through the
+  distributed exchange (`parallel.dist_resampling`, K3 on the card).
+
+The rejection loop's stop test counts the open lanes of the whole mesh
+(an all-reduce before the host read), so every rank runs the same rounds
+as the single-device call.
 """
 
 from __future__ import annotations
@@ -50,9 +69,10 @@ from torch.utils import checkpoint as _checkpoint
 
 from . import resampling, state
 from .inference import (ObservationSequence, TimeIndex, _NoiseTape,
-                        _first_leaf, _stack_time, _sum_in_order,
-                        stack_observations)
+                        _first_leaf, _resolve_implementation, _stack_time,
+                        _sum_in_order, stack_observations)
 from .noise import NoiseSource
+from .sharding_utils import cloud_of, particle_logsumexp, particle_softmax
 from .tmc import (_check_pairwise, _pair_log_prob_fn, _pairwise_log_prob,
                   _expand_new, _expand_prev, _resolve_pairwise_mode)
 
@@ -66,13 +86,6 @@ PAIRWISE_DENSE_MAX_BYTES = 1 << 31
 # Live-block budget of the streamed path: the per-chunk Gumbel block
 # [B, chunk, C, N] stays under this many bytes.
 PAIRWISE_CHUNK_BYTES = 256 << 20
-
-
-def _check_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharding the particle cloud over devices) is not ported "
-            "yet; it comes with slice E2 of the port (multi-device)")
 
 
 def _check_backward(backward):
@@ -149,19 +162,24 @@ def _chunked_pairwise_backward_indices(noise, prev_latent, prev_log_weight,
                                        children, transition, time,
                                        prev_obs_list, num_draws: int,
                                        resolved_pairwise: str,
-                                       chunk_target=None):
+                                       chunk_target=None, cloud=None):
     """Exact backward-kernel draws streamed over parent chunks: a
     Gumbel-max with a running (max, argmax), O(K * chunk) live memory in
     place of the [B, K, C] tile. Each chunk draws Gumbel noise
-    `[B, chunk, C, N]`.
+    `[B, chunk, C, N]` (on a mesh, ``cloud``: this rank's children, on
+    axis 2, of the draw at the global sizes).
 
     Returns `[B, C, N]` int32 parent indices."""
     batch_size, c_children = _first_leaf(children).shape[:2]
     k = prev_log_weight.shape[1]
     n = num_draws
     if chunk_target is None:
+        scale = 1 if cloud is None else cloud.n_data * cloud.n_particle
         chunk_target = max(
-            1, PAIRWISE_CHUNK_BYTES // (4 * batch_size * c_children * n))
+            1, PAIRWISE_CHUNK_BYTES // (4 * batch_size * c_children * n *
+                                        scale))
+    if cloud is not None:
+        noise = noise.along(0, 2)
     # The largest divisor of K <= target (not `_chunk_size`, whose
     # fallback to K would rebuild the whole tile).
     target = max(1, min(int(chunk_target), k))
@@ -204,10 +222,23 @@ def _exact_backward_draw(noise, prev_latent, prev_log_weight, children_sel,
                            prev_log_weight.dtype, prev_log_weight.device)
 
 
+def _open_lanes(accepted, cloud, sharded_children):
+    """The number of open lanes of the whole mesh (of the whole batch on
+    one device): the rejection loop's stop test reads it on the host, and
+    every rank must read the same number."""
+    count = (~accepted).sum()
+    if cloud is not None:
+        count = cloud.batch_sum(count)
+        if sharded_children:
+            count = cloud.particle_sum(count)
+    return int(count)
+
+
 def _rejection_backward_indices(noise, prev_latent, prev_log_weight,
                                 children, transition, time, prev_obs_list,
                                 num_draws: int, log_bound, max_rounds: int,
-                                max_exact_lanes=None):
+                                max_exact_lanes=None, cloud=None,
+                                sharded_children=False):
     """Backward-kernel parent draws by rejection sampling, O(K) a round.
 
     For every child and draw, J ~ Categorical_j(wbar^j p(child | x^j))
@@ -219,6 +250,15 @@ def _rejection_backward_indices(noise, prev_latent, prev_log_weight,
     capped at ~2^26 / K; 0 disables) get the exact chunked Gumbel-max
     draw. Lanes beyond it keep their last proposal and are reported.
 
+    On a mesh (``cloud``) the parents are the whole particle axis
+    (gathered), the rows this rank's, and ``noise`` this rank's view; the
+    open lanes are counted over the whole mesh. ``sharded_children``: the
+    children are this rank's block of the particle axis (PaRIS), whose
+    lanes are this rank's block of the single-device lanes; the exact
+    fallback then picks its lanes from every rank's (gathered) flags, as
+    the single-device call does. Otherwise the children are the same on
+    every particle rank (FFBS's trajectories).
+
     Returns (idx `[B, C, N]` int32, accept_rate `[B]` (the first round's),
     unconverged `[B]`: lanes still open at exit, 0 when the draw was
     exact).
@@ -226,6 +266,8 @@ def _rejection_backward_indices(noise, prev_latent, prev_log_weight,
     batch_size, c = _first_leaf(children).shape[:2]
     n = num_draws
     lanes_total = c * n
+    spread = cloud is not None and sharded_children and cloud.n_particle > 1
+    lanes_global = lanes_total * (cloud.n_particle if spread else 1)
     cdf = _weights_cdf(prev_log_weight)                      # [B, K]
     k = cdf.shape[1]
     children_flat = state.tree_map(
@@ -237,10 +279,10 @@ def _rejection_backward_indices(noise, prev_latent, prev_log_weight,
         return state.log_prob(dist, children_flat)           # [B, C*N]
 
     if max_exact_lanes is None:
-        lanes = min(lanes_total,
-                    max(128, min(lanes_total // 8, (1 << 26) // max(k, 1))))
+        lanes = min(lanes_global,
+                    max(128, min(lanes_global // 8, (1 << 26) // max(k, 1))))
     else:
-        lanes = min(int(max_exact_lanes), lanes_total)
+        lanes = min(int(max_exact_lanes), lanes_global)
 
     def one_round(idx, accepted):
         u_sel = noise.uniform((batch_size, lanes_total))
@@ -258,13 +300,25 @@ def _rejection_backward_indices(noise, prev_latent, prev_log_weight,
     accepted = torch.zeros((batch_size, lanes_total), dtype=torch.bool,
                            device=cdf.device)
     idx, accepted = one_round(idx, accepted)
-    accept_rate = accepted.float().mean(dim=1)
+    if spread:
+        accept_rate = cloud.particle_sum(
+            accepted.float().sum(dim=1)) / lanes_global
+    else:
+        accept_rate = accepted.float().mean(dim=1)
     rounds = 1
-    while rounds < max_rounds and int((~accepted).sum()) > lanes:
+    while (rounds < max_rounds and
+           _open_lanes(accepted, cloud, sharded_children) > lanes):
         idx, accepted = one_round(idx, accepted)
         rounds += 1
 
     if lanes > 0:
+        if spread:
+            # Every rank's lanes, in the single-device order.
+            idx = cloud.gather_particles(idx)
+            accepted = cloud.gather_particles(accepted)
+            children_flat = state.tree_map(
+                lambda x: cloud.gather_particles(x), children_flat)
+        exact_noise = noise if cloud is None else noise.along(0, None)
         # The open lanes first (a stable sort of the flags), drawn
         # exactly; lanes already accepted in that window keep their draw.
         order = torch.argsort(accepted.to(torch.int8), dim=1,
@@ -272,13 +326,19 @@ def _rejection_backward_indices(noise, prev_latent, prev_log_weight,
         alive_sel = ~torch.gather(accepted, 1, order)
         children_sel = _gather(children_flat, order)
         idx_exact = _exact_backward_draw(
-            noise, prev_latent, prev_log_weight, children_sel, transition,
-            time, prev_obs_list)
+            exact_noise, prev_latent, prev_log_weight, children_sel,
+            transition, time, prev_obs_list)
         keep = torch.gather(idx, 1, order)
         idx = idx.scatter(1, order, torch.where(alive_sel, idx_exact, keep))
         accepted = accepted.scatter(1, order, torch.ones_like(alive_sel))
+        if spread:
+            mine = slice(cloud.particle_rank * lanes_total,
+                         (cloud.particle_rank + 1) * lanes_total)
+            idx, accepted = idx[:, mine], accepted[:, mine]
 
     unconverged = (~accepted).sum(dim=1)
+    if spread:
+        unconverged = cloud.particle_sum(unconverged)
     return idx.reshape(batch_size, c, n), accept_rate, unconverged
 
 
@@ -286,12 +346,22 @@ def _paris_backward_update(noise, prev_latent, prev_log_weight, latent_t,
                            tau, transition, time, prev_obs_list, h,
                            num_backward_draws, backward, resolved_pairwise,
                            transition_log_bound, max_rejection_rounds,
-                           max_exact_lanes):
+                           max_exact_lanes, cloud=None):
     """One PaRIS statistic update: N backward-kernel parent draws a
     child, tau_t^i = mean_n [tau^{J_n} + h(x_{t-1}^{J_n}, x_t^i, t)].
     Returns (tau_t, accept_rate `[B]`, unconverged `[B]`); the
-    diagnostics are ones and zeros in pairwise mode."""
+    diagnostics are ones and zeros in pairwise mode.
+
+    On a mesh (``cloud``; ``noise`` this rank's view) the children are
+    this rank's particles and the parents, their log-weights and tau are
+    gathered over the particle group first: the `[B_l, K_l, K]` tile is
+    this rank's block of the single-device tile."""
+    if cloud is not None:
+        prev_latent = state.tree_map(cloud.gather_particles, prev_latent)
+        prev_log_weight = cloud.gather_particles(prev_log_weight)
+        tau = cloud.gather_particles(tau)
     batch_size, k = prev_log_weight.shape
+    scale = 1 if cloud is None else cloud.n_data
     ones = torch.ones((batch_size,), dtype=prev_log_weight.dtype,
                       device=prev_log_weight.device)
     zeros = torch.zeros((batch_size,), dtype=torch.int64,
@@ -304,11 +374,13 @@ def _paris_backward_update(noise, prev_latent, prev_log_weight, latent_t,
         j_all, acc_rate, unconv = _rejection_backward_indices(
             noise, prev_latent, prev_log_weight, latent_t, transition, time,
             prev_obs_list, num_backward_draws, log_bound,
-            max_rejection_rounds, max_exact_lanes)          # [B, K, N]
-    elif 4 * batch_size * k * k > PAIRWISE_DENSE_MAX_BYTES:
+            max_rejection_rounds, max_exact_lanes, cloud=cloud,
+            sharded_children=True)                          # [B, K, N]
+    elif 4 * batch_size * scale * k * k > PAIRWISE_DENSE_MAX_BYTES:
         j_all = _chunked_pairwise_backward_indices(
             noise, prev_latent, prev_log_weight, latent_t, transition, time,
-            prev_obs_list, num_backward_draws, resolved_pairwise)
+            prev_obs_list, num_backward_draws, resolved_pairwise,
+            cloud=cloud)
         acc_rate, unconv = ones, zeros
     else:
         # logits[b, i_child, j_parent] = log w^j + log p(x_t^i | x^j).
@@ -328,12 +400,46 @@ def _paris_backward_update(noise, prev_latent, prev_log_weight, latent_t,
     return acc / num_backward_draws, acc_rate, unconv
 
 
+def _mesh_categorical(logits, noise, cloud):
+    """A categorical draw over this rank's parents, the last axis of
+    ``logits`` `[B_l, M, K_l]`, as the single-device draw over all K: the
+    local Gumbel-max (this rank's block of the `[B, M, K]` draw), then one
+    gather of every rank's (score, global index) and the maximum, the
+    lowest index on ties. Returns `[B_l, M]` int32 global indices."""
+    scores = logits + noise.along(0, 2).gumbel(tuple(logits.shape))
+    best, arg = scores.max(dim=-1)
+    arg = arg + cloud.offset(logits.shape[-1])
+    bests = cloud.gather_particles(best[None], dim=0)        # [n, B, M]
+    args = cloud.gather_particles(arg[None], dim=0)
+    owner = torch.argmax(bests, dim=0, keepdim=True)
+    return torch.gather(args, 0, owner)[0].to(torch.int32)
+
+
+def _fetch(latent, idx, cloud):
+    """``latent`` `[B_l, K_l, ...]` (this rank's block) at the global
+    indices ``idx`` `[B_l, C]`: each rank fills the slots it owns and one
+    all-reduce over the particle group sums them (a value plus zeros: the
+    value's bits)."""
+    k_local = _first_leaf(latent).shape[1]
+    local = idx.long() - cloud.offset(k_local)
+    mine = (local >= 0) & (local < k_local)
+    picked = _gather(latent, local.clamp(0, k_local - 1))
+
+    def own(x):
+        keep = mine.reshape(tuple(mine.shape) + (1,) * (x.ndim - 2))
+        return cloud.particle_sum(torch.where(keep, x, torch.zeros_like(x)))
+
+    return state.tree_map(own, picked)
+
+
 def backward_simulation(original_latents, log_weights, transition,
                         num_trajectories: int, noise, observations=None,
                         backward: str = "pairwise",
                         transition_log_bound=None,
                         max_rejection_rounds: int = 64,
-                        max_exact_lanes=None, mesh=None):
+                        max_exact_lanes=None, mesh=None,
+                        data_axis: str = "data",
+                        particle_axis: str = "particle"):
     """Draws ``num_trajectories`` joint smoothing trajectories (FFBS).
 
     Args:
@@ -357,22 +463,38 @@ def backward_simulation(original_latents, log_weights, transition,
             transition density (default: log_prob at the mean, exact for
             the Gaussians).
         max_rejection_rounds, max_exact_lanes: the rejection loop's caps.
-        mesh: slice E2 (multi-device); must be None.
+        mesh, data_axis, particle_axis: a `DeviceMesh` and its axis
+            names: the latents, weights and observations are this rank's
+            blocks (as ``infer(mesh=...)`` returns them; module
+            docstring), and so is the result's batch axis.
 
     Returns:
-        `[T, B, M, ...]` smoothing trajectories.
+        `[T, B, M, ...]` smoothing trajectories (on a mesh `[T, B_l, M,
+        ...]`, the same on every rank of a particle group).
     """
     _check_backward(backward)
-    _check_mesh(mesh)
+    cloud = cloud_of(mesh, None, data_axis, particle_axis)
     num_timesteps, batch_size, _ = log_weights.shape
     m = num_trajectories
     obs_seq = (ObservationSequence(stack_observations(observations))
                if observations is not None else None)
+    if cloud is not None:
+        noise = cloud.noise(noise)
+
+    def categorical(logits):
+        """[B, M, K] logits over the (this rank's) parents."""
+        if cloud is None:
+            return _categorical(logits, noise)
+        return _mesh_categorical(logits, noise, cloud)
+
+    def pick(latent, idx):
+        return _gather(latent, idx) if cloud is None else _fetch(
+            latent, idx, cloud)
 
     # ---- t = T-1: from the final filtering weights.
     logits = log_weights[-1][:, None, :].expand(batch_size, m, -1)
-    chosen = _gather(state.tree_map(lambda x: x[-1], original_latents),
-                     _categorical(logits, noise))
+    chosen = pick(state.tree_map(lambda x: x[-1], original_latents),
+                  categorical(logits))
     trajectory = [chosen]
 
     # ---- t = T-2 .. 0.
@@ -383,15 +505,24 @@ def backward_simulation(original_latents, log_weights, transition,
         time = TimeIndex(t + 1)
         prev_obs_list = [obs_seq[t]] if obs_seq is not None else None
         if backward == "rejection":
+            parents, parent_lw, draws = latent_t, logw_t, noise
+            if cloud is not None:
+                # The trajectories are replicated over the particle group:
+                # every rank draws for all of them over the gathered
+                # parents, from its rows of the draws.
+                parents = state.tree_map(cloud.gather_particles, latent_t)
+                parent_lw = cloud.gather_particles(logw_t)
+                draws = noise.along(0, None)
             log_bound = (
-                transition_log_bound(latent_t, time, prev_obs_list)
+                transition_log_bound(parents, time, prev_obs_list)
                 if transition_log_bound is not None else
-                _auto_log_bound(transition, latent_t, time, prev_obs_list))
+                _auto_log_bound(transition, parents, time, prev_obs_list))
             idx, _, _ = _rejection_backward_indices(
-                noise, latent_t, logw_t, chosen, transition, time,
+                draws, parents, parent_lw, chosen, transition, time,
                 prev_obs_list, 1, log_bound, max_rejection_rounds,
-                max_exact_lanes)
+                max_exact_lanes, cloud=cloud)
             idx = idx[..., 0]                                # [B, M]
+            chosen = _gather(parents, idx)
         else:
             pair_dist = transition(
                 previous_latents=[_expand_prev(latent_t)], time=time,
@@ -399,8 +530,8 @@ def backward_simulation(original_latents, log_weights, transition,
             # trans_lp[b, k, m] = log p(chosen^m | candidate parent^k)
             trans_lp = _pairwise_log_prob(pair_dist, _expand_new(chosen))
             logits = logw_t[:, :, None] + trans_lp           # [B, K, M]
-            idx = _categorical(logits.transpose(1, 2), noise)  # [B, M]
-        chosen = _gather(latent_t, idx)
+            idx = categorical(logits.transpose(1, 2))        # [B, M]
+            chosen = pick(latent_t, idx)
         trajectory.append(chosen)
     return _stack_time(trajectory[::-1])
 
@@ -416,7 +547,9 @@ def paris(observations, initial, transition, emission, proposal,
           max_rejection_rounds: int = 64,
           max_exact_lanes=None,
           remat: bool = True,
-          mesh=None):
+          mesh=None,
+          data_axis: str = "data",
+          particle_axis: str = "particle"):
     """PaRIS: forward-only smoothing of an additive functional.
 
     Runs an SMC filter over ``observations`` in which every particle
@@ -450,7 +583,13 @@ def paris(observations, initial, transition, emission, proposal,
             `backward_simulation`.
         remat: recompute each step in the backward pass
             (`torch.utils.checkpoint`), for callers that differentiate.
-        mesh: slice E2 (multi-device); must be None.
+        mesh, data_axis, particle_axis: a `DeviceMesh` and its axis
+            names: this rank runs its block, the observations' rows of
+            its data shard and K / n of the ``num_particles`` particles
+            (module docstring); ``resampling_implementation`` may then be
+            a distributed resampler of `parallel.dist_resampling` (by
+            default the all-gather exchange of ``resampling_method``).
+            The outputs are this rank's blocks.
 
     Returns:
         dict with 'smoothed' `[batch(, D)]`, 'tau' `[batch, K(, D)]`,
@@ -460,7 +599,6 @@ def paris(observations, initial, transition, emission, proposal,
         'backward_unconverged' `[batch]` (lanes left open, 0 when exact).
     """
     _check_backward(backward)
-    _check_mesh(mesh)
     if num_backward_draws < 1:
         raise ValueError(
             "num_backward_draws must be >= 1. currently = "
@@ -473,14 +611,32 @@ def paris(observations, initial, transition, emission, proposal,
     batch_size = first.shape[1]
     if noise is None:
         noise = NoiseSource.seeded(0, first.device)
-    k = num_particles
-    log_k = _stdmath.log(k)
-    implementation = resampling.resolve_implementation(
-        first.device, resampling_method, resampling_implementation)
+    cloud = cloud_of(mesh, None, data_axis, particle_axis)
+    k = (num_particles if cloud is None else
+         cloud.local_particles(num_particles))
+    log_k = _stdmath.log(num_particles)
+    if cloud is None:
+        implementation = resampling.resolve_implementation(
+            first.device, resampling_method, resampling_implementation)
+    else:
+        implementation = _resolve_implementation(
+            first.device, resampling_method, resampling_implementation,
+            cloud)
+
+    def view(source):
+        return source if cloud is None else cloud.noise(source)
+
+    def lse(x):
+        return particle_logsumexp(x, cloud)
+
+    def smoothed_of(log_weight, tau):
+        w = particle_softmax(log_weight, cloud)
+        local = torch.einsum("bk,bk...->b...", w, tau)
+        return local if cloud is None else cloud.particle_sum(local)
 
     # ---- t = 0 (hoisted).
     proposal_dist = proposal(time=0, observations=obs_seq)
-    latent_0 = state.sample(proposal_dist, batch_size, k, noise)
+    latent_0 = state.sample(proposal_dist, batch_size, k, view(noise))
     log_weight_0 = (state.log_prob(initial(), latent_0) +
                     state.log_prob(emission(latents=[latent_0], time=0),
                                    state.expand_observation(obs_seq[0], k)) -
@@ -490,7 +646,7 @@ def paris(observations, initial, transition, emission, proposal,
     out = {}
     if num_timesteps == 1:
         last_latent, last_log_weight, tau_last = latent_0, log_weight_0, tau_0
-        log_ml = torch.logsumexp(log_weight_0, dim=1) - log_k
+        log_ml = lse(log_weight_0) - log_k
         if backward == "rejection":
             out["backward_accept_rate"] = torch.ones_like(log_ml)
             out["backward_unconverged"] = torch.zeros(
@@ -500,13 +656,23 @@ def paris(observations, initial, transition, emission, proposal,
                     else _resolve_pairwise_mode(transition, latent_0,
                                                 obs_seq[0]))
 
+        def resample(prev_log_weight, noise, prev_latent):
+            if cloud is None:
+                _, parent = resampling._resample(
+                    prev_log_weight, noise, prev_latent, resampling_method,
+                    implementation, need_indices=False)
+                return parent
+            _, parent = resampling.callable_resample(
+                implementation, prev_log_weight.detach(), noise,
+                prev_latent, lse(prev_log_weight).detach())
+            return parent
+
         def step(t, prev_latent, prev_log_weight, tau, noise):
             time = TimeIndex(t)
             prev_obs_list = [obs_seq[t - 1]]
+            noise = view(noise)
             # Filter update: resample, propose, weight (always resampling).
-            _, parent = resampling._resample(
-                prev_log_weight, noise, prev_latent, resampling_method,
-                implementation, need_indices=False)
+            parent = resample(prev_log_weight, noise, prev_latent)
             proposal_dist = proposal(previous_latents=[parent], time=time,
                                      observations=obs_seq)
             latent_t = state.sample(proposal_dist, batch_size, k, noise)
@@ -525,7 +691,7 @@ def paris(observations, initial, transition, emission, proposal,
                 noise, prev_latent, prev_log_weight, latent_t, tau,
                 transition, time, prev_obs_list, h, num_backward_draws,
                 backward, resolved, transition_log_bound,
-                max_rejection_rounds, max_exact_lanes)
+                max_rejection_rounds, max_exact_lanes, cloud=cloud)
             return latent_t, log_weight_t, tau_t, acc_rate, unconv
 
         def remat_step(t, prev_latent, prev_log_weight, tau, tape):
@@ -535,7 +701,7 @@ def paris(observations, initial, transition, emission, proposal,
         latent, log_weight, tau = latent_0, log_weight_0, tau_0
         contributions, acc_rates, unconvs = [], [], []
         for t in range(1, num_timesteps):
-            contributions.append(torch.logsumexp(log_weight, dim=1) - log_k)
+            contributions.append(lse(log_weight) - log_k)
             if remat and torch.is_grad_enabled():
                 latent, log_weight, tau, acc_rate, unconv = \
                     _checkpoint.checkpoint(
@@ -548,14 +714,13 @@ def paris(observations, initial, transition, emission, proposal,
             acc_rates.append(acc_rate)
             unconvs.append(unconv)
         last_latent, last_log_weight, tau_last = latent, log_weight, tau
-        log_ml = (_sum_in_order(contributions) +
-                  torch.logsumexp(last_log_weight, dim=1) - log_k)
+        log_ml = (_sum_in_order(contributions) + lse(last_log_weight) -
+                  log_k)
         if backward == "rejection":
             out["backward_accept_rate"] = torch.stack(acc_rates).mean(dim=0)
             out["backward_unconverged"] = torch.stack(unconvs).sum(dim=0)
-    w = torch.softmax(last_log_weight, dim=1)
     out.update({
-        "smoothed": torch.einsum("bk,bk...->b...", w, tau_last),
+        "smoothed": smoothed_of(last_log_weight, tau_last),
         "tau": tau_last, "log_weight": last_log_weight,
         "log_marginal_likelihood": log_ml})
     return out

@@ -39,6 +39,12 @@ repeat). The regressions are one batched solve of the `[B, F, F]` Gram
 matrices a step (`torch.linalg.solve_ex`, whose error flag stays on the
 device). `learn_twist` runs under `torch.no_grad`.
 
+Several ranks: `twisted_smc(mesh=...)` runs `infer(mesh=...)` on this
+rank's rows, with the twist's `[T, batch, ...]` tables cut to them.
+`learn_twist(mesh=...)` runs its twisted runs so, refits this rank's rows
+on their particles gathered over the particle group, and gathers the
+twists and scores over the data group.
+
 Draws: the twisted run draws as `infer` does; the refit's design points
 (``fit_jitter > 0``) draw, for t = T-1 down to 0, `[B, K, K]` Gumbel noise
 (one `jax.random.categorical(k, lw_t, shape=(K,))` a row) and then the
@@ -452,6 +458,23 @@ def make_discrete_twisted_components(spec: DiscreteSSMSpec, emission,
     return initial_, transition_, emission_, proposal_
 
 
+def _twist_rows(twist, rows, global_batch):
+    """The twist's tables cut to this rank's rows of the global batch (a
+    batch axis of 1 broadcasts and stays)."""
+    def cut(table):
+        if table.shape[1] == 1:
+            return table
+        if table.shape[1] != global_batch:
+            raise ValueError(
+                f"the twist's batch axis is {table.shape[1]}; on a mesh it "
+                f"must be 1 or the global batch {global_batch}")
+        return table[:, rows]
+
+    return dataclasses.replace(twist, **{
+        f.name: cut(getattr(twist, f.name))
+        for f in dataclasses.fields(twist)})
+
+
 def twisted_smc(observations, spec, emission, twist, num_particles: int,
                 noise=None, mesh=None, **infer_kwargs) -> dict:
     """SMC on the psi-twisted model, through `inference.infer('smc', ...)`:
@@ -461,16 +484,24 @@ def twisted_smc(observations, spec, emission, twist, num_particles: int,
     ``spec`` selects the family: `GaussianSSMSpec` with a `QuadraticTwist`
     (continuous latents) or `DiscreteSSMSpec` with a `TabularTwist` (HMM).
     The log-evidence estimate is unbiased in Z for the original model at
-    any twist, and exact at the optimal twist. ``mesh`` (sharding over
-    devices) is slice E2 of the port and raises.
+    any twist, and exact at the optimal twist.
+
+    ``mesh`` (with ``data_axis`` and ``particle_axis`` among the keyword
+    arguments) runs `infer(mesh=...)`: the observations are this rank's
+    rows, the twist's tables are built over the global batch (or a batch
+    of 1) and cut here to this rank's rows, and the outputs are this
+    rank's blocks.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharding the particle cloud over devices) is not ported "
-            "yet; it comes with slice E2 of the port (multi-device)")
     stacked = _inference.stack_observations(observations)
     lead = _inference._first_leaf(stacked)
     batch_size = lead.shape[1]
+    if mesh is not None:
+        from .sharding_utils import Cloud
+        cloud = Cloud(mesh, infer_kwargs.get("data_axis", "data"),
+                      infer_kwargs.get("particle_axis", "particle"))
+        global_batch = batch_size * cloud.n_data
+        twist = _twist_rows(twist, cloud.rows(global_batch), global_batch)
+        infer_kwargs["mesh"] = mesh
     maker = (make_discrete_twisted_components
              if isinstance(spec, DiscreteSSMSpec)
              else make_twisted_components)
@@ -711,6 +742,16 @@ def learn_twist(observations, spec: GaussianSSMSpec, emission,
     Draws from ``noise`` (default `NoiseSource.seeded(0)` on the
     observations' device), per iteration the twisted run's and then the
     refit's; with 'best', per candidate the seeds' runs in order.
+
+    ``mesh`` among the keyword arguments (as the JAX package's reach
+    `infer`): the observations are this rank's rows and ``init_twist`` is
+    built over the global batch (or a batch of 1). Each twisted run is
+    `twisted_smc(mesh=...)`; the refit regresses this rank's rows on their
+    particles gathered over the particle group (`[T, B_l, K, ...]` a rank,
+    the same fit on every rank of the group) and draws its rows' block of
+    the design-point noise. The fitted twists, the evidence estimates and
+    the scores are gathered over the data group, so every rank returns the
+    global result of the single-device call.
     """
     if keep not in ("last", "best"):
         raise ValueError(f"keep must be 'last' or 'best', got {keep!r}")
@@ -719,6 +760,19 @@ def learn_twist(observations, spec: GaussianSSMSpec, emission,
     if noise is None:
         noise = NoiseSource.seeded(0, lead.device)
     num_timesteps, batch_size = lead.shape[0], lead.shape[1]
+    cloud, refit_noise = None, noise
+    if smc_kwargs.get("mesh") is not None:
+        from .sharding_utils import Cloud
+        cloud = Cloud(smc_kwargs["mesh"],
+                      smc_kwargs.get("data_axis", "data"),
+                      smc_kwargs.get("particle_axis", "particle"))
+        batch_size *= cloud.n_data
+        refit_noise = cloud.noise(noise).along(0, None)
+
+    def rows(x, dim=0):
+        """``x`` over the global batch (gathered over the data group)."""
+        return x if cloud is None else cloud.gather_rows(x, dim)
+
     loc = spec.initial_loc
     dim = (loc.shape[-1] if isinstance(loc, torch.Tensor) and loc.ndim
            else None)
@@ -732,10 +786,15 @@ def learn_twist(observations, spec: GaussianSSMSpec, emission,
             y, spec, emission, tw, num_particles, noise=noise,
             return_latents=False, return_original_latents=True,
             return_log_weights=need_lw, **smc_kwargs)
-        fitted = _adp_refit(
-            y, spec, emission, out["original_latents"], ridge,
-            log_weights=out["log_weights"] if need_lw else None,
-            fit_jitter=fit_jitter, noise=noise)
+        xs = out["original_latents"]
+        lw = out["log_weights"] if need_lw else None
+        if cloud is not None:
+            xs = cloud.gather_particles(xs, dim=2)
+            lw = None if lw is None else cloud.gather_particles(lw, dim=2)
+        fitted = _adp_refit(y, spec, emission, xs, ridge, log_weights=lw,
+                            fit_jitter=fit_jitter, noise=refit_noise)
+        fitted = QuadraticTwist(A=rows(fitted.A, 1), b=rows(fitted.b, 1),
+                                c=rows(fitted.c, 1))
         if damping:
             fitted = QuadraticTwist(
                 A=(1.0 - damping) * fitted.A + damping * tw.A,
@@ -757,7 +816,7 @@ def learn_twist(observations, spec: GaussianSSMSpec, emission,
                                 a_new / torch.clamp(fitted.A, min=1e-30),
                                 torch.ones_like(fitted.A))
             fitted = QuadraticTwist(A=a_new, b=fitted.b * scale, c=fitted.c)
-        return fitted, out["log_marginal_likelihood"]
+        return fitted, rows(out["log_marginal_likelihood"])
 
     log_zs, twists = [], []
     for _ in range(num_iterations):
@@ -777,7 +836,7 @@ def learn_twist(observations, spec: GaussianSSMSpec, emission,
                             return_latents=False, return_log_weight=False,
                             **smc_kwargs)["log_marginal_likelihood"]
                 for _ in range(int(keep_num_seeds))]
-        scores.append(torch.stack(runs).mean(dim=0))
+        scores.append(rows(torch.stack(runs).mean(dim=0)))
     scores = torch.stack(scores)                               # [n, B]
     sel = torch.argmax(scores, dim=0)                          # [B]
 

@@ -132,8 +132,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    both routes; eager times beside the plain filter's;
 14. the dense-route sweep: `train_on_device` graphed at (200, 10, K) for
    K in {100, 256, 512, 1,024}, kernel route against the dense one-hot
-   route ('torch' at K <= 1,024), in turns; the dense gather bit for bit
-   under TF32;
+   route ('torch' at K <= 1,024), one graph each (4 timed blocks); the
+   dense gather bit for bit under TF32;
 15. the TMC train step, the bench's row (`bench.py:281-295`), at (200, 10,
    100): TMC log-Z with the exact proposal within 5% of the Kalman filter
    in every row and closer to it than IWAE on the same draws; no kernel
@@ -308,7 +308,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    against `train.make_train_step`: every loss equal, the parameters
    within 1e-5 relative; (b) 4 gloo ranks sharing cuda:0 (NCCL refuses
    two ranks on one card; gloo aborts on send/recv of CUDA tensors, so
-   the ring runs in (a) only) on (2, 2) and (1, 4) meshes: the filter
+   the port's ring stages them through host copies there) on (2, 2) and
+   (1, 4) meshes: the filter
    with the exact proposal, log-Z within the Kalman bound, the first
    step's ancestors within one particle of the single-device call's;
    the distributed resamplers (systematic, multinomial, soft; the
@@ -320,7 +321,27 @@ Phases, in order; any failure raises and the exit code is not 0:
    islands, criterion 0.5) at (100, 4) x 16 replicate row blocks, mean
    Z-hat / Z in (0.85, 1.15) on the mesh and on one device
    (`tests/test_islands.py:144-162`); every path's launches counted on
-   each rank and added to the JSON line. Phase 35 prints its seconds.
+   each rank and added to the JSON line. Phase 35 prints its seconds;
+36. slice E2, inside phase 35's two worlds (no world of its own): (a) on
+   the NCCL (ranks, 1) mesh, each path at its single-device phase's
+   width with T cut (`E2_*`): FFBS (50, 10, 10,000, M = 128) on a mesh
+   filter, PaRIS (20, 10, 2,048) pairwise and rejection, the RBPF (50,
+   10, 4,096) Do = 1, SMC² (10, M = 128, K = 256) rejuvenating every
+   step (ESS threshold 1.0: the theta resampling and the PMMH reruns),
+   twisted SMC on the
+   LGSSM (exact twist) and the HMM D = 8 at (50, 10, 10,000), OT dense
+   (5, 4, 4,096), resample-move (50, 10, 4,096), the block PF D = 16 (50,
+   4, 1,024), the sampler at K = 16,384, IF2 (50, 4, 4,096) with 2
+   iterations, each equal to its single-device call bit for bit (OT
+   within 1e-4: the ring sums in another order); (b) on the gloo ranks'
+   (2, 2) and (1, 4) meshes each path at (6, 4, 32), `learn_twist` on
+   phase 31's SV at (50, 10, 2,048) in (a) and with jittered design
+   points in (b), with streaming PaRIS + genealogy, PaRIS on the ring
+   exchange and the distributed OT on the host-staged ring, SMC²
+   rejuvenating every step on both meshes (its thetas and theta weights
+   compared too), within each JAX test's bar of the single-device call.
+   Every path's mesh call is counted alone (K3, K4, K5 by path in the
+   JSON line; no K1 on a mesh). Phase 36 prints its seconds.
 
 It prints a `{"kernels": [...]}` JSON line before the last, and, as the
 last line, `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -331,6 +352,14 @@ runs phases 1 and 2, then times each kernel against another version of it
 built from the sources in DIR (for example an earlier commit's, from
 `git show <commit>:aesmc_tpu_torch/csrc/<file>`), on the same inputs, in
 turns, by torch.profiler's device time a launch, and drives no path.
+
+    python3 chip_smoke.py --profile-margin N
+
+runs phases 1 and 2, then profiles one replay of phase 19's graphed
+serving step N times in each of four windows: with no idle host time at
+either end, with `PROFILE_MARGIN_S` before the replay, after it, or both
+(`_profiled` leaves the margin before its work); it prints how many
+windows saw K1 and how many events on the card, and drives no path.
 """
 
 from __future__ import annotations
@@ -717,16 +746,36 @@ def _quartiles(xs):
     return np.percentile(np.asarray(xs), [25, 50, 75])
 
 
+# Idle host time between the profiler's start and the first work it is to
+# see (`_profiled`). A window whose work is launched as soon as the
+# profiler starts now and then comes back with no device activity at all;
+# `--profile-margin N` counts how often, with the margin and without it.
+PROFILE_MARGIN_S = 0.02
+
+
+@contextlib.contextmanager
+def _profiled(cuda_only=False):
+    """torch.profiler (CPU and CUDA activity, or CUDA only) over the
+    ``with`` body, which starts `PROFILE_MARGIN_S` after the profiler
+    does; the body's work is synchronized before the profiler stops."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA]
+    if not cuda_only:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        yield prof
+        torch.cuda.synchronize()
+
+
 def _device_ms(fn, kernel, calls=50):
     """Mean device time of one launch of ``kernel`` over ``calls`` calls of
     ``fn``, from torch.profiler; None if the profiler saw no such kernel."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _profiled(cuda_only=True) as prof:
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
     total_us, count = 0.0, 0
     for event in prof.key_averages():
         if kernel in event.key:
@@ -741,14 +790,11 @@ def _calls_device_ms(fn, calls=50):
     over every kernel, copy and fill it runs on the card (torch.profiler);
     None if the profiler saw none."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
     total_us = sum(getattr(e, "device_time_total",
                            getattr(e, "cuda_time_total", 0.0))
                    for e in prof.key_averages()
@@ -1475,13 +1521,10 @@ def filter_phase(dev):
 
 def _profile(fn, label):
     """Device time by kernel name over one call of ``fn``."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         fn()
-        torch.cuda.synchronize()
     print(f"profile of {label}:", flush=True)
     events = prof.key_averages()
     print(events.table(sort_by="cuda_time_total", row_limit=25), flush=True)
@@ -1939,17 +1982,14 @@ def _report_profile(prof, label, want, span_ms, wall_ms):
 
 
 def _profile_replay(run, label, want, wall_ms):
-    """Runs ``run`` (one replay) under torch.profiler between two CUDA
-    events and reports it (`_report_profile`)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Runs ``run`` (one replay) under torch.profiler (`_profiled`)
+    between two CUDA events and reports it (`_report_profile`)."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         start.record()
         run()
         end.record()
-        torch.cuda.synchronize()
     return _report_profile(prof, label, want, start.elapsed_time(end),
                            wall_ms)
 
@@ -1960,9 +2000,11 @@ def _profiled_train_replay(dev, label, want, wall_ms, runner=None,
     first block is the warm-up, the capture and its first replay; the
     profiler and a CUDA event start in its callback, and the second
     block, one more replay, ends at a second event in the next callback
-    (after the block's loss is read). ``runner(dev, num_steps, block,
-    callback=..., **kwargs)`` runs `train_on_device` (default
-    `_on_device`, the bench's LGSSM at (T, B))."""
+    (after the block's loss is read); the first event waits
+    `PROFILE_MARGIN_S` after the profiler starts, as in `_profiled`.
+    ``runner(dev, num_steps, block, callback=..., **kwargs)`` runs
+    `train_on_device` (default `_on_device`, the bench's LGSSM at (T,
+    B))."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     events = []
@@ -1971,6 +2013,7 @@ def _profiled_train_replay(dev, label, want, wall_ms, runner=None,
         if not events:
             torch.cuda.synchronize()
             prof.start()
+            time.sleep(PROFILE_MARGIN_S)
         events.append(torch.cuda.Event(enable_timing=True))
         events[-1].record()
 
@@ -2279,9 +2322,11 @@ SOFT_ALPHA, SOFT_LR = 0.5, 1e-2
 SOFT_BLOCK = 5
 # The D-dim LGSSM of the JAX bench's configuration 2 (`lgssm_nd`).
 ND_DIM = 10
-# The dense-route sweep: graphed train steps at (T, B) = (200, 10).
+# The dense-route sweep: graphed train steps at (T, B) = (200, 10), one
+# graph a route and K (a capture costs ~4.5 s, a block of steps ~0.25 s):
+# the first block holds the warm-up and the capture, DENSE_TIMED are timed.
 DENSE_KS = (100, 256, 512, 1024)
-DENSE_BLOCK = 5
+DENSE_BLOCK, DENSE_TIMED = 5, 4
 
 
 def _soft_components(dev):
@@ -2608,12 +2653,12 @@ def dense_phase(dev):
     faster = []
     for k in DENSE_KS:
         ms, peak = {"cuda": [], "torch": []}, {}
-        for impl in ("torch", "cuda", "cuda", "torch"):
+        for impl in ("torch", "cuda"):
             timer = _BlockTimer()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            _on_device(dev, 3 * DENSE_BLOCK, DENSE_BLOCK, k=k,
-                       callback=timer, resampling_implementation=impl)
+            _on_device(dev, (1 + DENSE_TIMED) * DENSE_BLOCK, DENSE_BLOCK,
+                       k=k, callback=timer, resampling_implementation=impl)
             ms[impl] += timer.ms_per_step()
             peak[impl] = torch.cuda.max_memory_allocated() / 2 ** 20
         med = {impl: float(np.median(times)) for impl, times in ms.items()}
@@ -3291,9 +3336,7 @@ def serving_phase(dev):
     noise = NoiseSource.seeded(42, dev)
     eager_ms = [_timed(lambda: _stream(init_fn, step_fn, obs[:T], noise))[1]
                 / (T - 1) for _ in range(SERVE_PASSES)]
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         _, span = _timed(lambda: _stream(init_fn, step_fn, obs[:T], noise))
     _, device_ms = _kernel_events(prof)
     print(f"serving, eager: {[round(x, 4) for x in eager_ms]} ms per "
@@ -5825,7 +5868,8 @@ def _md_nccl_task(dev):
               f"train.make_train_step's, parameters within {worst:.3g} "
               f"relative (bound {GRAD_RTOL}); {times[path][0]:.3f} ms/step "
               f"(runs {times[path][1]})")
-    return {"launches": launches, "times": times}
+    e2_seconds = _e2_nccl_task(dev, mesh, launches, times)
+    return {"launches": launches, "times": times, "e2_seconds": e2_seconds}
 
 
 @contextlib.contextmanager
@@ -6078,7 +6122,8 @@ def _md_gloo_task(dev):
               f"{ratios['single device']:.4f} on one device (band "
               f"{MD_ISLAND_BAND}); |log-Z mesh - one device| <= "
               f"{delta:.4g}; {times[path][0]:.3f} ms/call")
-    return {"launches": launches, "times": times}
+    e2_seconds = _e2_gloo_task(dev, meshes, launches, times)
+    return {"launches": launches, "times": times, "e2_seconds": e2_seconds}
 
 
 def _md_kernel_phase(dev):
@@ -6167,15 +6212,546 @@ def _md_kernel_phase(dev):
                 n_p * _search_steps(kl))
 
 
+# Phase 36 (slice E2): every E2 path on a mesh, inside phase 35's two
+# worlds (no world of its own). (a) The NCCL world's (ranks, 1) mesh at
+# the width of each path's single-device phase, T cut (E2_*_T): the batch
+# is sharded and every particle cloud whole on one rank, so each path
+# equals the single-device call bit for bit, but OT's ring-streamed
+# Sinkhorn (another order of sums: the JAX test's 1e-4). (b) The gloo
+# ranks on cuda:0 on (2, 2) and (1, 4) at small width (E2G_*), each path
+# within its JAX test's bar of the single-device call: here the particle
+# axis is sharded, the twists', IF2's and SMC^2's per-row parameters cut
+# by the data axis, and the ring (PaRIS's exchange on (1, 4), the
+# distributed OT) moves device tensors through gloo's host-staged form.
+E2_T, E2_PARIS_T, E2_S2_T, E2_OT_T = 50, 20, 10, 5
+E2_FFBS_M, E2_PARIS_K, E2_RBPF_K = FFBS_M, PARIS_K, 4096
+E2_S2_M, E2_S2_K, E2_OT_B, E2_OT_K = 128, 256, 4, 4096
+E2_RM_K, E2_BPF_D, E2_BPF_B, E2_BPF_K = 4096, 16, 4, 1024
+E2_SAMPLER_K, E2_IF2_B, E2_IF2_K, E2_IF2_ITERATIONS = 16384, 4, 4096, 2
+E2G_T, E2G_B, E2G_K, E2G_M, E2G_THETA = 6, 4, 32, 8, 8
+# The JAX tests' bars against one device (tests/test_parallel.py,
+# tests/test_online.py, tests/test_samplers.py): (rtol, atol).
+E2_BARS = {"ffbs": (0.0, 1e-5), "paris": (0.0, 1e-4), "online": (2e-5, 1e-4),
+           "rbpf": (1e-4, 1e-4), "rbpf_means": (0.0, 1e-3),
+           "smc2": (0.0, 1e-4), "twisted": (0.0, 1e-4), "ot": (1e-5, 1e-4),
+           "sampler": (1e-4, 1e-4), "sampler_means": (0.0, 1e-3),
+           "rm": (1e-5, 1e-4), "bpf": (1e-5, 1e-4), "if2": (1e-5, 1e-4)}
+
+
+def _e2_optimal(dev, batch, num_timesteps):
+    """The bench's LGSSM with its exact proposal, ``batch`` rows of T."""
+    comps, obs = _bench_lgssm(dev, TRANSITION_MULT, batch)
+    optimal = lgssm.optimal_proposal(
+        0.0, 1.0, TRANSITION_MULT, TRANSITION_SCALE, EMISSION_MULT,
+        EMISSION_SCALE).to(dev)
+    return comps[:3] + (optimal,), obs[:num_timesteps].contiguous()
+
+
+# The single-device FFBS call's filter output, by width (the gloo FFBS
+# smooths it on the mesh).
+_E2_FILTERS = {}
+
+
+def _e2_ffbs(dev, mesh, width, shared_filter=False):
+    from aesmc_tpu_torch import parallel
+    from aesmc_tpu_torch.sharding_utils import local_block
+    t, batch, k, m = width
+    comps, obs = _e2_optimal(dev, batch, t)
+    kwargs = dict(return_original_latents=True, return_log_weights=True,
+                  return_latents=False, return_log_weight=False,
+                  return_log_marginal_likelihood=True)
+    if mesh is None:
+        run = _E2_FILTERS[width] = inference.infer(
+            "smc", obs, *comps, k, noise=NoiseSource.seeded(360, dev),
+            **kwargs)
+    elif shared_filter:
+        # The single-device call's filter, this rank's blocks: the
+        # smoother alone on the mesh.
+        run = {name: local_block(_E2_FILTERS[width][name], mesh, dims)
+               for name, dims in (
+                   ("original_latents", {1: "data", 2: "particle"}),
+                   ("log_weights", {1: "data", 2: "particle"}),
+                   ("log_marginal_likelihood", {0: "data"}))}
+    else:
+        run = inference.infer("smc", parallel.shard_batch(obs, mesh), *comps,
+                              k, noise=NoiseSource.seeded(360, dev),
+                              mesh=mesh, **kwargs)
+    traj = smoothing.backward_simulation(
+        run["original_latents"], run["log_weights"], comps[1], m,
+        NoiseSource.seeded(361, dev), mesh=mesh)
+    return ({"trajectories": traj, "log_z": run["log_marginal_likelihood"]},
+            {"trajectories": {1: "data"}, "log_z": {0: "data"}})
+
+
+def _e2_paris(dev, mesh, width, backward="pairwise", exchange="allgather"):
+    from aesmc_tpu_torch import parallel
+    t, batch, k = width
+    comps, obs = _e2_optimal(dev, batch, t)
+    extra = {}
+    if mesh is not None:
+        obs = parallel.shard_batch(obs, mesh)
+        extra = dict(mesh=mesh, resampling_implementation=(
+            parallel.make_distributed_fused_resampler(mesh,
+                                                      exchange=exchange)))
+    out = smoothing.paris(obs, *comps, k, h=lambda xp, xc, time: xp * xc,
+                          h0=lambda x0: x0 * x0,
+                          noise=NoiseSource.seeded(362, dev),
+                          num_backward_draws=PARIS_N, backward=backward,
+                          **extra)
+    return ({"tau": out["tau"], "smoothed": out["smoothed"],
+             "log_z": out["log_marginal_likelihood"]},
+            {"tau": {0: "data", 1: "particle"}, "smoothed": {0: "data"},
+             "log_z": {0: "data"}})
+
+
+def _e2_online(dev, mesh, width):
+    """Streaming PaRIS and genealogy: the final tau and each step's
+    relative-variance estimate."""
+    from aesmc_tpu_torch import parallel
+    t, batch, k = width
+    comps, obs = _e2_optimal(dev, batch, t)
+    if mesh is not None:
+        obs = parallel.shard_batch(obs, mesh)
+    init_fn, step_fn = online.make_online_filter(
+        *comps, k, track_genealogy=True, paris_h=lambda xp, xc, time: xp * xc,
+        paris_h0=lambda x0: x0 * x0, mesh=mesh)
+    noise = NoiseSource.seeded(363, dev)
+    fs = init_fn(obs[0], noise)
+    rel_var = []
+    for step in range(1, t):
+        fs, info = step_fn(fs, obs[step], noise)
+        rel_var.append(info["log_z_rel_var"])
+    return ({"tau": fs.tau, "rel_var": torch.stack(rel_var)},
+            {"tau": {0: "data", 1: "particle"}, "rel_var": {1: "data"}})
+
+
+def _e2_rbpf(dev, mesh, width):
+    from aesmc_tpu_torch import parallel
+    t, batch, k = width
+    obs = torch.randn(t, batch, 1, generator=torch.Generator(
+        device=dev).manual_seed(364), device=dev)
+    if mesh is not None:
+        obs = parallel.shard_batch(obs, mesh)
+    out = rbpf.rbpf(obs, num_particles=k, noise=NoiseSource.seeded(365, dev),
+                    ess_threshold=0.5, mesh=mesh, **_bench_switching(dev, 1))
+    return ({"regimes": out["nonlinear_latents"],
+             "log_z": out["log_marginal_likelihood"],
+             "filtered_means": out["filtered_means"]},
+            {"regimes": {0: "data", 1: "particle"}, "log_z": {0: "data"},
+             "filtered_means": {1: "data"}})
+
+
+def _e2_smc2(dev, mesh, width, ess_threshold=1.0):
+    """SMC² rejuvenating at every step (the default threshold 1.0): the
+    theta resampling and the PMMH reruns run T - 1 times."""
+    t, m, k = width
+    comps = _bench_optimal_lgssm(dev)
+    _, obs = statistics.sample_from_prior(*comps[:3], t, 1,
+                                          NoiseSource.seeded(366, dev))
+    q_scale = math.sqrt(SQMC_Q)
+
+    def build(theta):
+        return (comps[0], lgssm.Transition(mult=theta["mult"],
+                                           scale=q_scale),
+                comps[2], comps[3])
+
+    theta0 = 0.8 + 0.2 * torch.randn(m, generator=torch.Generator(
+        device=dev).manual_seed(367), device=dev)
+    out = smc2.smc2(obs, build, {"mult": theta0},
+                    lambda th: -0.5 * ((th["mult"] - 0.8) / 0.2) ** 2, k,
+                    noise=NoiseSource.seeded(368, dev),
+                    ess_threshold=ess_threshold, mesh=mesh)
+    if int(out["num_rejuvenations"]) != t - 1:
+        raise AssertionError(f"SMC^2 rejuvenated {out['num_rejuvenations']} "
+                             f"times in {t} steps; expected {t - 1}")
+    return ({"log_evidence": out["log_evidence"],
+             "ess_path": out["ess_path"], "theta": out["theta"]["mult"],
+             "log_theta_weight": out["log_theta_weight"],
+             "acceptance_rate": out["acceptance_rate"]},
+            {"log_evidence": {}, "ess_path": {}, "theta": {0: "data"},
+             "log_theta_weight": {0: "data"}, "acceptance_rate": {}})
+
+
+def _e2_twisted(dev, mesh, width, discrete=False):
+    from aesmc_tpu_torch import parallel
+    t, batch, k = width
+    if discrete:
+        hcomps, obs = _hmm_data(dev, t, batch, 0, num_states=HMM_STATES)
+        initial, transition, emission, _ = hcomps
+        spec = twisted.DiscreteSSMSpec(initial.logits, transition.logits)
+        twist = twisted.exact_hmm_twist(obs, initial.logits,
+                                        transition.logits, emission.locs,
+                                        emission.scale)
+    else:
+        comps, obs = _bench_lgssm(dev, TRANSITION_MULT, batch)
+        obs = obs[:t].contiguous()
+        emission = comps[2]
+        spec = twisted.GaussianSSMSpec(
+            0.0, 1.0, TRANSITION_SCALE,
+            mean_fn=lambda x, time: TRANSITION_MULT * x)
+        # The twist's [T, B] tables of the global batch: the port cuts
+        # them to each rank's rows.
+        twist = twisted.exact_lgssm_twist(
+            obs, 0.0, 1.0, TRANSITION_MULT, TRANSITION_SCALE, EMISSION_MULT,
+            EMISSION_SCALE)
+    if mesh is not None:
+        obs = parallel.shard_batch(obs, mesh)
+    out = twisted.twisted_smc(obs, spec, emission, twist, k,
+                              noise=NoiseSource.seeded(369, dev), mesh=mesh,
+                              return_latents=False,
+                              return_ancestral_indices=True)
+    return ({"ancestors": out["ancestral_indices"],
+             "log_z": out["log_marginal_likelihood"]},
+            {"ancestors": {1: "data", 2: "particle"}, "log_z": {0: "data"}})
+
+
+def _e2_learn_twist(dev, mesh, width, fit_jitter=0.0):
+    """`learn_twist` on phase 31's stochastic volatility, 2 ADP
+    iterations: the global twist and evidence, the same on every rank."""
+    from aesmc_tpu_torch import parallel
+    t, batch, k = width
+    mu, phi, sigma, beta = TW_SV
+    sv = stochastic_volatility.make_model(mu, phi, sigma, beta, device=dev)
+    _, obs = statistics.sample_from_prior(*sv[:3], t, batch,
+                                          NoiseSource.seeded(379, dev))
+    spec = twisted.GaussianSSMSpec(
+        mu, sigma / math.sqrt(1.0 - phi ** 2), sigma,
+        mean_fn=lambda x, time: mu + phi * (x - mu))
+    if mesh is not None:
+        obs = parallel.shard_batch(obs, mesh)
+    tw, info = twisted.learn_twist(
+        obs, spec, sv[2], k, noise=NoiseSource.seeded(380, dev),
+        num_iterations=TW_LEARN_ITERATIONS, fit_jitter=fit_jitter, mesh=mesh)
+    return ({"A": tw.A, "b": tw.b, "c": tw.c,
+             "log_z": info["log_marginal_likelihood"]},
+            {"A": {}, "b": {}, "c": {}, "log_z": {}})
+
+
+def _e2_ot(dev, mesh, width):
+    from aesmc_tpu_torch import parallel
+    t, batch, k = width
+    comps, obs = _bench_lgssm(dev, TRANSITION_MULT)
+    obs = obs[:t, :batch].contiguous()
+    if mesh is not None:
+        obs = parallel.shard_batch(obs, mesh)
+    out = inference.infer("smc", obs, *comps, k,
+                          noise=NoiseSource.seeded(370, dev),
+                          resampling_method="ot",
+                          ot_num_iterations=OT_ITERATIONS,
+                          return_log_marginal_likelihood=True,
+                          return_latents=False, return_log_weight=False,
+                          mesh=mesh)
+    return ({"log_z": out["log_marginal_likelihood"]},
+            {"log_z": {0: "data"}})
+
+
+def _e2_resample_move(dev, mesh, width):
+    from aesmc_tpu_torch import parallel
+    t, batch, k = width
+    comps = _bench_optimal_lgssm(dev)
+    _, obs = statistics.sample_from_prior(*comps[:3], t, batch,
+                                          NoiseSource.seeded(371, dev))
+    impl = "auto"
+    if mesh is not None:
+        obs = parallel.shard_batch(obs, mesh)
+        impl = parallel.make_distributed_fused_resampler(mesh)
+    out = resample_move.resample_move_filter(
+        obs, *comps, k, noise=NoiseSource.seeded(372, dev),
+        num_move_steps=RM_MOVES, target_acceptance=0.4,
+        resampling_implementation=impl, return_latents=False)
+    return ({"log_z": out["log_marginal_likelihood"],
+             "acceptance": out["acceptance_rate"],
+             "log_weight": out["log_weight"]},
+            {"log_z": {0: "data"}, "acceptance": {1: "data"},
+             "log_weight": {0: "data", 1: "particle"}})
+
+
+def _e2_block_pf(dev, mesh, width):
+    from aesmc_tpu_torch import parallel
+    t, dim, batch, k = width
+    model = lorenz.make_model(dim=dim, emission_scale=0.5,
+                              proposal="bootstrap", device=dev)
+    _, obs = statistics.sample_from_prior(*model[:3], t, batch,
+                                          NoiseSource.seeded(373, dev))
+    impl = "auto"
+    if mesh is not None:
+        obs = parallel.shard_batch(obs, mesh)
+        impl = parallel.make_distributed_resampler(mesh)
+    out = blockpf.block_pf(obs, *model[:3], k,
+                           blockpf.contiguous_blocks(dim, BPF_BLOCK),
+                           noise=NoiseSource.seeded(374, dev),
+                           resampling_implementation=impl,
+                           return_log_marginal_likelihood=True,
+                           return_latents=False,
+                           return_ancestral_indices=True)
+    return ({"log_z": out["log_marginal_likelihood"],
+             "ancestors": out["ancestral_indices"]},
+            {"log_z": {0: "data"}, "ancestors": {2: "data", 3: "particle"}})
+
+
+def _e2_sampler(dev, mesh, width):
+    """The bench's Gaussian (phase 28); ``mesh`` must have a data axis of
+    one rank (the cloud has no batch axis)."""
+    from aesmc_tpu_torch import parallel
+    from aesmc_tpu_torch.sharding_utils import local_block
+    k, dim = width
+    y = torch.full((dim,), 1.5, device=dev)
+
+    def log_prior(x):
+        return -0.5 * torch.sum(x * x)
+
+    def log_lik(x):
+        return -0.5 * torch.sum((y - x) ** 2) / 0.5
+
+    x0 = torch.randn(k, dim, generator=torch.Generator(device=dev)
+                     .manual_seed(375), device=dev)
+    impl = "auto"
+    if mesh is not None:
+        x0 = local_block(x0, mesh, {0: "particle"})
+        impl = parallel.make_distributed_resampler(mesh)
+    out = samplers.smc_sampler(log_prior, log_lik, x0,
+                               noise=NoiseSource.seeded(376, dev),
+                               num_moves=SAMPLER_MOVES,
+                               step_size=SAMPLER_STEP,
+                               resampling_implementation=impl)
+    total = out["particles"].sum(dim=0)
+    if mesh is not None:
+        from aesmc_tpu_torch.parallel import collectives
+        total = collectives.all_reduce(total, mesh.get_group("particle"))
+    return ({"log_normalizer": out["log_normalizer"],
+             "num_steps": out["num_steps"], "particle_mean": total / k},
+            {"log_normalizer": {}, "num_steps": {}, "particle_mean": {}})
+
+
+def _e2_if2(dev, mesh, width):
+    from aesmc_tpu_torch import parallel
+    t, batch, k, iterations = width
+    comps = _bench_optimal_lgssm(dev)
+    proposal = lgssm.Proposal(**PG_PROPOSAL).to(dev)
+    q_scale = math.sqrt(SQMC_Q)
+
+    def build(theta):
+        return (comps[0], lgssm.Transition(mult=theta["mult"],
+                                           scale=q_scale),
+                comps[2], proposal)
+
+    _, obs = statistics.sample_from_prior(*comps[:3], t, batch,
+                                          NoiseSource.seeded(377, dev))
+    # [B] starting centres of the global batch: the port cuts them.
+    theta0 = torch.linspace(0.3, 0.7, batch, device=dev)
+    impl = "auto"
+    if mesh is not None:
+        obs = parallel.shard_batch(obs, mesh)
+        impl = parallel.make_distributed_fused_resampler(mesh)
+    out = if2.if2(obs, build, {"mult": theta0}, {"mult": 0.05}, k,
+                  iterations, noise=NoiseSource.seeded(378, dev),
+                  resampling_implementation=impl)
+    return ({"theta": out["theta"]["mult"],
+             "log_likelihoods": out["log_likelihoods"]},
+            {"theta": {0: "data", 1: "particle"},
+             "log_likelihoods": {1: "data"}})
+
+
+def _e2_compare(path, mesh, single, sharded, layouts, bars):
+    """This rank's blocks of the mesh call against the same blocks of the
+    single-device call: bit for bit (``bars`` None) or within (rtol,
+    atol) (a dict by output, or one pair). Returns the largest absolute
+    difference."""
+    from aesmc_tpu_torch.sharding_utils import local_block
+    worst = 0.0
+    for name, dims in layouts.items():
+        want = local_block(single[name], mesh, dims) if dims else \
+            single[name]
+        got = sharded[name]
+        bar = bars.get(name, bars.get("*")) if isinstance(bars, dict) \
+            else bars
+        if bar == "skip":
+            continue
+        if tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype:
+            raise AssertionError(f"{path}: {name} {tuple(got.shape)} "
+                                 f"{got.dtype} vs {tuple(want.shape)} "
+                                 f"{want.dtype}")
+        diff = float((got.double() - want.double()).abs().max()) \
+            if got.numel() else 0.0
+        worst = max(worst, diff)
+        if bar is None:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{path}: {name} differs from the "
+                                     f"single-device call (largest "
+                                     f"difference {diff})")
+        elif not torch.allclose(got.double(), want.double(), rtol=bar[0],
+                                atol=bar[1]):
+            raise AssertionError(f"{path}: {name} off the single-device "
+                                 f"call by {diff} (bar rtol {bar[0]}, atol "
+                                 f"{bar[1]})")
+    return worst
+
+
+def _e2_expect(path, counts, kernels):
+    """Each of ``kernels`` launched on the path, K1 never (a mesh resamples
+    through the exchanges), and nothing at all for no ``kernels``."""
+    missing = [name for name in kernels if not counts[name]]
+    if missing or counts["resample_systematic"] or (
+            not kernels and any(counts.values())):
+        raise AssertionError(f"{path}: launched {counts}; expected each of "
+                             f"{kernels} and nothing else")
+
+
+def _e2_run(dev, mesh, path, fn, width, kernels, bars, launches, times,
+            **kwargs):
+    """One E2 path: the single-device call, then the mesh call with the
+    launch counts set to 0 just before it and read just after; the two
+    compared (`_e2_compare`), the mesh call's kernels checked: each of
+    ``kernels`` launched, K1 never (a mesh resamples through the
+    exchanges)."""
+    with torch.no_grad():
+        single, _ = fn(dev, None, width, **kwargs)
+        reset_counts()
+        start = time.perf_counter()
+        sharded, layouts = fn(dev, mesh, width, **kwargs)
+        counts = _md_counts(launches, path)
+        seconds = time.perf_counter() - start
+    _e2_expect(path, counts, kernels)
+    worst = _e2_compare(path, mesh, single, sharded, layouts, bars)
+    times[path] = (seconds * 1e3, [round(seconds * 1e3, 3)])
+    how = ("bit for bit" if bars is None else
+           f"within the JAX test's bar (largest difference {worst:.3g})")
+    _md_print(f"{path}: equal to the single-device call {how}; "
+              f"{seconds * 1e3:.1f} ms the mesh call (host clock)")
+
+
+def _e2_nccl_task(dev, mesh, launches, times):
+    """(36a) Each E2 path on the NCCL world's (ranks, 1) mesh at its
+    phase's width, bit for bit but OT."""
+    from aesmc_tpu_torch import parallel
+    start = time.perf_counter()
+    world = torch.distributed.get_world_size()
+    _md_print(f"== 36a slice E2 on the NCCL (ranks, 1) mesh, {world} "
+              f"rank(s)")
+    batch = -(-B // world) * world
+    k3, k4, k5 = "resample_sorted", "searchsorted_sorted", "gather_sorted"
+    runs = (
+        ("FFBS", _e2_ffbs, (E2_T, batch, K, E2_FFBS_M), (k3,), None, {}),
+        ("PaRIS pairwise", _e2_paris, (E2_PARIS_T, batch, E2_PARIS_K),
+         (k3,), None, {}),
+        ("PaRIS rejection", _e2_paris, (E2_PARIS_T, batch, E2_PARIS_K),
+         (k3,), None, dict(backward="rejection")),
+        ("RBPF Do = 1", _e2_rbpf, (E2_T, batch, E2_RBPF_K), (k3,), None,
+         {}),
+        ("twisted LGSSM, exact twist", _e2_twisted, (E2_T, batch, K), (k3,),
+         None, {}),
+        (f"twisted HMM D = {HMM_STATES}", _e2_twisted, (E2_T, batch, K),
+         (k4, k5), None, dict(discrete=True)),
+        ("learn_twist SV", _e2_learn_twist, (E2_T, batch, TW_LEARN_K),
+         (k3,), None if world == 1 else {"*": E2_BARS["twisted"]}, {}),
+        ("OT dense", _e2_ot, (E2_OT_T, max(E2_OT_B, world), E2_OT_K), (),
+         {"*": E2_BARS["ot"]}, {}),
+        ("resample-move", _e2_resample_move, (E2_T, batch, E2_RM_K), (k3,),
+         None, {}),
+        (f"block PF D = {E2_BPF_D}", _e2_block_pf,
+         (E2_T, E2_BPF_D, max(E2_BPF_B, world), E2_BPF_K), (k4,), None, {}),
+        ("IF2", _e2_if2, (E2_T, max(E2_IF2_B, world), E2_IF2_K,
+                          E2_IF2_ITERATIONS), (k3,), None, {}),
+    )
+    for label, fn, width, kernels, bars, kwargs in runs:
+        _e2_run(dev, mesh, f"36a NCCL {label} {width}", fn, width, kernels,
+                bars, launches, times, **kwargs)
+    # SMC^2 shards its thetas over the data axis; the sampler has no batch
+    # axis and shards its particles over a (1, ranks) mesh.
+    _e2_run(dev, mesh, f"36a NCCL SMC^2 (T, M, K) = ({E2_S2_T}, {E2_S2_M}, "
+            f"{E2_S2_K})", _e2_smc2, (E2_S2_T, E2_S2_M, E2_S2_K), (k3,),
+            None if world == 1 else {"*": E2_BARS["smc2"]}, launches, times)
+    particle_mesh = (mesh if world == 1 else
+                     parallel.make_mesh(1, world, device_type=dev.type))
+    _e2_run(dev, particle_mesh, f"36a NCCL sampler K = {E2_SAMPLER_K}",
+            _e2_sampler, (E2_SAMPLER_K, SAMPLER_D), (k4,),
+            None if world == 1 else {
+                "log_normalizer": E2_BARS["sampler"], "num_steps": None,
+                "particle_mean": E2_BARS["sampler_means"]}, launches, times)
+    seconds = time.perf_counter() - start
+    _md_print(f"== 36a took {seconds:.1f} s")
+    return seconds
+
+
+def _e2_gloo_task(dev, meshes, launches, times):
+    """(36b) Each E2 path on the gloo ranks' (2, 2) and (1, 4) meshes at
+    small width, within its JAX test's bar."""
+    start = time.perf_counter()
+    _md_print(f"== 36b slice E2 on {MD_GLOO_RANKS} gloo ranks on cuda:0, "
+              f"meshes {MD_GLOO_MESHES}, (T, B, K) = ({E2G_T}, {E2G_B}, "
+              f"{E2G_K})")
+    t, b, k = E2G_T, E2G_B, E2G_K
+    k3, k4, k5 = "resample_sorted", "searchsorted_sorted", "gather_sorted"
+    # What the JAX tests compare on a sharded particle axis (whose CDF may
+    # move an ancestor across a bin edge): the smoothed sum and log-Z, the
+    # evidence.
+    paris_bars = {"tau": "skip", "smoothed": E2_BARS["paris"],
+                  "log_z": E2_BARS["paris"]}
+    twisted_bars = {"ancestors": "skip", "log_z": E2_BARS["twisted"]}
+    for (dp, pp), mesh in meshes.items():
+        tag = f"36b gloo {dp}x{pp}"
+        runs = [
+            ("FFBS pairwise", _e2_ffbs, (t, b, k, E2G_M), (),
+             {"trajectories": E2_BARS["ffbs"], "log_z": (0.0, 0.0)},
+             dict(shared_filter=True)),
+            ("PaRIS pairwise" + (", ring exchange" if pp == 4 else ""),
+             _e2_paris, (t, b, k), (k3,), paris_bars,
+             dict(exchange="ring" if pp == 4 else "allgather")),
+            ("PaRIS rejection", _e2_paris, (t, b, k), (k3,), paris_bars,
+             dict(backward="rejection")),
+            ("streaming PaRIS + genealogy", _e2_online, (t, b, k), (k3,),
+             {"*": E2_BARS["online"]}, {}),
+            ("RBPF", _e2_rbpf, (t, b, k), (k3,),
+             {"regimes": "skip", "log_z": E2_BARS["rbpf"],
+              "filtered_means": E2_BARS["rbpf_means"]}, {}),
+            # Rejuvenating at every step; with the thetas split, the
+            # theta resampling runs on the theta group (K4).
+            ("SMC^2", _e2_smc2, (t, E2G_THETA, k),
+             (k3,) + ((k4,) if dp > 1 else ()),
+             {"*": E2_BARS["smc2"]}, {}),
+            ("twisted LGSSM", _e2_twisted, (t, b, k), (k3,), twisted_bars,
+             {}),
+            ("twisted HMM", _e2_twisted, (t, b, k), (k4, k5), twisted_bars,
+             dict(discrete=True)),
+            ("learn_twist SV, jittered design points", _e2_learn_twist,
+             (t, b, k), (k3,), {"*": E2_BARS["twisted"]},
+             dict(fit_jitter=1.5)),
+            ("OT (ring-streamed Sinkhorn)", _e2_ot, (t, b, k), (),
+             {"*": E2_BARS["ot"]}, {}),
+            ("resample-move", _e2_resample_move, (t, b, k), (k3,),
+             {"*": E2_BARS["rm"]}, {}),
+            ("block PF", _e2_block_pf, (t, E2_BPF_D, b, k), (k4,),
+             {"*": E2_BARS["bpf"]}, {}),
+            ("IF2", _e2_if2, (t, b, k, E2_IF2_ITERATIONS), (k3,),
+             {"*": E2_BARS["if2"]}, {}),
+        ]
+        if dp == 1:
+            runs.append(("sampler", _e2_sampler, (16 * k, SAMPLER_D), (k4,),
+                         {"log_normalizer": E2_BARS["sampler"],
+                          "num_steps": None,
+                          "particle_mean": E2_BARS["sampler_means"]}, {}))
+        for label, fn, width, kernels, bars, kwargs in runs:
+            _e2_run(dev, mesh, f"{tag} {label}", fn, width, kernels, bars,
+                    launches, times, **kwargs)
+    seconds = time.perf_counter() - start
+    _md_print(f"== 36b took {seconds:.1f} s")
+    return seconds
+
+
 def multi_device_phase(dev):
     phase(f"35 multi-device: NCCL world of {torch.cuda.device_count()} "
           f"rank(s), one card each; {MD_GLOO_RANKS} gloo ranks on cuda:0 "
-          f"on meshes {MD_GLOO_MESHES}; K2-K4 at the distributed shapes")
+          f"on meshes {MD_GLOO_MESHES}; K2-K4 at the distributed shapes; "
+          f"phase 36 (slice E2) inside both worlds")
     start = time.perf_counter()
     _md_kernel_phase(dev)
-    _md_world(torch.cuda.device_count(), "nccl", "_md_nccl_task")
-    _md_world(MD_GLOO_RANKS, "gloo", "_md_gloo_task")
+    nccl = _md_world(torch.cuda.device_count(), "nccl", "_md_nccl_task")
+    gloo = _md_world(MD_GLOO_RANKS, "gloo", "_md_gloo_task")
+    e2 = nccl[0]["e2_seconds"] + gloo[0]["e2_seconds"]
     _phase_seconds("35", start)
+    print(f"== phase 36 (slice E2) took {e2:.1f} s of them (rank 0: "
+          f"{nccl[0]['e2_seconds']:.1f} s in the NCCL world, "
+          f"{gloo[0]['e2_seconds']:.1f} s in the gloo world)", flush=True)
 
 
 def _build_other(other, sources):
@@ -6283,6 +6859,53 @@ def compare_phase(dev, other):
               f"{runs['this']}, the other {runs['other']}", flush=True)
 
 
+@torch.no_grad()
+def profile_margin_phase(dev, trials):
+    """Profiles one replay of phase 19's graphed serving step ``trials``
+    times in each of four windows, in turns: no margin, `PROFILE_MARGIN_S`
+    of idle host time before the replay only, after it only, and both
+    (`_profiled` leaves the one before); prints, for each, how many windows saw how many K1
+    events and how many kernels, copies and fills on the card."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    phase(f"3 profile margin: {trials} profiled replays of the graphed "
+          f"serving step in each of four windows")
+    comps, _ = _bench_lgssm(dev, TRANSITION_MULT)
+    obs = _serving_data(dev, comps, 2)
+    init_fn, step_fn = online.make_online_filter(*comps, K)
+    noise = NoiseSource.seeded(43, dev)
+    captured = online.CapturedStep(step_fn, init_fn(obs[0], noise), obs[1],
+                                   noise)
+    for _ in range(5):
+        captured(obs[1])
+    torch.cuda.synchronize()
+    margins = [(0.0, 0.0), (PROFILE_MARGIN_S, 0.0), (0.0, PROFILE_MARGIN_S),
+               (PROFILE_MARGIN_S, PROFILE_MARGIN_S)]
+    seen = {margin: collections.Counter() for margin in margins}
+    start = time.perf_counter()
+    for _ in range(trials):
+        for before, after in margins:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                time.sleep(before)
+                captured(obs[1])
+                torch.cuda.synchronize()
+                time.sleep(after)
+            events = prof.key_averages()
+            k1 = sum(e.count for e in events
+                     if KERNELS["resample_systematic"][2] in e.key)
+            on_card = sum(e.count for e in events if getattr(
+                e, "device_type", None) == DeviceType.CUDA)
+            seen[before, after][k1, on_card] += 1
+    for (before, after), counts in seen.items():
+        print(f"margin {before} s before, {after} s after: {trials} "
+              f"windows, (K1 events, events on the card): windows "
+              f"{dict(sorted(counts.items()))}", flush=True)
+    print(f"{time.perf_counter() - start:.1f} s", flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(
         description="Smoke test of the PyTorch port on one NVIDIA GPU.")
@@ -6290,11 +6913,20 @@ def main():
         "--compare", type=pathlib.Path, metavar="DIR",
         help="after phases 1 and 2, time each kernel against the version "
              "whose sources are in DIR instead of driving the paths")
+    parser.add_argument(
+        "--profile-margin", type=int, metavar="N",
+        help="after phases 1 and 2, profile one replay of the graphed "
+             "serving step N times in each of four windows (with and "
+             "without idle host time at either end) instead of driving "
+             "the paths")
     args = parser.parse_args()
     dev = device_phase()
     build_phase()
     if args.compare is not None:
         compare_phase(dev, args.compare)
+        return
+    if args.profile_margin is not None:
+        profile_margin_phase(dev, args.profile_margin)
         return
     errors = {"resample_systematic": k1_phase(dev),
               "range_sum": k2_phase(dev),

@@ -29,7 +29,8 @@ from aesmc_tpu.models import lorenz as jax_lorenz
 from aesmc_tpu_torch import blockpf, distributions, inference, resampling
 from aesmc_tpu_torch.models import lorenz
 from aesmc_tpu_torch.noise import NoiseSource
-from torch_replay import ReplayNoise, fields, normal_draw, tensor
+from torch_replay import (PlainSystematic, ReplayNoise, fields, normal_draw,
+                          tensor)
 
 D, T, B, K = 8, 6, 2, 64
 OBS = tuple(range(0, D, 2))
@@ -245,7 +246,17 @@ def test_validation_errors(data):
         blockpf.block_pf(obs, comps[0], comps[1], WeirdEmission(), 8,
                          blockpf.contiguous_blocks(D, 4),
                          noise=NoiseSource.seeded(0, CPU), obs_indices=OBS)
-    with pytest.raises(NotImplementedError, match="slice E"):
-        blockpf.block_pf(obs, *comps[:3], 8, blockpf.contiguous_blocks(D, 4),
-                         obs_indices=OBS,
-                         resampling_implementation=lambda *a: None)
+    # A plain callable draws the [J B, K] indices: the default route's bits.
+    plain = PlainSystematic()
+    got = blockpf.block_pf(obs, *comps[:3], 8,
+                           blockpf.contiguous_blocks(D, 4), obs_indices=OBS,
+                           noise=NoiseSource.seeded(0, CPU),
+                           return_log_marginal_likelihood=True,
+                           resampling_implementation=plain)
+    want = blockpf.block_pf(obs, *comps[:3], 8,
+                            blockpf.contiguous_blocks(D, 4), obs_indices=OBS,
+                            noise=NoiseSource.seeded(0, CPU),
+                            return_log_marginal_likelihood=True)
+    assert plain.calls == obs.shape[0] - 1
+    for name in ("log_marginal_likelihood", "latents"):
+        torch.testing.assert_close(got[name], want[name], rtol=0, atol=0)

@@ -313,5 +313,11 @@ class TestErrors:
                 torch.tensor(LW_SOFT), None, None, implementation=plain)
 
     def test_distributed_ot_resampler_names_e2(self):
-        with pytest.raises(NotImplementedError, match="E2"):
-            parallel.make_distributed_ot_resampler(_StubMesh())
+        # Ported now (the name is the earlier slice's): the factory tags
+        # its callable for the engine; a mesh without the axis raises.
+        ot = parallel.make_distributed_ot_resampler(_StubMesh())
+        assert ot.ot and ot.mesh is not None
+        assert (ot.data_axis, ot.particle_axis) == ("data", "particle")
+        with pytest.raises(ValueError, match="particle_axis"):
+            parallel.make_distributed_ot_resampler(_StubMesh(),
+                                                   particle_axis="island")

@@ -31,7 +31,7 @@ from aesmc_tpu.models import lgssm as jax_lgssm
 from aesmc_tpu_torch import if2, resampling
 from aesmc_tpu_torch.models import kalman, lgssm
 from aesmc_tpu_torch.noise import NoiseSource
-from torch_replay import ReplayNoise, tensor
+from torch_replay import PlainSystematic, ReplayNoise, tensor
 
 T, B, K, M = 10, 2, 64, 3
 KEY = jax.random.PRNGKey(31)
@@ -171,10 +171,18 @@ def test_bad_theta0_shape_raises():
         if2.if2(tensor(_obs(5, B)), _build("torch"),
                 {"mult": torch.zeros(3)}, {"mult": 0.1}, num_particles=16,
                 num_iterations=2, noise=NoiseSource.seeded(0, CPU))
-    with pytest.raises(NotImplementedError, match="slice E"):
-        if2.if2(tensor(_obs(5, B)), _build("torch"), {"mult": 0.5},
-                {"mult": 0.1}, num_particles=16, num_iterations=2,
-                resampling_implementation=lambda *a: None)
+    # A plain callable moves the latent and theta together: the default
+    # route's bits.
+    plain = PlainSystematic()
+    kwargs = dict(num_particles=16, num_iterations=2)
+    got = if2.if2(tensor(_obs(5, B)), _build("torch"), {"mult": 0.5},
+                  {"mult": 0.1}, noise=NoiseSource.seeded(0, CPU),
+                  resampling_implementation=plain, **kwargs)
+    want = if2.if2(tensor(_obs(5, B)), _build("torch"), {"mult": 0.5},
+                   {"mult": 0.1}, noise=NoiseSource.seeded(0, CPU), **kwargs)
+    assert plain.calls == 2 * 5
+    for name in ("log_likelihoods", "theta_mean"):
+        torch.testing.assert_close(got[name], want[name], rtol=0, atol=0)
 
 
 def test_single_timestep():

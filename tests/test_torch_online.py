@@ -36,7 +36,7 @@ from aesmc_tpu_torch import (distributions, inference, online, resampling,
 from aesmc_tpu_torch.models import lgssm
 from aesmc_tpu_torch.noise import NoiseSource
 from aesmc_tpu_torch.state import BatchShapeMode
-from torch_replay import (ReplayNoise, lgssm_params, normal_draw,
+from torch_replay import (IslandOnlyMesh, ReplayNoise, lgssm_params, normal_draw,
                           resampling_draws, tensor)
 
 T, B, K = 8, 3, 64
@@ -306,14 +306,14 @@ def test_time_reading_component_sees_every_step():
      "paris_backward"),
     (dict(paris_h=lambda a, b, t: b, paris_pairwise="bogus"), ValueError,
      "paris_pairwise"),
-    # On a mesh (slice E1), what waits for slice E2 and what has no
-    # distributed form.
-    (dict(mesh=object(), paris_h=lambda a, b, t: b), NotImplementedError,
-     "slice E"),
-    (dict(mesh=object(), track_genealogy=True), NotImplementedError,
-     "slice E"),
-    (dict(mesh=object(), resampling_method="ot"), NotImplementedError,
-     "slice E"),
+    # On a mesh: what has no distributed form, and a mesh without the
+    # particle axis (the mesh runs: tests/test_torch_mesh_algorithms.py).
+    (dict(mesh=IslandOnlyMesh(), paris_h=lambda a, b, t: b), ValueError,
+     "particle_axis"),
+    (dict(mesh=IslandOnlyMesh(), track_genealogy=True), ValueError,
+     "particle_axis"),
+    (dict(mesh=IslandOnlyMesh(), resampling_method="ot", ot_rank=4),
+     ValueError, "low-rank"),
     (dict(mesh=object(), resampling_method="residual"), ValueError,
      "residual"),
 ])

@@ -192,10 +192,29 @@ def test_lowrank_matches_jax():
         np.testing.assert_allclose(g, w, atol=GRAD_ATOL)
 
 
-def test_distributed_form_not_ported():
-    with pytest.raises(NotImplementedError, match="slice E"):
-        ot.distributed_ot_resample(torch.zeros(1, 4), torch.zeros(1, 4),
-                                   "particle")
+def test_distributed_form_not_ported(monkeypatch):
+    """The distributed form (ported now; the name is the earlier slice's):
+    on a group of one rank the ring-streamed Sinkhorn is the blocked one
+    with a single block, and its gradients are the blocked form's. Its
+    runs across ranks: tests/test_torch_mesh_algorithms.py."""
+    from aesmc_tpu_torch.parallel import collectives
+    monkeypatch.setattr(collectives, "size", lambda group: 1)
+    monkeypatch.setattr(collectives, "all_reduce",
+                        lambda x, group, op="sum": x.clone())
+    logw, x = _inputs(2, 64, 2, seed=3)
+    kwargs = dict(epsilon=0.5, num_iterations=20)
+    got, zeros = ot.distributed_ot_resample(torch.tensor(logw),
+                                            torch.tensor(x), None, **kwargs)
+    want, _ = ot.ot_resample_blocked(torch.tensor(logw), torch.tensor(x),
+                                     block_size=64, **kwargs)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    assert not zeros.any()
+    for g, w in zip(
+            _grads(lambda lw, xx: ot.distributed_ot_resample(
+                lw, xx, None, **kwargs), logw, x),
+            _grads(lambda lw, xx: ot.ot_resample_blocked(
+                lw, xx, block_size=64, **kwargs), logw, x)):
+        np.testing.assert_allclose(g, w, atol=GRAD_ATOL)
 
 
 T, B, K = 6, 3, 32

@@ -105,9 +105,21 @@ for _dp, _pp in MESHES:
                                 num_particles=K, method=_method,
                                 exchange=_exchange, fixed_lag=_lag,
                                 criterion=_criterion))
+def _train_jax_draws():
+    """The JAX sharded step's draws at K = 16 from ``KEY`` (its `infer`'s
+    keys): the proposal's eps a step, then the systematic uniforms."""
+    step_keys = jax.random.split(KEY, (T, 2))
+    return {"normal": [normal_draw(step_keys[0, 1], (16,), (B,),
+                                   batch_expanded=True)] +
+            [normal_draw(step_keys[t, 1], (), (B, 16))
+             for t in range(1, T)],
+            "uniform": resampling_draws(KEY, T, B, 16,
+                                        "systematic")["uniforms"]}
+
+
 CASES["train_jax"] = ("train_case", dict(
     dp=2, pp=4, obs=OBS, params=TRAIN_PARAMS, num_particles=16,
-    draws=None))
+    draws=_train_jax_draws()))
 CASES["dryrun"] = ("dryrun", {})
 
 
@@ -309,25 +321,16 @@ class TestShardedTrainStep:
         np.testing.assert_allclose(explicit[0]["losses"],
                                    default[0]["losses"], rtol=1e-5)
 
-    def test_loss_matches_jax_sharded_step(self):
+    def test_loss_matches_jax_sharded_step(self, world):
         # The JAX sharded step's loss at its first step, against the port's
-        # with the JAX draws replayed (one more world: the draws of K = 16
-        # differ from the module world's).
+        # with the JAX draws replayed (the module world's "train_jax").
         comps = _jax_components(0.0)
         mesh = jax_parallel.make_mesh(data=2, particle=4)
         opt = optax.adam(1e-2)
         step = jax_parallel.make_sharded_train_step(16, "aesmc", opt, mesh)
         _, _, loss = step(comps, opt.init(comps),
                           jax_parallel.shard_batch(OBS, mesh), KEY)
-        step_keys = jax.random.split(KEY, (T, 2))
-        draws = {"normal": [normal_draw(step_keys[0, 1], (16,), (B,),
-                                        batch_expanded=True)] +
-                 [normal_draw(step_keys[t, 1], (), (B, 16))
-                  for t in range(1, T)],
-                 "uniform": resampling_draws(KEY, T, B, 16,
-                                             "systematic")["uniforms"]}
-        case = dict(CASES["train_jax"][1], draws=draws)
-        (results,) = torch_dist.run_world(8, [("train_case", case)])
+        results = world["train_jax"]
         np.testing.assert_allclose(results[0]["losses"][0], float(loss),
                                    rtol=1e-5)
 
@@ -374,17 +377,25 @@ class TestOnlineMesh:
 
 
 class TestErrors:
+    # kind None: the call runs on a mesh ('ot', streaming PaRIS and
+    # genealogy run since the slice that ported them; their results are
+    # held in tests/test_torch_mesh_algorithms.py).
     @pytest.mark.parametrize("name,kind,match", [
-        ("ot", "NotImplementedError", "E2"),
+        ("ot", None, None),
+        ("ot_rank", "ValueError", "low-rank"),
         ("residual", "ValueError", "residual"),
         ("no_mesh", "ValueError", "mesh="),
-        ("paris", "NotImplementedError", "E2"),
-        ("genealogy", "NotImplementedError", "E2"),
+        ("paris", None, None),
+        ("genealogy", None, None),
         ("tmc", "NotImplementedError", "mesh="),
         ("split", "ValueError", "particle shards")])
     def test_refused_on_a_mesh(self, world, name, kind, match):
         got = world["errors"][0][name]
-        assert got is not None and got[0] == kind and match in got[1], got
+        if kind is None:
+            assert got is None, got
+        else:
+            assert (got is not None and got[0] == kind and
+                    match in got[1]), got
 
 
 def test_dryrun_multichip(world):

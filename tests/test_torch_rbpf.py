@@ -27,7 +27,8 @@ from aesmc_tpu_torch import math as amath
 from aesmc_tpu_torch.models import kalman_nd
 from aesmc_tpu_torch.noise import NoiseSource
 from aesmc_tpu_torch.ops import resample_cuda, searchsorted_sorted_cuda
-from torch_replay import ReplayNoise, tensor
+from torch_replay import (IslandOnlyMesh, PlainSystematic, ReplayNoise,
+                          tensor)
 
 T, B, K, D = 8, 3, 64, 2
 KEY = jax.random.PRNGKey(4)
@@ -232,7 +233,15 @@ def test_tag_mode_and_validation_errors():
         rbpf.rbpf(obs, num_particles=4, ess_threshold=1.5, **comps)
     with pytest.raises(ValueError, match=r"\[T, B, Do\]"):
         rbpf.rbpf(torch.zeros(4, B, 1, 1), num_particles=4, **comps)
-    for kwargs in ({"mesh": object()}, {"data_axis": "x"},
-                   {"resampling_implementation": lambda *a: None}):
-        with pytest.raises(NotImplementedError, match="slice E"):
-            rbpf.rbpf(obs, num_particles=4, **kwargs, **comps)
+    with pytest.raises(ValueError, match="particle_axis"):
+        rbpf.rbpf(obs, num_particles=4, mesh=IslandOnlyMesh(), **comps)
+    # A plain callable passes through: the bits of the default route.
+    plain = PlainSystematic()
+    obs = torch.randn(4, B, 1)
+    got = rbpf.rbpf(obs, num_particles=8, resampling_implementation=plain,
+                    noise=NoiseSource.seeded(0, "cpu"), **comps)
+    want = rbpf.rbpf(obs, num_particles=8,
+                     noise=NoiseSource.seeded(0, "cpu"), **comps)
+    assert plain.calls == 3
+    for name in ("log_marginal_likelihood", "filtered_means"):
+        torch.testing.assert_close(got[name], want[name], rtol=0, atol=0)

@@ -28,7 +28,7 @@ from aesmc_tpu.models import lgssm as jax_lgssm
 from aesmc_tpu_torch import resample_move, resampling
 from aesmc_tpu_torch.models import kalman, lgssm
 from aesmc_tpu_torch.noise import NoiseSource
-from torch_replay import ReplayNoise, normal_draw, tensor
+from torch_replay import PlainSystematic, ReplayNoise, normal_draw, tensor
 
 A, Q, EM, R0 = 0.9, 1.0, 1.0, 0.25
 T, B, K = 8, 2, 64
@@ -186,7 +186,13 @@ def test_validation(obs):
     with pytest.raises(ValueError, match="num_move_steps"):
         resample_move.resample_move_filter(tensor(obs), *comps, 8,
                                            num_move_steps=-1)
-    with pytest.raises(NotImplementedError, match="slice E"):
-        resample_move.resample_move_filter(
-            tensor(obs), *comps, 8,
-            resampling_implementation=lambda *a: None)
+    # A plain callable passes through: the bits of the default route.
+    plain = PlainSystematic()
+    got = resample_move.resample_move_filter(
+        tensor(obs), *comps, 8, noise=NoiseSource.seeded(0, "cpu"),
+        resampling_implementation=plain)
+    want = resample_move.resample_move_filter(
+        tensor(obs), *comps, 8, noise=NoiseSource.seeded(0, "cpu"))
+    assert plain.calls == obs.shape[0] - 1
+    for name in ("log_marginal_likelihood", "acceptance_rate", "latents"):
+        torch.testing.assert_close(got[name], want[name], rtol=0, atol=0)

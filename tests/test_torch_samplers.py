@@ -31,7 +31,7 @@ from aesmc_tpu import samplers as jax_samplers
 from aesmc_tpu_torch import resampling, samplers
 from aesmc_tpu_torch.noise import NoiseSource
 from aesmc_tpu_torch.ops import resample_cuda, searchsorted_sorted_cuda
-from torch_replay import ReplayNoise, tensor
+from torch_replay import PlainSystematic, ReplayNoise, tensor
 
 D, K = 4, 256
 S0, S = 2.0, 0.5
@@ -296,9 +296,16 @@ def test_validation_errors():
         samplers.smc_sampler(*args, x0, waste_free_chains=32)
     with pytest.raises(ValueError, match="num_moves"):
         samplers.smc_sampler(*args, x0, waste_free_chains=8, num_moves=0)
-    with pytest.raises(NotImplementedError, match="slice E"):
-        samplers.smc_sampler(*args, x0,
-                             resampling_implementation=lambda *a: None)
+    # A plain callable passes through: the bits of the default route.
+    plain = PlainSystematic()
+    x0 = torch.randn((32, D), generator=torch.Generator().manual_seed(0))
+    got = samplers.smc_sampler(*args, x0, noise=NoiseSource.seeded(0, "cpu"),
+                               resampling_implementation=plain)
+    want = samplers.smc_sampler(*args, x0,
+                                noise=NoiseSource.seeded(0, "cpu"))
+    assert plain.calls == int(want["num_steps"])
+    for name in ("log_normalizer", "particles"):
+        torch.testing.assert_close(got[name], want[name], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("k", [1, 2, 511, 513, 4096, 262144])

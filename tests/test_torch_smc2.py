@@ -35,7 +35,8 @@ from aesmc_tpu.models import lgssm as jax_lgssm
 from aesmc_tpu_torch import resampling, smc2
 from aesmc_tpu_torch.models import kalman, lgssm
 from aesmc_tpu_torch.noise import NoiseSource
-from torch_replay import ReplayNoise, normal_draw, tensor
+from torch_replay import (IslandOnlyMesh, PlainSystematic, ReplayNoise,
+                          normal_draw, tensor)
 
 T, B, M, K = 6, 2, 8, 32
 KEY = jax.random.PRNGKey(9)
@@ -238,9 +239,17 @@ def test_validation_errors():
     with pytest.raises(ValueError, match="ess_threshold"):
         smc2.smc2(obs, build, {"mult": torch.zeros(4)}, log_prior, 4,
                   ess_threshold=1.5)
-    with pytest.raises(NotImplementedError, match="slice E"):
+    with pytest.raises(ValueError, match="particle_axis"):
         smc2.smc2(obs, build, {"mult": torch.zeros(4)}, log_prior, 4,
-                  mesh=object())
-    with pytest.raises(NotImplementedError, match="slice E"):
-        smc2.smc2(obs, build, {"mult": torch.zeros(4)}, log_prior, 4,
-                  resampling_implementation=lambda *a: None)
+                  mesh=IslandOnlyMesh())
+    # A plain callable resamples the inner rows: the default route's bits.
+    plain = PlainSystematic()
+    theta0 = {"mult": torch.linspace(0.5, 1.0, 4)}
+    got = smc2.smc2(obs, build, theta0, log_prior, 4,
+                    noise=NoiseSource.seeded(0, "cpu"),
+                    resampling_implementation=plain)
+    want = smc2.smc2(obs, build, theta0, log_prior, 4,
+                     noise=NoiseSource.seeded(0, "cpu"))
+    assert plain.calls >= 2
+    for name in ("log_evidence", "inner_log_marginal_likelihood"):
+        torch.testing.assert_close(got[name], want[name], rtol=0, atol=0)

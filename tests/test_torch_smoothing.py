@@ -36,7 +36,8 @@ from aesmc_tpu.models import lgssm as jax_lgssm
 from aesmc_tpu_torch import distributions, resampling, smoothing
 from aesmc_tpu_torch.models import kalman, lgssm
 from aesmc_tpu_torch.state import BatchShapeMode
-from torch_replay import ReplayNoise, lgssm_params, normal_draw, tensor
+from torch_replay import (IslandOnlyMesh, ReplayNoise, lgssm_params,
+                          normal_draw, tensor)
 
 A, Q, EM, R0 = 0.9, 1.0, 1.0, 0.5
 T, B, K, M, N = 5, 2, 32, 16, 2
@@ -120,9 +121,10 @@ def _route_rejection(monkeypatch, key_of_time):
     from the key of its step (``key_of_time(time)``)."""
     original = smoothing._rejection_backward_indices
 
-    def replayed(noise, *args):
+    def replayed(noise, *args, **kwargs):
         time = args[4]
-        return original(KeyChainNoise(key_of_time(int(time))), *args)
+        return original(KeyChainNoise(key_of_time(int(time))), *args,
+                        **kwargs)
 
     monkeypatch.setattr(smoothing, "_rejection_backward_indices", replayed)
 
@@ -281,13 +283,15 @@ def test_kalman_smoother_matches_jax_and_options_raise():
     _, comps = _components()
     obs = tensor(_observations())
     noise = ReplayNoise()
-    with pytest.raises(NotImplementedError, match="slice E"):
+    # A mesh without the particle axis is refused (the mesh runs
+    # themselves: tests/test_torch_mesh_algorithms.py).
+    with pytest.raises(ValueError, match="particle_axis"):
         smoothing.paris(obs, *comps, K, h=lambda xp, xc, t: xc,
-                        noise=noise, mesh=object())
-    with pytest.raises(NotImplementedError, match="slice E"):
+                        noise=noise, mesh=IslandOnlyMesh())
+    with pytest.raises(ValueError, match="particle_axis"):
         smoothing.backward_simulation(torch.zeros(T, B, K),
                                       torch.zeros(T, B, K), comps[1], M,
-                                      noise, mesh=object())
+                                      noise, mesh=IslandOnlyMesh())
     with pytest.raises(ValueError, match="backward"):
         smoothing.paris(obs, *comps, K, h=lambda xp, xc, t: xc,
                         noise=noise, backward="bogus")

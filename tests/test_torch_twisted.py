@@ -41,7 +41,7 @@ from aesmc_tpu_torch.inference import DeviceTimeIndex, TimeIndex
 from aesmc_tpu_torch.models import bouncing_ball, hmm
 from aesmc_tpu_torch.noise import NoiseSource
 from aesmc_tpu_torch.state import BatchShapeMode
-from torch_replay import ReplayNoise, mlp_fields, tensor
+from torch_replay import IslandOnlyMesh, ReplayNoise, mlp_fields, tensor
 
 A_TR, S_TR, C_EM, S_EM = 0.9, 1.0, 1.2, 0.5
 CPU = torch.device("cpu")
@@ -334,8 +334,10 @@ def test_twist_validation_errors():
     with pytest.raises(ValueError, match="must be"):
         twisted.twisted_smc(obs, hspec, em,
                             twisted.TabularTwist(torch.zeros(6, 3)), 8)
-    with pytest.raises(NotImplementedError, match="slice E"):
-        twisted.twisted_smc(obs, spec, em, tw, 8, mesh=object())
+    with pytest.raises(ValueError, match="particle_axis"):
+        twisted.twisted_smc(obs, spec, em, tw, 8, mesh=IslandOnlyMesh())
+    with pytest.raises(ValueError, match="particle_axis"):
+        twisted.learn_twist(obs, spec, em, 8, mesh=IslandOnlyMesh())
     with pytest.raises(ValueError, match="keep"):
         twisted.learn_twist(obs, spec, em, 8, keep="first")
 

@@ -99,6 +99,9 @@ class ListNoise:
     def exponential(self, shape):
         return self._pop("exponential", shape)
 
+    def gumbel(self, shape):
+        return self._pop("gumbel", shape)
+
 
 def _noise(draws, seed):
     if draws is not None:
@@ -362,7 +365,8 @@ def mesh_info(dp, pp):
 
 
 def mesh_errors(dp, pp, obs, params):
-    """The messages (type name, text) of the calls a mesh refuses."""
+    """The messages (type name, text) of the calls a mesh refuses; None
+    for a call that runs."""
     m = mesh(dp, pp)
     comps = lgssm_components(params)
     obs_b = parallel.shard_batch(_tensor(obs), m)
@@ -371,6 +375,9 @@ def mesh_errors(dp, pp, obs, params):
         "ot": lambda: port.inference.infer(
             "smc", obs_b, *comps, 16, noise=noise, resampling_method="ot",
             return_latents=False, mesh=m),
+        "ot_rank": lambda: port.inference.infer(
+            "smc", obs_b, *comps, 16, noise=noise, resampling_method="ot",
+            ot_rank=2, return_latents=False, mesh=m),
         "residual": lambda: port.inference.infer(
             "smc", obs_b, *comps, 16, noise=noise,
             resampling_method="residual", mesh=m),
@@ -476,3 +483,438 @@ def hmm_case(dp, pp, obs, method, num_particles=32):
         return_latents=True, return_ancestral_indices=True, mesh=m)
     return {k: _numpy(v) for k, v in out.items()
             if v is not None and k != "last_latent"}
+
+
+# ---- slice E2: smoothing, streaming PaRIS, the RBPF, OT -----------------
+
+def _open_lanes_spy():
+    """Wraps `smoothing._open_lanes` to record, a call, this rank's own
+    open lanes and the mesh's count the loop reads; returns (records,
+    undo)."""
+    from aesmc_tpu_torch import smoothing
+    original = smoothing._open_lanes
+    records = []
+
+    def spying(accepted, cloud, sharded_children):
+        count = original(accepted, cloud, sharded_children)
+        records.append((int((~accepted).sum()), count))
+        return count
+
+    smoothing._open_lanes = spying
+
+    def undo():
+        smoothing._open_lanes = original
+    return records, undo
+
+
+def ffbs_case(dp, pp, latents, log_weights, obs, params, num_trajectories,
+              backward="pairwise", draws=None, seed=0, max_exact_lanes=None):
+    """`smoothing.backward_simulation(mesh=...)` on this rank's blocks of a
+    filter's `[T, B, K]` output: the trajectories `[T, B_l, M]` and, in
+    'rejection' mode, the (own, mesh) open-lane counts of each round."""
+    from aesmc_tpu_torch import smoothing
+    m = mesh(dp, pp)
+    dims = {1: "data", 2: "particle"}
+    records, undo = _open_lanes_spy()
+    try:
+        traj = smoothing.backward_simulation(
+            block(_tensor(latents), m, dims),
+            block(_tensor(log_weights), m, dims),
+            lgssm_components(params)[1], num_trajectories,
+            _noise(draws, seed),
+            observations=block(_tensor(obs), m, {1: "data"}),
+            backward=backward, max_exact_lanes=max_exact_lanes, mesh=m)
+    finally:
+        undo()
+    return {"traj": _numpy(traj), "lanes": records}
+
+
+def _paris_h(xp, xc, t):
+    return xp * xc
+
+
+def _paris_h0(x0):
+    return x0 * x0
+
+
+def paris_case(dp, pp, obs, params, num_particles, backward="pairwise",
+               draws=None, seed=0, max_exact_lanes=None,
+               exchange="allgather"):
+    """`smoothing.paris(mesh=...)` on this rank's rows (h = x_{t-1} x_t,
+    h0 = x_0^2, two backward draws)."""
+    from aesmc_tpu_torch import smoothing
+    m = mesh(dp, pp)
+    records, undo = _open_lanes_spy()
+    impl = parallel.make_distributed_fused_resampler(m, exchange=exchange)
+    try:
+        with torch.no_grad():
+            out = smoothing.paris(
+                block(_tensor(obs), m, {1: "data"}),
+                *lgssm_components(params), num_particles, h=_paris_h,
+                h0=_paris_h0, noise=_noise(draws, seed),
+                num_backward_draws=2, backward=backward,
+                max_exact_lanes=max_exact_lanes,
+                resampling_implementation=impl, mesh=m)
+    finally:
+        undo()
+    result = {k: _numpy(v) for k, v in out.items()}
+    result["lanes"] = records
+    return result
+
+
+def online_e2_case(dp, pp, obs, params, num_particles, seed=0,
+                   backward="pairwise", method="systematic", draws=None):
+    """The streaming filter with ``mesh``, streaming PaRIS and genealogy:
+    each step's smoothed estimate, relative variance and ancestors, and
+    the final tau (one source for the whole stream: ``draws`` or
+    seeded)."""
+    m = mesh(dp, pp)
+    init_fn, step_fn = port.online.make_online_filter(
+        *lgssm_components(params), num_particles, resampling_method=method,
+        return_ancestors=True, track_genealogy=True, paris_h=_paris_h,
+        paris_h0=_paris_h0, paris_backward=backward, mesh=m)
+    obs_b = block(_tensor(obs), m, {1: "data"})
+    noise = _noise(draws, seed)
+    with torch.no_grad():
+        fs = init_fn(obs_b[0], noise)
+        infos = []
+        for t in range(1, obs_b.shape[0]):
+            fs, info = step_fn(fs, obs_b[t], noise)
+            infos.append({k: _numpy(v) for k, v in info.items()
+                          if isinstance(v, torch.Tensor)})
+    return {"infos": infos, "tau": _numpy(fs.tau), "eve": _numpy(fs.eve)}
+
+
+def switching_rbpf_components():
+    """The 2-regime switching LGSSM of the RBPF tests (D = 2, Do = 1)."""
+    from aesmc_tpu_torch import distributions
+    from aesmc_tpu_torch import math as amath
+
+    def f(x):
+        return torch.tensor(np.asarray(x, np.float32))
+
+    pi0, pmat = np.log([0.6, 0.4]), np.log([[0.85, 0.15], [0.3, 0.7]])
+    a_by_regime = np.array([0.95, 0.2])
+    a = np.array([[1.0, 0.1], [0.0, 1.0]])
+    return dict(
+        initial=lambda: distributions.Categorical(logits=f(pi0)),
+        transition=lambda previous_latents, time: distributions.Categorical(
+            logits=amath.table_lookup(f(pmat), previous_latents[0])),
+        linear_initial=lambda u0: (f(np.zeros(2)), f(np.eye(2))),
+        linear_dynamics=lambda u, time: (
+            amath.table_lookup(f(a_by_regime), u)[..., None, None] * f(a),
+            f(np.zeros(2)), f(0.5 * np.eye(2))),
+        linear_emission=lambda u, time: (f([[1.0, 0.5]]), f(np.zeros(1)),
+                                         f([[0.09]])))
+
+
+def rbpf_case(dp, pp, obs, num_particles, method="systematic", draws=None,
+              seed=0, via_callable=False, ess_threshold=0.5):
+    """`rbpf.rbpf` on this rank's rows: with ``mesh`` (the default fused
+    exchange), or with only a distributed index resampler
+    (``via_callable``)."""
+    from aesmc_tpu_torch import rbpf
+    m = mesh(dp, pp)
+    kwargs = (dict(resampling_implementation=parallel.
+                   make_distributed_resampler(m, method=method))
+              if via_callable else dict(mesh=m))
+    out = rbpf.rbpf(block(_tensor(obs), m, {1: "data"}),
+                    num_particles=num_particles, noise=_noise(draws, seed),
+                    resampling_method=method, ess_threshold=ess_threshold,
+                    return_history=True, **switching_rbpf_components(),
+                    **kwargs)
+    return {k: _numpy(v) for k, v in out.items()}
+
+
+def ot_case(dp, pp, log_weight, value, epsilon, num_iterations, grad=False):
+    """`make_distributed_ot_resampler` on this rank's blocks; with
+    ``grad`` also the gradients of sum(x^2) + sum(y) of the transported
+    value with respect to this rank's log-weights and x."""
+    m = mesh(dp, pp)
+    dims = {0: "data", 1: "particle"}
+    lw = block(_tensor(log_weight), m, dims).clone().requires_grad_(grad)
+    val = {k: block(_tensor(v), m, dims).clone() for k, v in value.items()}
+    val["x"].requires_grad_(grad)
+    resampler = parallel.make_distributed_ot_resampler(
+        m, epsilon=epsilon, num_iterations=num_iterations)
+    out, new_lw = resampler(lw, val)
+    result = {"value": _numpy(out), "new_log_weight": _numpy(new_lw)}
+    if grad:
+        loss = (out["x"] ** 2).sum() + out["y"].sum()
+        loss.backward()
+        result["grad_lw"] = lw.grad.numpy()
+        result["grad_x"] = val["x"].grad.numpy()
+    return result
+
+
+def ot_engine_case(dp, pp, obs, params, num_particles, num_iterations,
+                   draws=None, seed=0, explicit=False, online=False):
+    """'ot' with ``mesh``: `infer`'s log-Z through the default ring or the
+    explicit OT resampler; with ``online`` the streaming filter's
+    log-predictives."""
+    m = mesh(dp, pp)
+    impl = (parallel.make_distributed_ot_resampler(
+        m, num_iterations=num_iterations) if explicit else "auto")
+    obs_b = block(_tensor(obs), m, {1: "data"})
+    comps = lgssm_components(params)
+    if online:
+        init_fn, step_fn = port.online.make_online_filter(
+            *comps, num_particles, resampling_method="ot",
+            ot_num_iterations=num_iterations, resampling_implementation=impl,
+            mesh=m)
+        noise = _noise(draws, seed)
+        fs = init_fn(obs_b[0], noise)
+        preds = []
+        for t in range(1, obs_b.shape[0]):
+            fs, info = step_fn(fs, obs_b[t], noise)
+            preds.append(_numpy(info["log_pred"]))
+        return {"log_pred": np.stack(preds)}
+    out = port.inference.infer(
+        "smc", obs_b, *comps, num_particles, noise=_noise(draws, seed),
+        resampling_method="ot", ot_num_iterations=num_iterations,
+        resampling_implementation=impl, return_log_marginal_likelihood=True,
+        return_latents=False, return_log_weight=False, mesh=m)
+    return {"log_marginal_likelihood": _numpy(out["log_marginal_likelihood"])}
+
+
+def ring_forms_case(dp, pp):
+    """`collectives._shift`'s two forms on the particle group: the direct
+    P2P and the host-staged one (gloo's form for device tensors), on a
+    float32 and an int32 tensor, forward and back; and which form the
+    dispatch takes for these host tensors."""
+    m = mesh(dp, pp)
+    group = m.get_group("particle")
+    rank = dist.get_rank()
+    tensors = [torch.arange(6.0).reshape(2, 3) * (rank + 1) + 0.1,
+               torch.arange(4, dtype=torch.int32) + 10 * rank]
+    out = {}
+    for step in (1, -1):
+        direct = collectives._shift_direct(tensors, group, step)
+        staged = collectives._shift_staged(tensors, group, step)
+        out[step] = ([t.numpy() for t in direct], [t.numpy() for t in staged])
+    calls = []
+    original = collectives._shift_staged
+    collectives._shift_staged = lambda *a: calls.append(1) or original(*a)
+    try:
+        collectives._shift(tensors, group, 1)
+    finally:
+        collectives._shift_staged = original
+    out["staged_for_host_tensors"] = bool(calls)
+    out["mine"] = [t.numpy() for t in tensors]
+    return out
+
+
+# ---- slice E2: SMC^2, twisted SMC, resample-move, the block PF, the
+# samplers and IF2 ----------------------------------------------------------
+
+def smc2_problem(true_mult=0.8, emission_scale=0.5):
+    """SMC^2's LGSSM of the SMC^2 tests: (build, log_prior)."""
+    from aesmc_tpu_torch.models import lgssm
+    sig = float(np.sqrt(1.0 / (1.0 + 1.0 / emission_scale ** 2)))
+    emission = lgssm.Emission(1.0, emission_scale)
+    proposal = lgssm.Proposal(0.8, 0.0, [0.2 * true_mult, 0.8], 0.0, sig,
+                              sig)
+    initial = lgssm.Initial(0.0, 1.0)
+
+    def build(theta):
+        return (initial, lgssm.Transition(mult=theta["mult"], scale=1.0),
+                emission, proposal)
+
+    def log_prior(theta):
+        return -0.5 * theta["mult"] ** 2
+
+    return build, log_prior
+
+
+def smc2_case(dp, pp, obs, theta0, num_particles, ess_threshold=0.8,
+              num_moves=2, draws=None, seed=0):
+    """`smc2(mesh=...)` on a (theta, particle) mesh: this rank's thetas
+    and the global outputs."""
+    from aesmc_tpu_torch import smc2
+    m = mesh(dp, pp)
+    build, log_prior = smc2_problem()
+    out = smc2.smc2(_tensor(obs), build, _tensor(theta0), log_prior,
+                    num_particles, noise=_noise(draws, seed),
+                    ess_threshold=ess_threshold, num_moves=num_moves,
+                    return_history=True, mesh=m)
+    return {k: _numpy(v) for k, v in out.items()}
+
+
+def twisted_case(dp, pp, obs, num_particles, twist, method="systematic",
+                 draws=None, seed=0, discrete=None):
+    """`twisted_smc(mesh=...)` on this rank's rows; ``twist`` holds the
+    GLOBAL `[T, B, ...]` tables (cut by the port to this rank's rows).
+    ``discrete`` (num_states) selects the twisted HMM."""
+    from aesmc_tpu_torch import distributions, twisted
+    from aesmc_tpu_torch.models import hmm
+    from aesmc_tpu_torch.state import BatchShapeMode
+    m = mesh(dp, pp)
+    if discrete is None:
+        spec = twisted.GaussianSSMSpec(
+            initial_loc=0.0, initial_scale=1.0, transition_scale=1.0,
+            mean_fn=lambda x, t: 0.9 * x)
+
+        def emission(latents=None, time=None, previous_observations=None):
+            return distributions.Normal(
+                1.2 * latents[-1], 0.5,
+                batch_shape_mode=BatchShapeMode.FULLY_EXPANDED)
+
+        tw = twisted.QuadraticTwist(**_tensor(twist))
+    else:
+        comps = hmm.make_model(num_states=discrete, emission_scale=0.6,
+                               stay_prob=0.85, device="cpu")
+        spec = twisted.DiscreteSSMSpec(comps[0].logits, comps[1].logits)
+        emission = comps[2]
+        tw = twisted.TabularTwist(**_tensor(twist))
+    out = twisted.twisted_smc(
+        block(_tensor(obs), m, {1: "data"}), spec, emission, tw,
+        num_particles, noise=_noise(draws, seed), mesh=m,
+        resampling_method=method, return_latents=True,
+        return_ancestral_indices=True)
+    return {k: _numpy(v) for k, v in out.items()
+            if v is not None and k != "last_latent"}
+
+
+def sv_twist_problem(phi=0.9, sigma=0.8, beta=0.7):
+    """`learn_twist`'s stochastic-volatility problem of
+    `tests/test_torch_twisted.py`: (spec, emission)."""
+    import math
+    from aesmc_tpu_torch import distributions, twisted
+    from aesmc_tpu_torch.state import BatchShapeMode
+
+    def emission(latents=None, time=None, previous_observations=None):
+        return distributions.Normal(
+            torch.zeros_like(latents[-1]), beta * torch.exp(latents[-1] / 2),
+            batch_shape_mode=BatchShapeMode.FULLY_EXPANDED)
+
+    spec = twisted.GaussianSSMSpec(
+        initial_loc=0.0, initial_scale=sigma / math.sqrt(1 - phi ** 2),
+        transition_scale=sigma, mean_fn=lambda x, t: phi * x)
+    return spec, emission
+
+
+def learn_twist_case(dp, pp, obs, num_particles, seed=0, draws=None,
+                     **options):
+    """`learn_twist(mesh=...)` on this rank's rows (the global twist and
+    info come back on every rank)."""
+    from aesmc_tpu_torch import twisted
+    m = mesh(dp, pp)
+    tw, info = twisted.learn_twist(
+        block(_tensor(obs), m, {1: "data"}), *sv_twist_problem(),
+        num_particles, noise=_noise(draws, seed), mesh=m, **options)
+    return {"A": _numpy(tw.A), "b": _numpy(tw.b), "c": _numpy(tw.c),
+            **{k: _numpy(v) for k, v in info.items()}}
+
+
+def resample_move_case(dp, pp, obs, params, num_particles, seed=0,
+                       exchange="allgather", target_acceptance=None,
+                       draws=None):
+    """`resample_move_filter` with a distributed fused resampler (the
+    module runs on its mesh), seeded or on ``draws``."""
+    from aesmc_tpu_torch import resample_move
+    m = mesh(dp, pp)
+    impl = parallel.make_distributed_fused_resampler(m, exchange=exchange)
+    out = resample_move.resample_move_filter(
+        block(_tensor(obs), m, {1: "data"}), *lgssm_components(params),
+        num_particles, noise=_noise(draws, seed),
+        target_acceptance=target_acceptance,
+        resampling_implementation=impl)
+    return {k: _numpy(v) for k, v in out.items()}
+
+
+def lorenz_components(params):
+    from aesmc_tpu_torch.models import lorenz
+    return lorenz.from_numpy(params, proposal="bootstrap", device="cpu")
+
+
+def block_pf_case(dp, pp, obs, params, num_particles, block_size,
+                  obs_indices, method="systematic", seed=0, fused=False,
+                  draws=None):
+    """`block_pf` with a distributed resampler (index-only, or the fused
+    all-gather one's indices), on this rank's rows, seeded or on
+    ``draws``."""
+    from aesmc_tpu_torch import blockpf
+    m = mesh(dp, pp)
+    impl = (parallel.make_distributed_fused_resampler(m, method=method)
+            if fused else
+            parallel.make_distributed_resampler(m, method=method))
+    comps = lorenz_components(params)
+    dim = int(comps[0]().event_shape[-1])
+    out = blockpf.block_pf(
+        block(_tensor(obs), m, {1: "data"}), *comps[:3], num_particles,
+        blockpf.contiguous_blocks(dim, block_size),
+        noise=_noise(draws, seed), obs_indices=obs_indices,
+        resampling_method=method, resampling_implementation=impl,
+        return_log_marginal_likelihood=True, return_log_weights=True,
+        return_ancestral_indices=True)
+    return {k: _numpy(v) for k, v in out.items()
+            if v is not None and k != "last_latent"}
+
+
+def sampler_problem(y, prior_scale, scale):
+    """Prior N(0, s0^2 I), likelihood N(y; x, s^2 I) (one particle)."""
+    import math
+    y = torch.tensor(np.asarray(y, np.float32))
+    d = y.shape[0]
+    c0 = d * math.log(prior_scale * math.sqrt(2 * math.pi))
+    c = d * math.log(scale * math.sqrt(2 * math.pi))
+
+    def log_prior(x):
+        return -0.5 * torch.sum((x / prior_scale) ** 2) - c0
+
+    def log_lik(x):
+        return -0.5 * torch.sum(((x - y) / scale) ** 2) - c
+
+    return log_prior, log_lik
+
+
+def sampler_case(dp, pp, x0, y, prior_scale, scale, seed=0,
+                 waste_free_chains=None, num_moves=2, step_size=0.4,
+                 draws=None):
+    """`smc_sampler` with a distributed resampler: this rank's block of
+    the `[K, D]` cloud in and out (or the message of the ValueError)."""
+    from aesmc_tpu_torch import samplers
+    m = mesh(dp, pp)
+    x_b = block(_tensor(x0), m, {0: "particle"})
+    try:
+        out = samplers.smc_sampler(
+            *sampler_problem(y, prior_scale, scale), x_b,
+            noise=_noise(draws, seed), num_moves=num_moves,
+            step_size=step_size, waste_free_chains=waste_free_chains,
+            resampling_implementation=parallel.make_distributed_resampler(m))
+    except ValueError as e:
+        return {"error": str(e)}
+    return {k: _numpy(v) for k, v in out.items()}
+
+
+def if2_build():
+    from aesmc_tpu_torch.models import lgssm
+    initial = lgssm.Initial(0.0, 1.0)
+    emission = lgssm.Emission(1.0, 0.5)
+
+    def build(theta):
+        transition = lgssm.Transition(mult=theta["mult"], scale=1.0)
+
+        def proposal(previous_latents=None, time=None, observations=None):
+            if time == 0:
+                return initial()
+            return transition(previous_latents=previous_latents, time=time)
+
+        return initial, transition, emission, proposal
+
+    return build
+
+
+def if2_case(dp, pp, obs, theta0, num_particles, num_iterations, seed=0,
+             cooling=0.9, draws=None):
+    """`if2` with the fused distributed resampler; ``theta0`` global
+    (`[B]` leaves are cut to this rank's rows), seeded or on ``draws``."""
+    from aesmc_tpu_torch import if2
+    m = mesh(dp, pp)
+    out = if2.if2(block(_tensor(obs), m, {1: "data"}), if2_build(),
+                  _tensor(theta0), {"mult": 0.1},
+                  num_particles=num_particles,
+                  num_iterations=num_iterations, cooling=cooling,
+                  noise=_noise(draws, seed), resampling_implementation=(
+                      parallel.make_distributed_fused_resampler(m)))
+    return {k: _numpy(v) for k, v in out.items()}

@@ -206,3 +206,29 @@ def normal_draw(key, sample_shape, batch_shape=(), batch_expanded=False):
     eps = np.asarray(jax.random.normal(key, tuple(sample_shape) +
                                        tuple(batch_shape)))
     return np.swapaxes(eps, 0, 1) if batch_expanded else eps
+
+
+class IslandOnlyMesh:
+    """Enough of a `DeviceMesh` to be refused: its one axis is 'island',
+    so a module asked to shard a particle axis over it raises."""
+
+    mesh_dim_names = ("island",)
+
+    def get_group(self, name):
+        return None
+
+
+class PlainSystematic:
+    """A plain (one-device) callable ``resampling_implementation``: the
+    port's systematic indices on the 'torch' route, counting its calls.
+    A module that passes it through must give the bits of its default
+    CPU route."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, log_weight, noise):
+        from aesmc_tpu_torch import resampling
+        self.calls += 1
+        return resampling.sample_indices(log_weight, noise, "systematic",
+                                         "torch")
