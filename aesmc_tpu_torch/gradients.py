@@ -18,7 +18,9 @@ iid categorical draws with a tractable density; systematic and
 stratified ancestors share their uniforms and have none. Everything is
 computed from the engine's outputs (per-step log-weights and ancestor
 indices), with no special engine mode; on the 'cuda' route the
-multinomial resampling of `infer` is K3 forward and K2 backward.
+multinomial resampling of `infer` is K3 forward and K2 backward. On a
+mesh (`score_surrogate_from_result(cloud=)`) the reductions over the
+particles and the batch cross the mesh's groups.
 """
 
 from __future__ import annotations
@@ -28,13 +30,16 @@ import math as _stdmath
 import torch
 
 from . import inference
+from .sharding_utils import (batch_mean, cloud_of, particle_gather,
+                             particle_logsumexp, particle_sum)
 
 __all__ = ["score_gradient_loss", "score_surrogate_from_result"]
 
 BASELINES = ("batch", "none")
 
 
-def score_surrogate_from_result(result: dict, baseline: str = "batch"):
+def score_surrogate_from_result(result: dict, baseline: str = "batch",
+                                cloud=None):
     """The surrogate loss from an `infer` result dict.
 
     Args:
@@ -43,11 +48,19 @@ def score_surrogate_from_result(result: dict, baseline: str = "batch"):
             return_log_weights=True, return_ancestral_indices=True)`.
         baseline: 'batch' (leave-one-out mean of the future contribution
             sums across the batch; 'none' at batch size 1) or 'none'.
+        cloud: this rank's `sharding_utils.Cloud` when ``result`` came
+            from `infer(mesh=...)` (this rank's blocks `[T, B_l, K_l]`,
+            global ancestors), or None. The logsumexps and the sum over
+            particles then cross the particle group, the score gathers
+            `lognorm[:-1]` over it (O(T B_l K) a rank, differentiable),
+            the 'batch' baseline totals the global batch (one data-group
+            all-reduce) and the mean crosses the data group.
 
     Returns:
         scalar tensor whose value is ``-mean(log Z)`` (the score term is
         cancelled in value, exactly, by a detached copy) and whose
-        gradient is the unbiased score-function estimator.
+        gradient is the unbiased score-function estimator; on a mesh the
+        global batch's, the same on every rank.
     """
     if baseline not in BASELINES:
         raise ValueError(
@@ -59,14 +72,17 @@ def score_surrogate_from_result(result: dict, baseline: str = "batch"):
             "score surrogate needs return_log_weights=True and "
             "return_ancestral_indices=True on the infer call")
     num_timesteps, batch_size, num_particles = log_weights.shape
+    if cloud is not None:
+        num_particles *= cloud.n_particle
+        batch_size *= cloud.n_data
 
     # Per-step log-Z contributions: the logmeanexp of each step's
     # increments (the engine's own decomposition under always-resampling).
-    log_sum = torch.logsumexp(log_weights, dim=2, keepdim=True)
+    log_sum = particle_logsumexp(log_weights, cloud, dim=2).unsqueeze(2)
     contributions = log_sum[..., 0] - _stdmath.log(num_particles)  # [T, B]
     log_z = contributions.sum(dim=0)                              # [B]
     if num_timesteps == 1:
-        return -log_z.mean()
+        return -batch_mean(log_z, cloud)
 
     # G_t: future contribution sums. Ancestors anc[i] are drawn at step
     # i + 1 from the weights of step i, so they sum contributions from
@@ -77,13 +93,16 @@ def score_surrogate_from_result(result: dict, baseline: str = "batch"):
     # Score: sum_k log wbar_{t-1}[a_t^k], differentiable through the
     # gathered normalized log-weights.
     lognorm = log_weights - log_sum                               # [T, B, K]
-    gathered = torch.take_along_dim(lognorm[:-1], anc.long(), dim=2)
-    score_steps = gathered.sum(dim=2)                             # [T-1, B]
+    gathered = torch.take_along_dim(
+        particle_gather(lognorm[:-1], cloud, dim=2), anc.long(), dim=2)
+    score_steps = particle_sum(gathered, cloud, dim=2)            # [T-1, B]
 
     if baseline == "batch" and batch_size > 1:
         # Leave-one-out mean over the other batch rows: independent of
         # this row's ancestor draws, hence exactly unbiased.
-        total = future.sum(dim=1, keepdim=True)
+        total = future.detach().sum(dim=1, keepdim=True)
+        if cloud is not None:
+            total = cloud.batch_sum(total)
         b = (total - future) / (batch_size - 1)
     else:
         b = torch.zeros_like(future)
@@ -94,7 +113,7 @@ def score_surrogate_from_result(result: dict, baseline: str = "batch"):
     # (log_z + score_term) - score_term would round at the magnitude of
     # the score term (thousands of nats at T = 200).
     surrogate = log_z + (score_term - score_term.detach())
-    return -surrogate.mean()
+    return -batch_mean(surrogate, cloud)
 
 
 def _check_options(resampling_method, resampling_criterion, lookahead):
@@ -130,15 +149,21 @@ def score_gradient_loss(observations, num_particles: int, initial,
     ``infer_kwargs`` go to `inference.infer`: ``resampling_method``
     defaults to (and must stay) 'multinomial', ``resampling_criterion``
     must stay 'always', and ``lookahead`` is refused (the auxiliary
-    filter's ancestor distribution needs another score).
+    filter's ancestor distribution needs another score). With ``mesh``
+    (and its axis names) the surrogate is the global batch's
+    (`score_surrogate_from_result`'s ``cloud``).
     """
     method = infer_kwargs.pop("resampling_method", "multinomial")
     criterion = infer_kwargs.pop("resampling_criterion", "always")
     _check_options(method, criterion, infer_kwargs.get("lookahead"))
+    cloud = cloud_of(infer_kwargs.get("mesh"), None,
+                     infer_kwargs.get("data_axis", "data"),
+                     infer_kwargs.get("particle_axis", "particle"))
     result = inference.infer(
         "smc", observations, initial, transition, emission, proposal,
         num_particles, noise=noise, resampling_method="multinomial",
         return_log_marginal_likelihood=False, return_latents=False,
         return_log_weight=False, return_log_weights=True,
         return_ancestral_indices=True, **infer_kwargs)
-    return score_surrogate_from_result(result, baseline=baseline)
+    return score_surrogate_from_result(result, baseline=baseline,
+                                       cloud=cloud)

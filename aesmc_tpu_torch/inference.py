@@ -315,8 +315,12 @@ def infer(inference_algorithm: str,
             the whole cloud's K; the outputs are this rank's blocks
             (log-Z `[B_l]`, the same on every particle rank; ancestors
             as global indices). 'ot' runs the ring-streamed Sinkhorn
-            (`ot.distributed_ot_resample`; ``ot_block_size`` unused). Not
-            with 'residual' or ``ot_rank``.
+            (`ot.distributed_ot_resample`; ``ot_block_size`` unused), or
+            with ``ot_rank`` the low-rank transport with its sums over K
+            all-reduced (`ot.lowrank_ot_resample(group=)`); 'residual'
+            the residual exchange (`parallel.dist_resampling.
+            distributed_residual_resample`: exact int32 counts between
+            ranks, kernels K4, K3, K2 and K5).
 
     Returns:
         dict with keys log_marginal_likelihood `[batch]`, latents
@@ -465,17 +469,20 @@ def _resolve_implementation(device, resampling_method,
     """`resampling.resolve_implementation`, with 'ot' (no kernel: torch ops
     on every device) checked as a route name only. On a mesh (``cloud``)
     a callable must be given or is made: the all-gather exchange of the
-    same method ('ot': the ring-streamed Sinkhorn, chosen in
+    same method, the residual exchange for 'residual' ('ot': the
+    ring-streamed Sinkhorn or the low-rank transport, chosen in
     `_resample_step`)."""
     _check_ot_callable(resampling_method, resampling_implementation)
     if cloud is not None:
-        _check_mesh_method(resampling_method)
         if callable(resampling_implementation):
             return resampling_implementation
         resampling._route(device, resampling_implementation)
         if resampling_method == "ot":
             return "torch"
         from .parallel import dist_resampling
+        if resampling_method == "residual":
+            return dist_resampling._make_residual_resampler(
+                cloud.mesh, cloud.data_axis, cloud.particle_axis)
         return dist_resampling.make_distributed_fused_resampler(
             cloud.mesh, cloud.data_axis, cloud.particle_axis,
             method=resampling_method, soft_alpha=soft_resampling_alpha)
@@ -501,18 +508,6 @@ def _check_ot_callable(method, implementation):
             "got a distributed OT resampler (.ot callable) but "
             f"resampling_method={method!r}; pass resampling_method='ot' "
             "with it")
-
-
-def _check_mesh_method(method, ot_rank=None):
-    if method == "ot" and ot_rank is not None:
-        raise ValueError(
-            "the low-rank OT resampler (ot_rank) has no distributed form; "
-            "use ot_rank=None (the ring-streamed Sinkhorn) with mesh=")
-    if method == "residual":
-        raise ValueError(
-            "residual resampling has no distributed form (its query set is "
-            "not a monotone position grid); use systematic, stratified, "
-            "multinomial or soft with mesh=")
 
 
 def _sum_in_order(values):
@@ -568,14 +563,15 @@ def _resample_step(prev_log_weight, values, noise, time, prev_latents,
             # A distributed OT resampler binds its own epsilon and
             # iterations (`parallel.make_distributed_ot_resampler`).
             out, _ = implementation(prev_log_weight, values)
+        elif rank is not None:
+            out, _ = _ot.lowrank_ot_resample(
+                prev_log_weight, values, rank=rank,
+                num_iterations=num_iterations, noise=noise,
+                group=None if cloud is None else cloud.particle_group)
         elif cloud is not None:
             out, _ = _ot.distributed_ot_resample(
                 prev_log_weight, values, cloud.particle_group,
                 epsilon=epsilon, num_iterations=num_iterations)
-        elif rank is not None:
-            out, _ = _ot.lowrank_ot_resample(
-                prev_log_weight, values, rank=rank,
-                num_iterations=num_iterations, noise=noise)
         else:
             out, _ = _ot.ot_resample(
                 prev_log_weight, values, epsilon=epsilon,
@@ -705,7 +701,6 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
     if mesh is not None:
         from .sharding_utils import Cloud
         cloud = Cloud(mesh, data_axis, particle_axis)
-        _check_mesh_method(resampling_method, ot_rank)
     implementation = (_resolve_implementation(
         first.device, resampling_method, resampling_implementation, cloud,
         soft_resampling_alpha) if is_smc or cloud is None else None)

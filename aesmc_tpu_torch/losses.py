@@ -21,10 +21,15 @@ draws, which makes the gradient of E[log Z] unbiased (`gradients`); the
 loss value stays the same.
 
 With ``mesh`` (several ranks, `parallel`) every rank runs the objective
-on its block (`inference.infer(mesh=...)`): the batch mean crosses the
-data group, so every rank returns the same loss. The average over the
-mesh's ranks of the gradients their backward passes give is the
-single-device gradient (`parallel.make_sharded_train_step` takes it).
+on its block: 'iwae' and 'aesmc' through `inference.infer(mesh=...)`,
+'tmc' through `tmc.tmc_log_marginal_likelihood(cloud=...)` (the parents
+and their f all-gathered over the particle group a step), the score
+estimator through `gradients.score_surrogate_from_result(cloud=...)`
+(the score's log-weights gathered over the particle group, the baseline
+over the global batch). The batch mean crosses the data group, so every
+rank returns the same loss. The average over the mesh's ranks of the
+gradients their backward passes give is the single-device gradient
+(`parallel.make_sharded_train_step` takes it).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from . import gradients, inference, statistics, tmc
+from .sharding_utils import batch_mean
 
 ALGORITHMS = ("iwae", "aesmc", "tmc")
 
@@ -94,19 +100,18 @@ def _objective(observations, num_particles, algorithm, initial, transition,
     """(loss, metrics or None, NaN flag): the flag is a device bool left
     unread (None when nothing was checked): `inference._infer`'s, or for
     'tmc' whether the loss is NaN."""
-    if mesh is not None and (algorithm == "tmc" or
-                             gradient_estimator != "pathwise"):
-        raise NotImplementedError(
-            "mesh= covers the 'iwae' and 'aesmc' objectives with the "
-            "pathwise estimator")
+    cloud = None
+    if mesh is not None:
+        from .sharding_utils import Cloud
+        cloud = Cloud(mesh, data_axis, particle_axis)
     if algorithm == "tmc":
         # Tensor Monte Carlo: no resampling, so the resampling_* options
         # and the estimator do not apply; always rematerialized (the
         # backward would otherwise keep T [B, K, K] tiles).
-        elbo = tmc.tmc_log_marginal_likelihood(
+        elbo = batch_mean(tmc.tmc_log_marginal_likelihood(
             observations, initial, transition, emission, proposal,
             num_particles, noise=noise, remat=True, pairwise=pairwise,
-            block_size=block_size).mean()
+            block_size=block_size, cloud=cloud), cloud)
         metrics = None
         if with_metrics:
             # No particle weights: the ESS is NaN (a fill on the device).
@@ -133,11 +138,7 @@ def _objective(observations, num_particles, algorithm, initial, transition,
         return_log_weights=score, return_ancestral_indices=score,
         mesh=mesh, data_axis=data_axis, particle_axis=particle_axis)
     log_z = result["log_marginal_likelihood"]
-    cloud = None
-    if mesh is not None:
-        from .sharding_utils import Cloud
-        cloud = Cloud(mesh, data_axis, particle_axis)
-    elbo = _batch_mean(log_z, cloud)
+    elbo = batch_mean(log_z, cloud)
     metrics = None
     if with_metrics:
         if cloud is None:
@@ -146,21 +147,11 @@ def _objective(observations, num_particles, algorithm, initial, transition,
             lw = result["log_weight"]
             ess = torch.exp(2 * cloud.logsumexp(lw) - cloud.logsumexp(2 * lw))
         metrics = {"elbo": elbo.detach(),
-                   "ess": _batch_mean(ess, cloud).detach()}
+                   "ess": batch_mean(ess, cloud).detach()}
     if score:
-        return (gradients.score_surrogate_from_result(result, score_baseline),
-                metrics, has_nan)
+        return (gradients.score_surrogate_from_result(
+            result, score_baseline, cloud=cloud), metrics, has_nan)
     return -elbo, metrics, has_nan
-
-
-def _batch_mean(values, cloud):
-    """The mean of `[B]` ``values`` over the batch, across the data group
-    on a mesh (every rank gets the same scalar)."""
-    if cloud is None or cloud.data_group is None:
-        return values.mean()
-    # The mean of the ranks' means (equal blocks): over one data rank,
-    # the single-device mean's bits.
-    return cloud.batch_sum(values.mean()) / cloud.n_data
 
 
 def get_loss(observations, num_particles: int, algorithm: str, initial,
@@ -214,8 +205,8 @@ def get_loss(observations, num_particles: int, algorithm: str, initial,
             NaN log-weight ('aesmc'), or the 'tmc' loss is NaN (one read
             of the device).
         mesh, data_axis, particle_axis: run on this rank's block of a
-            `DeviceMesh` (module docstring; 'iwae' and 'aesmc' with the
-            pathwise estimator): ``observations`` are this rank's rows,
+            `DeviceMesh` (module docstring; every algorithm and
+            estimator): ``observations`` are this rank's rows,
             ``num_particles`` the whole cloud's, and the loss is the
             global batch mean, the same on every rank.
 

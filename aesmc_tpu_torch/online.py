@@ -67,7 +67,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from . import resampling, smoothing, state, variance
-from .inference import (DeviceTimeIndex, _check_mesh_method,
+from .inference import (DeviceTimeIndex,
                         _particle_logsumexp, _resample_step,
                         _resolve_implementation)
 from .sharding_utils import particle_softmax
@@ -167,11 +167,8 @@ class _CausalObservations:
 def _check_options(resampling_method, resampling_implementation,
                    resampling_criterion, lookahead, return_ancestors,
                    track_genealogy, fixed_lag, paris_h, paris_h0,
-                   paris_num_draws, paris_backward, paris_pairwise, mesh,
-                   data_axis, particle_axis, ot_rank=None):
-    """The JAX package's ValueErrors, and those of a mesh."""
-    if mesh is not None:
-        _check_mesh_method(resampling_method, ot_rank)
+                   paris_num_draws, paris_backward, paris_pairwise):
+    """The JAX package's ValueErrors."""
     if resampling_method == "soft" and resampling_criterion != "always":
         raise ValueError(
             "soft resampling does not combine with ESS-adaptive "
@@ -282,8 +279,10 @@ def make_online_filter(initial,
             its batch and particle axes: this rank serves its block
             (module docstring). ``num_particles`` is the whole cloud's K;
             observations and the carry are this rank's blocks (ancestors
-            and genealogy labels as global indices). Not with 'residual'
-            or ``ot_rank``.
+            and genealogy labels as global indices). Every method runs as
+            in `inference.infer(mesh=...)`: 'residual' through the
+            residual exchange, 'ot' with ``ot_rank`` through the low-rank
+            transport on the particle group.
 
     Returns:
         ``init_fn(observation, noise) -> OnlineFilterState`` consumes y_0
@@ -298,8 +297,7 @@ def make_online_filter(initial,
     _check_options(resampling_method, resampling_implementation,
                    resampling_criterion, lookahead, return_ancestors,
                    track_genealogy, fixed_lag, paris_h, paris_h0,
-                   paris_num_draws, paris_backward, paris_pairwise, mesh,
-                   data_axis, particle_axis, ot_rank)
+                   paris_num_draws, paris_backward, paris_pairwise)
     adaptive = resampling_criterion != "always"
     ess_threshold = (float(resampling_criterion) * num_particles
                      if adaptive else None)

@@ -32,7 +32,9 @@ ICML 2021): a rank-r plan from mirror descent with Bregman projections,
 O(K r D) an iteration. Its symmetry-breaking jitter is two standard-normal
 draws of `[B, K, r]` from the `NoiseSource`, in this order: the source
 anchors' (Q), then the target anchors' (R); the JAX package draws them
-from `split(key)`.
+from `split(key)`. With ``group=`` (a particle axis sharded over ranks)
+each rank holds its rows of Q and R and every sum over K is all-reduced:
+O(B r (D + 2)) floats a rank an iteration, no O(K) exchange.
 
 `distributed_ot_resample` is the Sinkhorn over a particle axis sharded
 across ranks: the blocked form's source blocks are the other ranks'
@@ -99,12 +101,20 @@ def _maybe_checkpoint(fn, *args, recompute=False):
     return fn(*args)
 
 
-def _log_marginals(log_weight):
+def _log_marginals(log_weight, group=None):
     """(log a, log b): the normalized source weights and the uniform
-    target weights, `[B, K]` each."""
-    log_a = torch.log_softmax(log_weight, dim=-1)
-    log_b = torch.full_like(log_a, -_stdmath.log(log_a.shape[-1]))
-    return log_a, log_b
+    target weights, `[B, K]` each; this rank's `[B, K_l]` blocks of the
+    whole cloud's over the particle group ``group``."""
+    if group is None:
+        log_a = torch.log_softmax(log_weight, dim=-1)
+        log_b = torch.full_like(log_a, -_stdmath.log(log_a.shape[-1]))
+        return log_a, log_b
+    from . import math as amath
+    from .parallel import collectives
+    k_global = log_weight.shape[1] * collectives.size(group)
+    log_a = log_weight - amath.distributed_logsumexp(
+        log_weight, group, dim=1)[:, None]
+    return log_a, torch.full_like(log_a, -_stdmath.log(k_global))
 
 
 def _sinkhorn_iteration(f, g, cost, log_a, log_b, epsilon):
@@ -191,14 +201,22 @@ def _blocked_transport(f, g, x, sq, inv_scale, epsilon, block_size,
     return k * acc
 
 
-def _inverse_mean_cost(x, sq, scale_cost):
+def _inverse_mean_cost(x, sq, scale_cost, group=None):
     """1 / the per-row mean of the squared-Euclidean cost, `[B, 1, 1]`, in
     O(K D): mean_ij C_ij = 2 mean(sq) - 2 ||mean x||^2 (ones without
-    ``scale_cost``)."""
+    ``scale_cost``). With ``group``, the means of the whole cloud from
+    all-reduced sums over the particle group."""
     if not scale_cost:
         return torch.ones((x.shape[0], 1, 1), dtype=x.dtype, device=x.device)
-    xbar = x.mean(dim=1)                                     # [B, D]
-    mean_cost = (2.0 * sq.mean(dim=1) - 2.0 * (xbar * xbar).sum(dim=1))
+    if group is None:
+        xbar = x.mean(dim=1)                                 # [B, D]
+        mean_sq = sq.mean(dim=1)
+    else:
+        from .parallel import collectives
+        k_global = x.shape[1] * collectives.size(group)
+        xbar = collectives.all_reduce(x.sum(dim=1), group) / k_global
+        mean_sq = collectives.all_reduce(sq.sum(dim=1), group) / k_global
+    mean_cost = 2.0 * mean_sq - 2.0 * (xbar * xbar).sum(dim=1)
     return 1.0 / (mean_cost[:, None, None] + 1e-12)
 
 
@@ -369,23 +387,13 @@ def distributed_ot_resample(log_weight, value, group,
         K_l]`). Differentiable in both inputs; each Sinkhorn iteration is
         recomputed in the backward pass when a gradient is recorded.
     """
-    from . import math as amath
     from .parallel import collectives
 
     x, rebuild = _flatten_particles(value)                   # [B, K_l, D]
     k_global = x.shape[1] * collectives.size(group)
     sq = (x * x).sum(dim=-1)                                 # [B, K_l]
-    if scale_cost:
-        xbar = collectives.all_reduce(x.sum(dim=1), group) / k_global
-        mean_sq = collectives.all_reduce(sq.sum(dim=1), group) / k_global
-        mean_cost = 2.0 * mean_sq - 2.0 * (xbar * xbar).sum(dim=1)
-        inv_scale = 1.0 / (mean_cost[:, None, None] + 1e-12)
-    else:
-        inv_scale = torch.ones((x.shape[0], 1, 1), dtype=x.dtype,
-                               device=x.device)
-    log_a = log_weight - amath.distributed_logsumexp(
-        log_weight, group, dim=1)[:, None]
-    log_b = torch.full_like(log_a, -_stdmath.log(k_global))
+    inv_scale = _inverse_mean_cost(x, sq, scale_cost, group)
+    log_a, log_b = _log_marginals(log_weight, group)
     recompute = _recording_grad(log_weight, x)
     f = torch.zeros_like(log_a)
     g = torch.zeros_like(log_a)
@@ -407,41 +415,69 @@ def distributed_ot_resample(log_weight, value, group,
 # ---------------------------------------------------------------------------
 
 
-def _lowrank_grads(lq, lr, lg, x, sq, inv_scale):
+def _lowrank_grads(lq, lr, lg, x, sq, inv_scale, group=None):
     """(grad_Q, grad_R, grad_g) of <C, Q diag(1/g) R^T> through the exact
-    rank-(D + 2) factorization of the squared-Euclidean cost."""
+    rank-(D + 2) factorization of the squared-Euclidean cost. With
+    ``group`` the contractions over K are all-reduced: the [B, D + 2, r]
+    moments of Q and R in one all-reduce, diag(Q^T C R) in another."""
     q = torch.exp(lq)                                        # [B, K, r]
     r = torch.exp(lr)
     inv_g = torch.exp(-lg)                                   # [B, r]
     scale = inv_scale[:, :, 0]                               # [B, 1]
 
-    def c_times(m):
+    def moments(m):
+        # 1^T M, sq^T M and X^T M: [B, r], [B, r], [B, D, r].
+        return (m.sum(dim=1), torch.einsum("bk,bkr->br", sq, m),
+                torch.einsum("bkd,bkr->bdr", x, m))
+
+    def c_times(m, t1, t2, t3):
         # C M for M [B, K, r]: sq (1^T M) + 1 (sq^T M) - 2 X (X^T M).
-        t1 = m.sum(dim=1)                                    # [B, r]
-        t2 = torch.einsum("bk,bkr->br", sq, m)
-        t3 = torch.einsum("bkd,bkr->bdr", x, m)              # [B, D, r]
         out = (sq[:, :, None] * t1[:, None, :] + t2[:, None, :] -
                2.0 * torch.einsum("bkd,bdr->bkr", x, t3))
         return out * scale[:, None, :]
 
-    cr = c_times(r)
-    cq = c_times(q)                                          # C^T Q = C Q
+    if group is None:
+        cr = c_times(r, *moments(r))
+        cq = c_times(q, *moments(q))                         # C^T Q = C Q
+        omega = torch.einsum("bkr,bkr->br", q, cr)           # diag(Q^T C R)
+    else:
+        from .parallel import collectives
+        d = x.shape[2]
+        packed = torch.stack([torch.cat([t1[:, None], t2[:, None], t3],
+                                        dim=1)
+                              for t1, t2, t3 in (moments(r), moments(q))])
+        total = collectives.all_reduce(packed, group)   # [2, B, D + 2, r]
+        cr, cq = (c_times(m, t[:, 0], t[:, 1], t[:, 2:2 + d])
+                  for m, t in ((r, total[0]), (q, total[1])))
+        omega = collectives.all_reduce(
+            torch.einsum("bkr,bkr->br", q, cr), group)
     grad_q = cr * inv_g[:, None, :]
     grad_r = cq * inv_g[:, None, :]
-    omega = torch.einsum("bkr,bkr->br", q, cr)               # diag(Q^T C R)
     grad_g = -omega * inv_g ** 2
     return grad_q, grad_r, grad_g
 
 
-def _lowrank_project(lq, lr, lg, log_a, log_b, inner_iterations):
+def _logsumexp_k(lq, lr, group):
+    """The logsumexps over K (dim 1) of ``lq`` and ``lr``, `[B, r]` each;
+    with ``group`` over the whole cloud, both in one distributed
+    logsumexp."""
+    if group is None:
+        return torch.logsumexp(lq, dim=1), torch.logsumexp(lr, dim=1)
+    from . import math as amath
+    both = amath.distributed_logsumexp(torch.cat([lq, lr], dim=2), group,
+                                       dim=1)
+    return both[:, :lq.shape[2]], both[:, lq.shape[2]:]
+
+
+def _lowrank_project(lq, lr, lg, log_a, log_b, inner_iterations,
+                     group=None):
     """Bregman projections onto {Q1 = a, R1 = b, Q^T 1 = R^T 1 = g,
     sum g = 1} in the log domain, ending on the row scalings (exact a and
-    b marginals)."""
+    b marginals). The sums over K cross ``group``."""
     for _ in range(inner_iterations):
         lq = lq - torch.logsumexp(lq, dim=2, keepdim=True) + log_a[:, :, None]
         lr = lr - torch.logsumexp(lr, dim=2, keepdim=True) + log_b[:, :, None]
-        lp = torch.logsumexp(lq, dim=1)                      # [B, r]
-        lqq = torch.logsumexp(lr, dim=1)
+        lp, lqq = _logsumexp_k(lq, lr, group)                # [B, r]
         lg = (lp + lqq + lg) / 3.0
         lg = lg - torch.logsumexp(lg, dim=1, keepdim=True)
         lq = lq + (lg - lp)[:, None, :]
@@ -452,13 +488,16 @@ def _lowrank_project(lq, lr, lg, log_a, log_b, inner_iterations):
 
 
 def _lowrank_iteration(lq, lr, lg, x, sq, inv_scale, log_a, log_b, gamma,
-                       epsilon, inner_iterations):
-    gq, gr, gg = _lowrank_grads(lq, lr, lg, x, sq, inv_scale)
-    # Per-row adaptive step: gamma / max |grad|.
-    gmax = torch.clamp(torch.maximum(
-        gq.abs().amax(dim=(1, 2)),
-        torch.maximum(gr.abs().amax(dim=(1, 2)), gg.abs().amax(dim=1))),
-        min=1e-6)
+                       epsilon, inner_iterations, group=None):
+    gq, gr, gg = _lowrank_grads(lq, lr, lg, x, sq, inv_scale, group)
+    # Per-row adaptive step: gamma / max |grad|, the max over the whole
+    # cloud (the ranks' maxima gathered: differentiable, as the max is).
+    local = torch.maximum(gq.abs().amax(dim=(1, 2)),
+                          gr.abs().amax(dim=(1, 2)))
+    if group is not None:
+        from .parallel import collectives
+        local = collectives.all_gather(local[None], group, dim=0).amax(dim=0)
+    gmax = torch.clamp(torch.maximum(local, gg.abs().amax(dim=1)), min=1e-6)
     step = gamma / gmax                                      # [B]
     s3 = step[:, None, None]
     s2 = step[:, None]
@@ -466,13 +505,15 @@ def _lowrank_iteration(lq, lr, lg, x, sq, inv_scale, log_a, log_b, gamma,
     lq = (1.0 - s3 * epsilon) * lq - s3 * gq
     lr = (1.0 - s3 * epsilon) * lr - s3 * gr
     lg = (1.0 - s2 * epsilon) * lg - s2 * gg
-    return _lowrank_project(lq, lr, lg, log_a, log_b, inner_iterations)
+    return _lowrank_project(lq, lr, lg, log_a, log_b, inner_iterations,
+                            group)
 
 
 def lowrank_ot_resample(log_weight, value, rank: int = 32,
                         epsilon: float = 0.05, num_iterations: int = 60,
                         gamma: float = 5.0, inner_iterations: int = 6,
-                        scale_cost: bool = True, noise=None) -> Tuple:
+                        scale_cost: bool = True, noise=None,
+                        group=None) -> Tuple:
     """Subquadratic differentiable ensemble-transport resampling.
 
     Transports the weighted cloud onto a uniform one through a rank-
@@ -496,18 +537,32 @@ def lowrank_ot_resample(log_weight, value, rank: int = 32,
             device): two normal draws of `[B, K, rank]`, Q's then R's. The
             independent couplings a g^T and b g^T are a fixed point of the
             iteration, so the anchors start perturbed.
+        group: the particle axis's process group when the cloud is
+            sharded over ranks, or None. ``log_weight`` and ``value`` are
+            then this rank's blocks `[B, K_l, ...]`, and so are Q and R:
+            every sum over K (the cost's moments, diag(Q^T C R), the
+            projections' logsumexps, the step's max, the cost scale and
+            the final Q^T X) crosses the group, O(B r (D + 2)) floats a
+            rank an iteration and no O(K) exchange. ``noise`` must then
+            hand each rank its block of the global `[B, K, rank]` draws
+            (`noise.ShardNoise`). A group of one rank computes as one
+            device.
 
     Returns:
         (transported value `[B, K, ...]`, new log-weights `[B, K]`: zeros).
     """
+    if group is not None:
+        from .parallel import collectives
+        if collectives.size(group) == 1:
+            group = None
     x, rebuild = _flatten_particles(value)                   # [B, K, D]
     batch, k, _ = x.shape
     r = int(rank)
     if noise is None:
         noise = NoiseSource.seeded(0, log_weight.device)
     sq = (x * x).sum(dim=-1)
-    inv_scale = _inverse_mean_cost(x, sq, scale_cost)
-    log_a, log_b = _log_marginals(log_weight)
+    inv_scale = _inverse_mean_cost(x, sq, scale_cost, group)
+    log_a, log_b = _log_marginals(log_weight, group)
     lg0 = torch.full((batch, r), -_stdmath.log(r), dtype=log_a.dtype,
                      device=log_a.device)
     lq0 = (log_a[:, :, None] + lg0[:, None, :] +
@@ -515,12 +570,12 @@ def lowrank_ot_resample(log_weight, value, rank: int = 32,
     lr0 = (log_b[:, :, None] + lg0[:, None, :] +
            0.5 * noise.normal((batch, k, r)))
     lq, lr, lg = _lowrank_project(lq0, lr0, lg0, log_a, log_b,
-                                  inner_iterations)
+                                  inner_iterations, group)
     recompute = _recording_grad(log_weight, x)
     for _ in range(num_iterations):
         lq, lr, lg = _maybe_checkpoint(
             _lowrank_iteration, lq, lr, lg, x, sq, inv_scale, log_a, log_b,
-            gamma, epsilon, inner_iterations, recompute=recompute)
+            gamma, epsilon, inner_iterations, group, recompute=recompute)
     # x_tilde_j = sum_i P_ij x_i / sum_i P_ij with P = Q diag(1/g) R^T, all
     # low rank: Q^T x and Q^T 1 are [B, r, .] contractions.
     q = torch.exp(lq)
@@ -528,6 +583,12 @@ def lowrank_ot_resample(log_weight, value, rank: int = 32,
     inv_g = torch.exp(-lg)                                   # [B, r]
     qx = torch.einsum("bkr,bkd->brd", q, x)                  # Q^T x
     qs = q.sum(dim=1)                                        # Q^T 1
+    if group is not None:
+        # Over the whole cloud: [Q^T x, Q^T 1] in one all-reduce.
+        from .parallel import collectives
+        moments = collectives.all_reduce(
+            torch.cat([qx, qs[:, :, None]], dim=2), group)
+        qx, qs = moments[:, :, :-1], moments[:, :, -1]
     num = torch.einsum("bkr,brd->bkd", rmat, qx * inv_g[:, :, None])
     den = torch.einsum("bkr,br->bk", rmat, qs * inv_g)
     transported = num / (den[:, :, None] + 1e-30)

@@ -34,11 +34,22 @@ The arithmetic of steps 1-2 is that of `resampling._normalized_cumsum`
 with the cumulative sum cut at the shard edges: over one rank it gives
 the single-device CDF bit for bit. Its last edge is pinned to 1.0.
 
+Residual resampling (`distributed_residual_resample`, which `infer`
+makes for 'residual' with a mesh; `make_distributed_fused_resampler`
+refuses it, as the JAX package's factory does) exchanges no CDF: its
+result is sorted, so each source's count of copies determines it. One
+packed gather brings the rows' log-weights (every rank then computes the
+copies and the residual CDF with the single-device arithmetic) and the
+float32 particles; each rank searches its slots' residual draws (K4),
+the ranks sum the draws' histograms in int32, and a rank's slots are
+searched in the cumulative counts: K3 with the particle gather (K2
+backward), K4 for indices only, K5 for other dtypes.
+
 Noise. A function here takes the step's source: the positions are drawn
 from its replicated state (`noise.ShardNoise.replicated`, or the source
 itself), which every rank must hold alike, at the single-device run's
-global shapes: `[B, 1]` uniforms (systematic), `[B, K]` (stratified) or
-`[B, K + 1]` exponentials (multinomial).
+global shapes: `[B, 1]` uniforms (systematic), `[B, K]` (stratified and
+residual) or `[B, K + 1]` exponentials (multinomial).
 
 Gradients. Indices are detached. The exchanged values are
 differentiable: through the gather (`collectives.all_gather`, whose
@@ -50,6 +61,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import math as amath
 from .. import resampling as _resampling
 from ..noise import ShardNoise
 from ..ops import resample_cuda
@@ -138,7 +150,6 @@ def _local_cdf(log_weight, group, log_sum=None):
     `[B_l]` if the caller has it)."""
     log_weight = log_weight.detach()
     if log_sum is None:
-        from .. import math as amath
         log_sum = amath.distributed_logsumexp(log_weight, group, dim=1)
     w = torch.exp(log_weight - log_sum.detach()[:, None])
     return _local_cumsum(w)
@@ -240,21 +251,19 @@ def distributed_resample_particles(value, global_index, group):
         [gather(leaf) for leaf in _resampling._leaves(value)]))
 
 
-def _allgather_exchange(log_weight, noise, value, group, data_group,
-                        method, columns=(), log_sum=None):
-    """(idx, value, gathered columns) through the gathered global CDF.
-    One gather carries the local scans, the float32 leaves and the extra
-    `[B_l, K_l]` columns as the columns of one tensor; leaves of other
-    dtypes are gathered apart."""
-    batch_size, k_local = log_weight.shape
-    local_cum, _ = _local_cdf(log_weight, group, log_sum)
+def _gather_packed(scan, value, group, columns=()):
+    """(every rank's ``scan`` `[B_l, K]`, ``value`` with its leaves
+    gathered `[B_l, K, ...]` or None, the gathered ``columns``): one
+    gather carries the local scan `[B_l, K_l]`, the float32 leaves and
+    the extra `[B_l, K_l]` columns as the columns of one tensor; leaves of
+    other dtypes are gathered apart."""
+    batch_size, k_local = scan.shape
     leaves = [] if value is None else _resampling._leaves(value)
     floats = [leaf.reshape(batch_size, k_local, -1) for leaf in leaves
               if _resampling._fused(leaf)]
-    packed = torch.cat([local_cum[:, :, None]] + floats +
+    packed = torch.cat([scan[:, :, None]] + floats +
                        [c[:, :, None] for c in columns], dim=2)
     full = collectives.all_gather(packed, group, dim=1)     # [B_l, K, 1 + D]
-    global_cdf = _gathered_cdf(full[:, :, 0], collectives.size(group))
     pieces = iter(torch.split(full[:, :, 1:], [f.shape[2] for f in floats] +
                               [1] * len(columns), dim=2))
     gathered = [next(pieces).reshape((batch_size, -1) +
@@ -263,11 +272,23 @@ def _allgather_exchange(log_weight, noise, value, group, data_group,
                 collectives.all_gather(leaf, group, dim=1)
                 for leaf in leaves]
     full_columns = tuple(next(pieces)[:, :, 0] for _ in columns)
+    return (full[:, :, 0], None if value is None else
+            _resampling._unflatten(value, iter(gathered)), full_columns)
+
+
+def _allgather_exchange(log_weight, noise, value, group, data_group,
+                        method, columns=(), log_sum=None):
+    """(idx, value, gathered columns) through the gathered global CDF
+    (`_gather_packed`)."""
+    batch_size, k_local = log_weight.shape
+    local_cum, _ = _local_cdf(log_weight, group, log_sum)
+    scans, full_value, full_columns = _gather_packed(local_cum, value, group,
+                                                     columns)
+    global_cdf = _gathered_cdf(scans, collectives.size(group))
     pos = _distributed_positions(noise, method, batch_size, k_local, group,
                                  data_group)
     return _resampling._search_gather(
-        global_cdf, None if value is None else _resampling._unflatten(
-            value, iter(gathered)), _cuda(global_cdf), True, pos=pos,
+        global_cdf, full_value, _cuda(global_cdf), True, pos=pos,
         columns=full_columns)
 
 
@@ -286,6 +307,100 @@ def distributed_systematic_resample(log_weight, noise, value, group,
     """
     idx, out, _ = _allgather_exchange(log_weight, noise, value, group,
                                       data_group, method, log_sum=log_sum)
+    return idx, out
+
+
+# Cumulative counts are exact float32 integers up to 2^24 particles (and
+# the kernels' rows hold at most 2^24 entries).
+RESIDUAL_MAX_K = 1 << 24
+
+
+def _residual_counts(log_weight, noise, group, data_group, value=None):
+    """The residual exchange up to the final search: (the cumulative
+    counts `[B_l, K]` float32 of every source's copies, this rank's slots
+    `[B_l, K_l]` as float32, ``value`` gathered over the particle axis).
+    See `distributed_residual_resample`."""
+    batch_size, k_local = log_weight.shape
+    n, p = collectives.size(group), collectives.rank_in(group)
+    k = k_local * n
+    if k > RESIDUAL_MAX_K:
+        raise ValueError(f"distributed residual resampling counts particles "
+                         f"in float32: K = {k} is over {RESIDUAL_MAX_K}")
+    # The whole rows' log-weights ride the particles' packed gather; on
+    # them every rank computes `resampling.residual_indices`' copies and
+    # residual CDF with its arithmetic.
+    full_lw, full_value, _ = _gather_packed(log_weight.detach(), value,
+                                            group)
+    copies, cum_copies, cum_res = _resampling._residual_parts(full_lw)
+    det_total = cum_copies[:, -1:]                               # C
+    # This rank's slots s of the global grid: the residual draw u_s where
+    # s >= C. The draws are searched sorted (K4 keeps a sorted tile's
+    # search in its shared-memory window); only their histogram is kept.
+    row0, b_global = _rows(data_group, batch_size)
+    u = _replicated(noise).uniform((b_global, k))[
+        row0:row0 + batch_size, p * k_local:(p + 1) * k_local]
+    slots = torch.arange(p * k_local, (p + 1) * k_local,
+                         dtype=cum_res.dtype, device=cum_res.device).expand(
+                             batch_size, k_local)
+    u_sorted, order = torch.sort(u, dim=1)
+    drawn = torch.gather(slots >= det_total, 1, order).to(torch.int32)
+    search = (_resampling.searchsorted_sorted_cuda.searchsorted_sorted
+              if _cuda(cum_res) else
+              _resampling.searchsorted_sorted_cuda.searchsorted_sorted_torch)
+    res_idx = search(cum_res, u_sorted.contiguous())
+    # Every source's count: the copies (on every rank alike) plus the
+    # ranks' residual draws, summed in int32 (exact in any order).
+    counts = torch.zeros((batch_size, k), dtype=torch.int32,
+                         device=cum_res.device)
+    counts.scatter_add_(1, res_idx.long(), drawn)
+    counts = collectives.all_reduce(counts, group) + copies.to(torch.int32)
+    cum_counts = torch.cumsum(counts, dim=1, dtype=torch.int32).to(
+        cum_res.dtype)
+    return cum_counts, slots.contiguous(), full_value
+
+
+def distributed_residual_resample(log_weight, noise, value, group,
+                                  data_group=None):
+    """Residual resampling over the sharded particle axis: indices AND
+    redistributed particles, this rank's output slots `[p K_l, (p + 1)
+    K_l)` of `resampling.residual_indices`' sorted `[B, K]` result.
+
+    That result is sorted, so the counts of each source determine it; the
+    ranks exchange only the rows and exact integer counts:
+
+    1. one packed gather of the log-weights and the float32 particles
+       (other dtypes apart); on the whole rows every rank computes
+       floor(K w) copies, their total C and the residual CDF of (K w -
+       copies) / max(K - C, 1e-30) with the single-device arithmetic (its
+       logsumexp, scan and running max): the floor turns the last bit of
+       K w into a whole particle, and under the exact proposal every K w
+       sits at 1, so a distributed logsumexp's rounding would move
+       copies;
+    2. this rank's block of the global `[B, K]` uniform draw; the slots s
+       >= C search their draws in the residual CDF (kernel K4, on the
+       draws sorted locally);
+    3. the draws' histogram `[B_l, K]`, summed over the particle group in
+       int32, plus the copies; the cumulative counts as float32, exact
+       below 2^24 particles (`RESIDUAL_MAX_K`);
+    4. this rank's indices: the right-side search of its slots j in the
+       cumulative counts, which for integer counts is the search of j +
+       0.5 of `resampling.residual_indices`; the particles move as in the
+       all-gather exchange, with (cumulative counts, slots) in place of
+       (CDF, positions): K3 searches and gathers the float32 columns, its
+       backward K2 sums each source's slot range (exactly its count), and
+       K5 moves the other dtypes bit for bit. ``value`` None: K4's
+       indices only.
+
+    Where the rows' reductions give one device's bits (the CPU; the card
+    at equal row counts), the indices are one device's exactly.
+
+    Returns (indices `[B_l, K_l]` int32 global, sorted; value with `[B_l,
+    K_l, ...]` leaves, or None).
+    """
+    cum_counts, slots, full_value = _residual_counts(
+        log_weight, noise, group, data_group, value)
+    idx, out, _ = _resampling._search_gather(
+        cum_counts, full_value, _cuda(cum_counts), True, pos=slots)
     return idx, out
 
 
@@ -371,8 +486,6 @@ def distributed_soft_resample(log_weight, noise, value, group,
     log-weights `[B_l, K_l]` - differentiable -, resampled value or None
     for a None ``value``).
     """
-    from .. import math as amath
-
     k_global = log_weight.shape[1] * collectives.size(group)
     if log_sum is None:
         log_sum = amath.distributed_logsumexp(log_weight, group, dim=1)
@@ -449,6 +562,25 @@ def make_distributed_fused_resampler(mesh, data_axis: str = "data",
     resampler.fused = True
     resampler.method = method
     resampler.exchange = exchange
+    _tag(resampler, mesh, data_axis, particle_axis, group)
+    return resampler
+
+
+def _make_residual_resampler(mesh, data_axis: str = "data",
+                             particle_axis: str = "particle"):
+    """The fused residual callable `infer` makes with ``mesh`` for
+    ``resampling_method='residual'`` (`distributed_residual_resample`).
+    It has no public factory: `make_distributed_fused_resampler` refuses
+    'residual', as the JAX package's does."""
+    group, data_group = _axes(mesh, data_axis, particle_axis)
+
+    def resampler(log_weight, noise, value):
+        return distributed_residual_resample(log_weight, noise, value, group,
+                                             data_group=data_group)
+
+    resampler.soft = False
+    resampler.fused = True
+    resampler.method = "residual"
     _tag(resampler, mesh, data_axis, particle_axis, group)
     return resampler
 

@@ -28,9 +28,11 @@ Two implementations:
   Float32 particles ride K1 or K3; particles of any other dtype (the
   HMM's int32 states) are gathered apart by the ancestor indices through
   the sorted gather (`ops.gather_sorted_cuda`, K5), which moves every
-  dtype bit for bit and is forward-only. Residual resampling has no
-  kernel (its query set is not a monotone position grid, nor in the JAX
-  package) and raises here;
+  dtype bit for bit and is forward-only. Residual resampling on one
+  device has no kernel (its query set is not a monotone position grid,
+  nor in the JAX package) and raises here; on a mesh its exchange
+  (`parallel.dist_resampling.distributed_residual_resample`) searches
+  the cumulative counts with K4 and K3;
 - 'torch': plain PyTorch ops, on any device. At K <= `DENSE_GATHER_MAX_K`
   with floating-point particles it takes the JAX 'xla' route's dense
   one-hot gather (`dense_indices_and_gather`): one compare gives the
@@ -191,6 +193,20 @@ def multinomial_indices(log_weight, noise):
     return _indices(log_weight, noise, "multinomial")
 
 
+def _residual_parts(log_weight):
+    """(copies floor(K w), their cumulative sum, the residual CDF), each
+    `[B, K]`: the CDF of (K w - copies) / max(K - C, 1e-30), C the row's
+    total of copies, made monotone and its last entry pinned to 1.0."""
+    k = log_weight.shape[1]
+    kw = k * amath.exponentiate_and_normalize(log_weight, dim=-1)
+    copies = torch.floor(kw)
+    cum_copies = torch.cumsum(copies, dim=1)
+    res_total = torch.clamp(k - cum_copies[:, -1:], min=1e-30)
+    cum_res = _pin_last(torch.cummax(
+        _row_cumsum((kw - copies) / res_total), dim=1).values)
+    return copies, cum_copies, cum_res
+
+
 def residual_indices(log_weight, noise):
     """Residual ancestor indices `[B, K]` int32, sorted.
 
@@ -203,18 +219,11 @@ def residual_indices(log_weight, noise):
     uniform otherwise; the result is sorted. One uniform a slot.
     """
     batch_size, k = log_weight.shape
-    w = amath.exponentiate_and_normalize(log_weight, dim=-1)
-    kw = k * w
-    copies = torch.floor(kw)
-    cum_copies = torch.cumsum(copies, dim=1)
+    _, cum_copies, cum_res = _residual_parts(log_weight)
     det_total = cum_copies[:, -1:]
     slots = torch.arange(k, dtype=cum_copies.dtype,
                          device=log_weight.device).expand(batch_size, k)
     det_idx = torch.searchsorted(cum_copies, slots + 0.5, right=True)
-    residual = kw - copies
-    res_total = torch.clamp(k - det_total, min=1e-30)
-    cum_res = _pin_last(torch.cummax(
-        _row_cumsum(residual / res_total), dim=1).values)
     u = noise.uniform((batch_size, k))
     res_idx = torch.searchsorted(cum_res, u, right=True)
     idx = torch.where(slots < det_total, det_idx, res_idx)

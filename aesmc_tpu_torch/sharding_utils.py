@@ -10,10 +10,11 @@ block and put the blocks back together, the noise view that draws the
 global shape and keeps this block, and the particle-axis reductions the
 engine needs (`distributed_logsumexp`).
 
-The module-level `particle_*` helpers take a cloud or None (one device),
-so that a module holds one code path for both: over a particle group of
-one rank they compute with the single-device arithmetic (the same bits),
-otherwise their local reduction crosses the group.
+The module-level `particle_*` helpers (and `batch_mean`, over the data
+group) take a cloud or None (one device), so that a module holds one
+code path for both: over a group of one rank they compute with the
+single-device arithmetic (the same bits), otherwise their local
+reduction crosses the group.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from .noise import ShardNoise
 
 __all__ = ["Cloud", "cloud_of", "local_block", "gather_block",
            "particle_logsumexp", "particle_sum", "particle_mean",
-           "particle_softmax", "particle_ess", "particle_gather"]
+           "particle_softmax", "particle_ess", "particle_gather",
+           "batch_mean"]
 
 
 class Cloud:
@@ -236,3 +238,12 @@ def particle_gather(x: torch.Tensor, cloud, dim: int = 1):
     if _single(cloud):
         return x
     return cloud.gather_particles(x, dim=dim)
+
+
+def batch_mean(values: torch.Tensor, cloud):
+    """The mean of `[B]` ``values`` over the global batch: the mean of the
+    data ranks' means (equal blocks; over one data rank, the
+    single-device mean's bits), the same on every rank."""
+    if cloud is None or cloud.data_group is None:
+        return values.mean()
+    return cloud.batch_sum(values.mean()) / cloud.n_data

@@ -34,6 +34,11 @@ The pairwise [B, K, K] transition tile is formed one of two ways
   tensors (`FakeTensorMode`, the counterpart of `jax.eval_shape`): it
   computes nothing on any device.
 
+On a mesh (`cloud=`, as `losses.get_loss(mesh=...)` passes it) a rank
+draws its block of the particles, all-gathers the parents and their f
+over the particle group a step, and forms its `[B_l, K, K_l]` tile
+columns; the final logsumexp crosses the group.
+
 Memory: one [B, K, K] tile a step; `remat` recomputes each step in the
 backward (`torch.utils.checkpoint`) instead of keeping T tiles, and
 `block_size` streams the children in checkpointed blocks, so that a step
@@ -51,6 +56,7 @@ from . import resampling, state
 from .inference import (ObservationSequence, TimeIndex, _NoiseTape,
                         _first_leaf, stack_observations)
 from .noise import NoiseSource
+from .sharding_utils import particle_gather, particle_logsumexp
 
 __all__ = ["tmc_log_marginal_likelihood", "tmc_loss"]
 
@@ -139,7 +145,8 @@ def _pair_log_prob_fn(transition, prev_latent, time, prev_obs_list,
 def tmc_log_marginal_likelihood(observations, initial, transition,
                                 emission, proposal, num_particles: int,
                                 noise=None, remat: bool = True,
-                                block_size=None, pairwise: str = "auto"):
+                                block_size=None, pairwise: str = "auto",
+                                cloud=None):
     """TMC estimate of log p(y_{0:T-1}), shape [batch].
 
     Differentiable in every component (reparameterized proposal samples,
@@ -150,6 +157,16 @@ def tmc_log_marginal_likelihood(observations, initial, transition,
     ``block_size`` (must divide K) streams the children in checkpointed
     blocks of that size. ``pairwise``: 'broadcast' | 'vmap' | 'auto' (see
     the module docstring).
+
+    ``cloud``: this rank's `sharding_utils.Cloud` on a mesh, or None.
+    ``observations`` are then this rank's rows and ``num_particles`` the
+    whole cloud's K: the rank draws its K_l particles of its rows (its
+    block of the single-device draws), each step all-gathers the previous
+    particles and f over the particle group (differentiable: the
+    backward sums the ranks' cotangents) and forms its `[B_l, K, K_l]`
+    tile columns, which give its K_l new f; the final logsumexp crosses
+    the group. ``block_size`` then divides K_l. Returns this rank's rows
+    `[B_l]`, the same on every particle rank.
     """
     _check_pairwise(pairwise)
     stacked_obs = stack_observations(observations)
@@ -159,22 +176,33 @@ def tmc_log_marginal_likelihood(observations, initial, transition,
     batch_size = first.shape[1]
     if noise is None:
         noise = NoiseSource.seeded(0, first.device)
-    k = num_particles
-    log_k = _stdmath.log(k)
+    log_k = _stdmath.log(num_particles)
+    # This rank's particles (all of them on one device), its view of the
+    # draws, and the whole cloud's particles and f.
+    k = (num_particles if cloud is None else
+         cloud.local_particles(num_particles))
+
+    def view(source):
+        return source if cloud is None else cloud.noise(source)
+
+    def whole(x):
+        return state.tree_map(lambda v: particle_gather(v, cloud), x)
+
     blocked = block_size is not None and block_size < k
     if blocked and k % block_size:
         raise ValueError(
-            f"block_size ({block_size}) must divide num_particles ({k})")
+            f"block_size ({block_size}) must divide num_particles ({k})"
+            + ("" if cloud is None else " / the particle shards"))
 
     # ---- t = 0 (hoisted: `time` is the int 0).
     proposal_dist = proposal(time=0, observations=obs_seq)
-    latent_0 = state.sample(proposal_dist, batch_size, k, noise)
+    latent_0 = state.sample(proposal_dist, batch_size, k, view(noise))
     f0 = (state.log_prob(initial(), latent_0) +
           state.log_prob(emission(latents=[latent_0], time=0),
                          state.expand_observation(obs_seq[0], k)) -
           state.log_prob(proposal_dist, latent_0))           # [B, K]
     if num_timesteps == 1:
-        return torch.logsumexp(f0, dim=1) - log_k
+        return particle_logsumexp(f0, cloud) - log_k
 
     resolved = pairwise
     if resolved == "auto":
@@ -185,14 +213,16 @@ def tmc_log_marginal_likelihood(observations, initial, transition,
         prev_obs_list = [obs_seq[t - 1]]
         proposal_dist = proposal(previous_latents=[prev_latent], time=time,
                                  observations=obs_seq)
-        latent_t = state.sample(proposal_dist, batch_size, k, noise)
+        latent_t = state.sample(proposal_dist, batch_size, k, view(noise))
         q_lp = state.log_prob(proposal_dist, latent_t)        # [B, K]
         e_lp = state.log_prob(
             emission(latents=[latent_t], time=time,
                      previous_observations=prev_obs_list),
             state.expand_observation(obs_seq[t], k))          # [B, K]
-        pair_log_prob = _pair_log_prob_fn(transition, prev_latent, time,
-                                          prev_obs_list, resolved)
+        # Every parent of the whole cloud against this rank's children.
+        pair_log_prob = _pair_log_prob_fn(transition, whole(prev_latent),
+                                          time, prev_obs_list, resolved)
+        f = particle_gather(f, cloud)
 
         # f_j = LSE_i(f_i + A_ij) - log K + e_j - q_j, stabilized per
         # batch row (c) and per child column (amax).
@@ -235,7 +265,7 @@ def tmc_log_marginal_likelihood(observations, initial, transition,
                 use_reentrant=False, preserve_rng_state=False)
         else:
             latent, f = step(t, latent, f, noise)
-    return torch.logsumexp(f, dim=1) - log_k
+    return particle_logsumexp(f, cloud) - log_k
 
 
 def tmc_loss(observations, num_particles: int, initial, transition,

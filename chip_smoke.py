@@ -342,6 +342,21 @@ Phases, in order; any failure raises and the exit code is not 0:
    compared too), within each JAX test's bar of the single-device call.
    Every path's mesh call is counted alone (K3, K4, K5 by path in the
    JSON line; no K1 on a mesh). Phase 36 prints its seconds.
+37. slice E3, inside phase 35's two worlds too: (a) on the NCCL (ranks,
+   1) mesh, residual `infer` on the bench's LGSSM at (50, 10, 10,000)
+   (T cut from 200; ancestors, latents and log-Z equal to the
+   single-device call bit for bit, K4 and K3 a step), a 50-step residual
+   stream equal to it, the residual HMM D = 8 filter (int32 particles:
+   K4 twice a step and K5), the low-rank OT (rank 32) in `infer` at (5,
+   4, 16,384) within 1e-4, 3 sharded TMC steps (no kernel) and 3 score
+   steps (K3, K2) at (200, 10, 100), losses equal to the one-device
+   steps' and parameters within 1e-5 relative; (b) on the gloo (2, 2)
+   and (1, 4) meshes at (6, 4, 32), each path within the CPU tests' bars
+   (`tests/test_torch_mesh_algorithms.py`); (c) in this process, K4, K3,
+   K2 and K5 at the residual exchange's shapes (a [10, 10,000] counts
+   CDF against 10,000 slots, and K_l = 8 of K = 32) against their plain
+   versions exactly, timed with the bytes bound. Phase 37 prints its
+   seconds.
 
 It prints a `{"kernels": [...]}` JSON line before the last, and, as the
 last line, `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -5869,7 +5884,9 @@ def _md_nccl_task(dev):
               f"relative (bound {GRAD_RTOL}); {times[path][0]:.3f} ms/step "
               f"(runs {times[path][1]})")
     e2_seconds = _e2_nccl_task(dev, mesh, launches, times)
-    return {"launches": launches, "times": times, "e2_seconds": e2_seconds}
+    e3_seconds = _e3_nccl_task(dev, mesh, launches, times)
+    return {"launches": launches, "times": times, "e2_seconds": e2_seconds,
+            "e3_seconds": e3_seconds}
 
 
 @contextlib.contextmanager
@@ -6123,7 +6140,9 @@ def _md_gloo_task(dev):
               f"{MD_ISLAND_BAND}); |log-Z mesh - one device| <= "
               f"{delta:.4g}; {times[path][0]:.3f} ms/call")
     e2_seconds = _e2_gloo_task(dev, meshes, launches, times)
-    return {"launches": launches, "times": times, "e2_seconds": e2_seconds}
+    e3_seconds = _e3_gloo_task(dev, meshes, launches, times)
+    return {"launches": launches, "times": times, "e2_seconds": e2_seconds,
+            "e3_seconds": e3_seconds}
 
 
 def _md_kernel_phase(dev):
@@ -6738,20 +6757,535 @@ def _e2_gloo_task(dev, meshes, launches, times):
     return seconds
 
 
+# Phase 37 (slice E3): the four combinations of a mesh and an option that
+# the JAX package computes: residual resampling (the residual exchange:
+# K4 on the draws and the slots, K3 with K2 as its backward, K5 for int
+# leaves), the low-rank OT on the particle group, the TMC objective and
+# the score estimator. (a) The NCCL world's (ranks, 1) mesh at full
+# width, T cut to E3_T for the residual paths; (b) the gloo ranks' (2, 2)
+# and (1, 4) meshes at (E3G_T, E3G_B, E3G_K), within the CPU tests' bars
+# (tests/test_torch_mesh_algorithms.py); (c) the four kernels at the
+# residual exchange's shapes, in this process.
+E3_T, E3_STEPS = 50, 3
+E3G_T, E3G_B, E3G_K, E3G_RANK = 6, 4, 32, 4
+# The low-rank OT on gloo makes ~15 collectives an iteration (2-12 ms
+# each there): T cut to 3 and 3 iterations keep it near 2 s on both
+# meshes (5.4 s on (1, 4) alone at T = 6 and 5 iterations, 4 gloo ranks
+# on one H100).
+E3G_OT_T, E3G_OT_ITERATIONS = 3, 3
+# The CPU tests' bars: (rtol, atol) of a value; a gradient leaf within
+# rtol times its largest entry plus atol; the score gradient's leaves
+# within rtol times their largest entry plus E3_SCORE_ROUNDING times the
+# single-device gradient's own float32 rounding (its distance from a
+# float64 evaluation of the same surrogate: the score term sums K
+# per-particle gradients times advantages, which cancel to a gradient
+# far smaller than its terms).
+E3_BARS = {"log_z": (1e-5, 0.0), "lowrank": (0.0, 1e-4),
+           "tmc_loss": (1e-5, 0.0), "tmc_grads": (1e-5, 1e-6),
+           "score_loss": (1e-6, 0.0), "score_grads": (1e-5, 0.0)}
+E3_SCORE_ROUNDING = 10.0
+E3_K3, E3_K4, E3_K5, E3_K2 = ("resample_sorted", "searchsorted_sorted",
+                              "gather_sorted", "range_sum")
+
+
+def _e3_same(path, name, got, want, bar=None):
+    """``got`` against ``want``: bit for bit (``bar`` None) or within
+    (rtol, atol). Returns the largest difference."""
+    if tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype:
+        raise AssertionError(f"{path}: {name} {tuple(got.shape)} {got.dtype}"
+                             f" vs {tuple(want.shape)} {want.dtype}")
+    diff = (float((got.double() - want.double()).abs().max())
+            if got.numel() else 0.0)
+    ok = (torch.equal(got, want) if bar is None else torch.allclose(
+        got.double(), want.double(), rtol=bar[0], atol=bar[1]))
+    if not ok:
+        raise AssertionError(f"{path}: {name} off the single-device call by "
+                             f"{diff} (bar {bar or 'bit for bit'})")
+    return diff
+
+
+def _e3_same_grads(path, got, want, bar, rounding=None):
+    """Each gradient leaf within bar[0] times its largest entry plus
+    bar[1], plus E3_SCORE_ROUNDING times that leaf's entry of
+    ``rounding`` (the reference's own float32 rounding) where given;
+    returns the largest difference relative to the leaf's largest
+    entry."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = float(w.abs().max())
+        diff = float((g - w).abs().max())
+        worst = max(worst, diff / max(scale, 1e-30))
+        allowed = bar[0] * scale + bar[1] + (
+            0.0 if rounding is None else E3_SCORE_ROUNDING * rounding[i])
+        if diff > allowed:
+            raise AssertionError(f"{path}: gradient {i} off by {diff} "
+                                 f"(largest entry {scale}, allowed "
+                                 f"{allowed})")
+    return worst
+
+
+def _e3_score_reference(obs, comps, k, noise):
+    """The single-device score loss, its gradients, and each leaf's
+    float32 rounding: the largest distance of the gradient from the
+    same surrogate's, evaluated in float64 on the same engine output."""
+    from aesmc_tpu_torch import gradients
+    result = inference.infer(
+        "smc", obs, *comps, k, noise=noise, resampling_method="multinomial",
+        return_log_weights=True, return_ancestral_indices=True,
+        return_latents=False)
+    params = train.get_chained_params(*comps)
+    loss = gradients.score_surrogate_from_result(result)
+    grads = torch.autograd.grad(loss, params, retain_graph=True)
+    wide = dict(result, log_weights=result["log_weights"].double())
+    grads_64 = torch.autograd.grad(
+        gradients.score_surrogate_from_result(wide), params)
+    rounding = [float((g.double() - w).abs().max())
+                for g, w in zip(grads, grads_64)]
+    return loss.detach(), grads, rounding
+
+
+def _e3_mean_grads(params):
+    """The mean over the world of the ranks' gradients (the single-device
+    gradient, `parallel.sharded`)."""
+    world = torch.distributed.get_world_size()
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    torch.distributed.all_reduce(flat)
+    flat = flat / world
+    out, offset = [], 0
+    for p in params:
+        out.append(flat[offset:offset + p.numel()].view_as(p))
+        offset += p.numel()
+    return out
+
+
+def _e3_score_step(optimizer, mesh):
+    """A sharded score-estimator step: `get_loss(gradient_estimator=
+    'score', mesh=...)`, the ranks' gradients averaged, one optimizer
+    step (`parallel.make_sharded_train_step`'s body; the JAX package's
+    sharded step takes no estimator)."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def step(comps, obs, noise):
+        optimizer.zero_grad(set_to_none=True)
+        loss = losses.get_loss(obs, TRAIN_K, "aesmc", *comps, noise=noise,
+                               resampling_method="multinomial",
+                               gradient_estimator="score", mesh=mesh)
+        loss.backward()
+        for p, g in zip(params, _e3_mean_grads(params)):
+            p.grad = g.clone()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def _e3_steps(path, sharded, single, comps_m, comps_1, obs, mesh, seed,
+              launches, times, expected):
+    """E3_STEPS sharded steps against the one-device steps on the same
+    noise: losses equal (over one particle rank bit for bit), parameters
+    within GRAD_RTOL relative; the first sharded step's launches, each
+    sharded step's time between CUDA events."""
+    from aesmc_tpu_torch import parallel
+    obs_b = parallel.shard_batch(obs, mesh)
+    step_ms = []
+    for i in range(E3_STEPS):
+        reset_counts()
+        loss_m, ms = _timed(lambda: sharded(
+            comps_m, obs_b, NoiseSource.seeded(seed + i, obs.device)))
+        step_ms.append(round(ms, 3))
+        if i == 0:
+            _md_expect(_md_counts(launches, path), path, **expected)
+        loss_1 = single(comps_1, obs, NoiseSource.seeded(seed + i,
+                                                          obs.device))
+        if not torch.allclose(loss_m, loss_1, rtol=1e-6, atol=0):
+            raise AssertionError(f"{path}: step {i} loss {float(loss_m)} vs "
+                                 f"{float(loss_1)}")
+    worst = _md_param_rel(comps_m, comps_1)
+    if worst > GRAD_RTOL:
+        raise AssertionError(f"{path}: parameters after {E3_STEPS} steps off "
+                             f"by {worst} relative")
+    times[path] = (float(np.median(step_ms)), step_ms)
+    _md_print(f"{path}: {E3_STEPS} steps, losses equal to the one-device "
+              f"steps' (last {float(loss_m):.6f} vs {float(loss_1):.6f}), "
+              f"parameters within {worst:.3g} relative (bound {GRAD_RTOL}); "
+              f"{times[path][0]:.3f} ms/step (runs {times[path][1]})")
+
+
+def _e3_nccl_task(dev, mesh, launches, times):
+    """(37a) The E3 paths on the NCCL world's (ranks, 1) mesh."""
+    from aesmc_tpu_torch import parallel
+    start = time.perf_counter()
+    world = torch.distributed.get_world_size()
+    batch = -(-B // world) * world
+    rows = parallel.data_particle_specs(mesh, batch, K)[0]
+    _md_print(f"== 37a slice E3 on the NCCL (ranks, 1) mesh, {world} "
+              f"rank(s)")
+
+    # Residual resampling: the filter, a stream, the HMM's int particles.
+    comps, obs = _bench_lgssm(dev, TRANSITION_MULT, batch)
+    obs = obs[:E3_T].contiguous()
+    kwargs = dict(resampling_method="residual",
+                  return_log_marginal_likelihood=True,
+                  return_ancestral_indices=True)
+
+    def residual(mesh_=None):
+        return inference.infer(
+            "smc", obs if mesh_ is None else parallel.shard_batch(obs, mesh_),
+            *comps, K, noise=NoiseSource.seeded(370, dev), mesh=mesh_,
+            **kwargs)
+
+    path = f"37a NCCL residual filter ({E3_T}, {batch}, {K})"
+    with torch.no_grad():
+        want = residual()
+        reset_counts()
+        got = residual(mesh)
+        counts = _md_counts(launches, path)
+        _md_expect(counts, path, **{E3_K4: E3_T - 1, E3_K3: E3_T - 1})
+        for name in ("ancestral_indices", "latents"):
+            _e3_same(path, name, got[name], want[name][:, rows])
+        _e3_same(path, "log-Z", got["log_marginal_likelihood"],
+                 want["log_marginal_likelihood"][rows])
+        times[path] = _md_median_ms(lambda: residual(mesh))
+    _md_print(f"{path}: ancestors, latents and log-Z equal to the "
+              f"single-device call bit for bit; {times[path][0]:.3f} "
+              f"ms/call (runs {times[path][1]}); launches K2 "
+              f"{counts[E3_K2]}, K3 {counts[E3_K3]}, K4 {counts[E3_K4]}, K5 "
+              f"{counts[E3_K5]}")
+
+    path = f"37a NCCL residual stream, {E3_T} observations"
+    with torch.no_grad():
+        init_fn, step_fn = online.make_online_filter(
+            *comps, K, resampling_method="residual", return_ancestors=True,
+            mesh=mesh)
+        obs_b = parallel.shard_batch(obs, mesh)
+        noise = NoiseSource.seeded(370, dev)
+        reset_counts()
+        stream_start = time.perf_counter()
+        fs = init_fn(obs_b[0], noise)
+        ancestors = []
+        for t in range(1, E3_T):
+            fs, info = step_fn(fs, obs_b[t], noise)
+            ancestors.append(info["ancestral_index"])
+        counts = _md_counts(launches, path)
+        seconds = time.perf_counter() - stream_start
+        _md_expect(counts, path, **{E3_K4: E3_T - 1, E3_K3: E3_T - 1})
+        _e3_same(path, "ancestors", torch.stack(ancestors),
+                 got["ancestral_indices"])
+        _e3_same(path, "log-Z", online.log_marginal_likelihood(fs, mesh),
+                 got["log_marginal_likelihood"])
+    times[path] = (seconds * 1e3, [round(seconds * 1e3, 3)])
+    _md_print(f"{path}: ancestors and log-Z equal to the mesh `infer` call "
+              f"bit for bit; {seconds * 1e3 / (E3_T - 1):.3f} ms an "
+              f"observation (host clock)")
+
+    hmm_comps, hmm_obs = _hmm_data(dev, E3_T, batch, 0,
+                                   num_states=HMM_STATES)
+    path = f"37a NCCL residual HMM filter (D = {HMM_STATES}, int32 particles)"
+
+    def hmm_residual(mesh_=None):
+        return inference.infer(
+            "smc", hmm_obs if mesh_ is None else
+            parallel.shard_batch(hmm_obs, mesh_), *hmm_comps, K,
+            noise=NoiseSource.seeded(371, dev), resampling_method="residual",
+            return_log_marginal_likelihood=True, return_latents=False,
+            return_ancestral_indices=True, mesh=mesh_)
+
+    with torch.no_grad():
+        want = hmm_residual()
+        reset_counts()
+        got = hmm_residual(mesh)
+        counts = _md_counts(launches, path)
+        _md_expect(counts, path, **{E3_K4: 2 * (E3_T - 1),
+                                    E3_K5: E3_T - 1})
+        _e3_same(path, "ancestors", got["ancestral_indices"],
+                 want["ancestral_indices"][:, rows])
+        _e3_same(path, "log-Z", got["log_marginal_likelihood"],
+                 want["log_marginal_likelihood"][rows])
+        times[path] = _md_median_ms(lambda: hmm_residual(mesh), calls=1)
+    _md_print(f"{path}: ancestors and log-Z equal to the single-device call "
+              f"bit for bit; {times[path][0]:.3f} ms/call; launches K4 "
+              f"{counts[E3_K4]} (draws and slots), K5 {counts[E3_K5]}")
+
+    # The low-rank OT at the rank-32 row of benchmarks/ot_engine_probe.py:32.
+    ot_batch = max(OT_B, world)
+    ot_comps, ot_obs = _bench_lgssm(dev, TRANSITION_MULT)
+    ot_obs = ot_obs[:OT_LARGE_T, :ot_batch].contiguous()
+    path = (f"37a NCCL low-rank OT r = {OT_RANK} ({OT_LARGE_T}, {ot_batch}, "
+            f"{OT_LARGE_K})")
+    ot_rows = parallel.data_particle_specs(mesh, ot_batch, OT_LARGE_K)[0]
+
+    def lowrank(mesh_=None):
+        return inference.infer(
+            "smc", ot_obs if mesh_ is None else
+            parallel.shard_batch(ot_obs, mesh_), *ot_comps, OT_LARGE_K,
+            noise=NoiseSource.seeded(372, dev), resampling_method="ot",
+            ot_rank=OT_RANK, ot_num_iterations=OT_ITERATIONS,
+            return_log_marginal_likelihood=True, return_latents=False,
+            return_log_weight=False, mesh=mesh_)["log_marginal_likelihood"]
+
+    with torch.no_grad():
+        want = lowrank()
+        reset_counts()
+        got = lowrank(mesh)
+        counts = _md_counts(launches, path)
+        _md_expect(counts, path)
+        diff = _e3_same(path, "log-Z", got, want[ot_rows],
+                        E3_BARS["lowrank"])
+        times[path] = _md_median_ms(lambda: lowrank(mesh), calls=1)
+    _md_print(f"{path}: log-Z within {diff:.3g} of the single-device call "
+              f"(bar {E3_BARS['lowrank'][1]}); no kernel; "
+              f"{times[path][0]:.3f} ms/call (runs {times[path][1]})")
+
+    # TMC and score steps at the bench's training shape.
+    for label, seed, expected in (("TMC", 380, {}),
+                                  ("score", 390, {E3_K3: T - 1,
+                                                  E3_K2: T - 1})):
+        (comps_m, obs_t), (comps_1, _) = (_bench_lgssm(dev, 0.5, batch),
+                                          _bench_lgssm(dev, 0.5, batch))
+        opt_m = torch.optim.Adam(train.get_chained_params(*comps_m), lr=1e-2)
+        opt_1 = torch.optim.Adam(train.get_chained_params(*comps_1), lr=1e-2)
+        if label == "TMC":
+            sharded = parallel.make_sharded_train_step(TRAIN_K, "tmc", opt_m,
+                                                       mesh)
+            single = train.make_train_step(TRAIN_K, "tmc", opt_1)
+        else:
+            sharded = _e3_score_step(opt_m, mesh)
+            single = train.make_train_step(
+                TRAIN_K, "aesmc", opt_1, resampling_method="multinomial",
+                gradient_estimator="score")
+        _e3_steps(f"37a NCCL sharded {label} step ({T}, {batch}, {TRAIN_K})",
+                  sharded, single, comps_m, comps_1, obs_t, mesh, seed,
+                  launches, times, expected)
+    seconds = time.perf_counter() - start
+    _md_print(f"== 37a took {seconds:.1f} s")
+    return seconds
+
+
+def _e3_gloo_task(dev, meshes, launches, times):
+    """(37b) The E3 paths on the gloo ranks' (2, 2) and (1, 4) meshes at
+    small width, within the CPU tests' bars."""
+    from aesmc_tpu_torch import parallel
+    from aesmc_tpu_torch.sharding_utils import local_block
+    start = time.perf_counter()
+    t, b, k = E3G_T, E3G_B, E3G_K
+    _md_print(f"== 37b slice E3 on {MD_GLOO_RANKS} gloo ranks on cuda:0, "
+              f"meshes {MD_GLOO_MESHES}, (T, B, K) = ({t}, {b}, {k})")
+    comps, obs = _bench_lgssm(dev, TRANSITION_MULT, b)
+    optimal = _e2_optimal(dev, b, t)
+    obs = obs[:E3G_OT_T].contiguous()
+    with torch.no_grad():
+        want_res = inference.infer(
+            "smc", optimal[1], *optimal[0], k,
+            noise=NoiseSource.seeded(373, dev), resampling_method="residual",
+            return_log_marginal_likelihood=True,
+            return_ancestral_indices=True)
+        want_lr = inference.infer(
+            "smc", obs, *comps, k, noise=NoiseSource.seeded(374, dev),
+            resampling_method="ot", ot_rank=E3G_RANK,
+            ot_num_iterations=E3G_OT_ITERATIONS,
+            return_log_marginal_likelihood=True, return_latents=False)
+    singles = {}
+    comps_1, obs_1 = _bench_lgssm(dev, 0.5, b)
+    loss = losses.get_loss(obs_1[:t], k, "tmc", *comps_1,
+                           noise=NoiseSource.seeded(375, dev))
+    singles["TMC"] = (loss.detach(), torch.autograd.grad(
+        loss, train.get_chained_params(*comps_1)), None, "tmc", {})
+    comps_1, obs_1 = _bench_lgssm(dev, 0.5, b)
+    singles["score"] = _e3_score_reference(
+        obs_1[:t], comps_1, k, NoiseSource.seeded(375, dev)) + (
+            "aesmc", dict(resampling_method="multinomial",
+                          gradient_estimator="score"))
+    for (dp, pp), mesh in meshes.items():
+        tag = f"37b gloo {dp}x{pp}"
+        rows = parallel.data_particle_specs(mesh, b, k)[0]
+        dims = {1: "data", 2: "particle"}
+        path = f"{tag} residual filter (optimal proposal)"
+        with torch.no_grad():
+            reset_counts()
+            got, ms = _timed(lambda: inference.infer(
+                "smc", parallel.shard_batch(optimal[1], mesh), *optimal[0], k,
+                noise=NoiseSource.seeded(373, dev),
+                resampling_method="residual",
+                return_log_marginal_likelihood=True,
+                return_ancestral_indices=True, mesh=mesh))
+            counts = _md_counts(launches, path)
+        _md_expect(counts, path, **{E3_K4: t - 1, E3_K3: t - 1})
+        for name in ("ancestral_indices", "latents"):
+            _e3_same(path, name, got[name],
+                     local_block(want_res[name], mesh, dims))
+        diff = _e3_same(path, "log-Z", got["log_marginal_likelihood"],
+                        want_res["log_marginal_likelihood"][rows],
+                        E3_BARS["log_z"])
+        times[path] = (ms, [round(ms, 3)])
+        _md_print(f"{path}: ancestors and latents equal to the single-device "
+                  f"call, log-Z within {diff:.3g}; {ms:.1f} ms")
+
+        path = (f"{tag} low-rank OT r = {E3G_RANK}, T = {E3G_OT_T}, "
+                f"{E3G_OT_ITERATIONS} iterations")
+        with torch.no_grad():
+            reset_counts()
+            got, ms = _timed(lambda: inference.infer(
+                "smc", parallel.shard_batch(obs, mesh), *comps, k,
+                noise=NoiseSource.seeded(374, dev), resampling_method="ot",
+                ot_rank=E3G_RANK, ot_num_iterations=E3G_OT_ITERATIONS,
+                return_log_marginal_likelihood=True, return_latents=False,
+                mesh=mesh))
+            _md_expect(_md_counts(launches, path), path)
+        diff = _e3_same(path, "log-Z", got["log_marginal_likelihood"],
+                        want_lr["log_marginal_likelihood"][rows],
+                        E3_BARS["lowrank"])
+        times[path] = (ms, [round(ms, 3)])
+        _md_print(f"{path}: log-Z within {diff:.3g} of the single-device "
+                  f"call; {ms:.1f} ms")
+
+        for label, (loss_1, grads_1, rounding, algorithm,
+                    kwargs) in singles.items():
+            path = f"{tag} {label} loss and gradients"
+            comps_m, obs_m = _bench_lgssm(dev, 0.5, b)
+            params = train.get_chained_params(*comps_m)
+            reset_counts()
+
+            def run(comps_m=comps_m, obs_m=obs_m, algorithm=algorithm,
+                    kwargs=kwargs):
+                loss = losses.get_loss(
+                    parallel.shard_batch(obs_m[:t], mesh), k, algorithm,
+                    *comps_m, noise=NoiseSource.seeded(375, dev), mesh=mesh,
+                    **kwargs)
+                loss.backward()
+                return loss.detach()
+
+            loss_m, ms = _timed(run)
+            counts = _md_counts(launches, path)
+            _md_expect(counts, path, **({} if label == "TMC" else
+                                        {E3_K3: t - 1, E3_K2: t - 1}))
+            key = "tmc" if label == "TMC" else "score"
+            _e3_same(path, "loss", loss_m, loss_1, E3_BARS[f"{key}_loss"])
+            worst = _e3_same_grads(path, _e3_mean_grads(params), grads_1,
+                                   E3_BARS[f"{key}_grads"], rounding)
+            times[path] = (ms, [round(ms, 3)])
+            _md_print(f"{path}: loss {float(loss_m):.6f} vs "
+                      f"{float(loss_1):.6f}, gradients within {worst:.3g} "
+                      f"of each leaf's largest entry (bar "
+                      f"{E3_BARS[key + '_grads']}"
+                      + ("" if rounding is None else
+                         f" + {E3_SCORE_ROUNDING:g} x the single-device "
+                         f"gradient's float32 rounding "
+                         f"{[float(f'{r:.3g}') for r in rounding]}")
+                      + f"); {ms:.1f} ms")
+    seconds = time.perf_counter() - start
+    _md_print(f"== 37b took {seconds:.1f} s")
+    return seconds
+
+
+def _e3_kernel_phase(dev):
+    """(37c) K4, K3, K2 and K5 at the residual exchange's shapes against
+    their plain versions, exactly (K2 on integer cotangents), and timed:
+    the NCCL (1, 1) exchange's gathered [B, K] counts CDF against its K
+    slots, and a gloo rank's K_l = 8 of K = 32; K4 also on the residual
+    draws (the residual CDF against a rank's sorted uniforms)."""
+    start = time.perf_counter()
+    generator = torch.Generator(device=dev).manual_seed(37)
+    f = 4
+    for batch, k, k_l in ((B, K, K), (E3G_B, E3G_K, E3G_K // MD_GLOO_RANKS)):
+        lw = torch.randn(batch, k, generator=generator, device=dev) * 3.0
+        noise = NoiseSource(generator)
+        idx = resampling.residual_indices(lw, noise)
+        counts = torch.zeros((batch, k), dtype=torch.int32, device=dev)
+        counts.scatter_add_(1, idx.long(), torch.ones_like(idx))
+        cum = torch.cumsum(counts, dim=1, dtype=torch.int32).float()
+        # The last rank's slots, as the exchange searches them.
+        slots = torch.arange(k - k_l, k, dtype=torch.float32,
+                             device=dev).expand(batch, k_l).contiguous()
+        _, _, cum_res = resampling._residual_parts(lw)
+        draws = torch.sort(torch.rand(batch, k_l, generator=generator,
+                                      device=dev), dim=1).values
+        value = torch.randn(batch, k, 1, generator=generator, device=dev)
+        states = torch.randint(0, HMM_STATES, (batch, k), generator=generator,
+                               device=dev, dtype=torch.int32)
+        g = torch.randint(-5, 6, (batch, k_l, 1), generator=generator,
+                          device=dev).float()
+        sel = searchsorted_sorted_cuda.searchsorted_sorted_torch(cum, slots)
+        checks = {
+            "K4 slots": (searchsorted_sorted_cuda.searchsorted_sorted(
+                cum, slots), sel),
+            "K4 draws": (searchsorted_sorted_cuda.searchsorted_sorted(
+                cum_res, draws),
+                searchsorted_sorted_cuda.searchsorted_sorted_torch(
+                    cum_res, draws)),
+            "K3": (resample_sorted_cuda.resample_and_gather_sorted(
+                cum, slots, value),
+                resample_sorted_cuda.resample_and_gather_sorted_torch(
+                    cum, slots, value)),
+            "K2": (range_sum_cuda.range_sum(cum, slots, g),
+                   range_sum_cuda.range_sum_torch(cum, slots, g)),
+            "K5": (gather_sorted_cuda.gather_sorted(states, sel),
+                   gather_sorted_cuda.gather_sorted_torch(states, sel)),
+        }
+        for label, (got, want) in checks.items():
+            if not all(torch.equal(a, b) for a, b in zip(_as_tuple(got),
+                                                         _as_tuple(want))):
+                raise AssertionError(f"{label} differs from its plain version "
+                                     f"on the residual exchange at (B, K, "
+                                     f"K_l) = ({batch}, {k}, {k_l})")
+        print(f"K4 (slots and draws), K3, K2 and K5 at the residual "
+              f"exchange's (B, K, K_l) = ({batch}, {k}, {k_l}): exact "
+              f"(tolerance 0; K2 on integer cotangents)", flush=True)
+        n_p, steps = batch * k_l, _search_steps(k)
+        shape = (batch, k, k_l)
+        _kernel_row("searchsorted_sorted", shape,
+                    lambda: searchsorted_sorted_cuda.searchsorted_sorted(
+                        cum, slots),
+                    lambda: searchsorted_sorted_cuda.searchsorted_sorted_torch(
+                        cum, slots),
+                    lambda: torch.searchsorted(cum, slots, right=True),
+                    f * (batch * k + 2 * n_p), n_p * steps,
+                    "torch.searchsorted")
+        _kernel_row("resample_sorted", shape + (1,),
+                    lambda: resample_sorted_cuda.resample_and_gather_sorted(
+                        cum, slots, value),
+                    lambda: (resample_sorted_cuda
+                             .resample_and_gather_sorted_torch(cum, slots,
+                                                               value)),
+                    None, f * (batch * k * 2 + n_p * 3), n_p * steps)
+        _kernel_row("range_sum", shape + (1,),
+                    lambda: range_sum_cuda.range_sum(cum, slots, g),
+                    lambda: range_sum_cuda.range_sum_torch(cum, slots, g),
+                    lambda: torch.zeros((batch, k, 1), device=dev)
+                    .scatter_add_(1, sel.long().unsqueeze(-1), g),
+                    f * (batch * k * 2 + n_p * 2), n_p * steps + n_p,
+                    "scatter_add_ over the given ancestors (non-"
+                    "deterministic)")
+        _kernel_row("gather_sorted", (batch, k, k_l),
+                    lambda: gather_sorted_cuda.gather_sorted(states, sel),
+                    lambda: gather_sorted_cuda.gather_sorted_torch(states,
+                                                                   sel),
+                    lambda: torch.take_along_dim(states, sel.long(), dim=1),
+                    f * (batch * k + 2 * n_p), 0, "take_along_dim")
+    seconds = time.perf_counter() - start
+    print(f"== 37c took {seconds:.1f} s", flush=True)
+    return seconds
+
+
 def multi_device_phase(dev):
     phase(f"35 multi-device: NCCL world of {torch.cuda.device_count()} "
           f"rank(s), one card each; {MD_GLOO_RANKS} gloo ranks on cuda:0 "
           f"on meshes {MD_GLOO_MESHES}; K2-K4 at the distributed shapes; "
-          f"phase 36 (slice E2) inside both worlds")
+          f"phases 36 (slice E2) and 37 (slice E3) inside both worlds")
     start = time.perf_counter()
     _md_kernel_phase(dev)
+    e3_kernels = _e3_kernel_phase(dev)
     nccl = _md_world(torch.cuda.device_count(), "nccl", "_md_nccl_task")
     gloo = _md_world(MD_GLOO_RANKS, "gloo", "_md_gloo_task")
     e2 = nccl[0]["e2_seconds"] + gloo[0]["e2_seconds"]
+    e3 = e3_kernels + nccl[0]["e3_seconds"] + gloo[0]["e3_seconds"]
     _phase_seconds("35", start)
     print(f"== phase 36 (slice E2) took {e2:.1f} s of them (rank 0: "
           f"{nccl[0]['e2_seconds']:.1f} s in the NCCL world, "
           f"{gloo[0]['e2_seconds']:.1f} s in the gloo world)", flush=True)
+    print(f"== phase 37 (slice E3) took {e3:.1f} s of them ({e3_kernels:.1f} "
+          f"s the kernels here; rank 0: {nccl[0]['e3_seconds']:.1f} s in "
+          f"the NCCL world, {gloo[0]['e3_seconds']:.1f} s in the gloo "
+          f"world)", flush=True)
 
 
 def _build_other(other, sources):

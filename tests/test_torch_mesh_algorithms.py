@@ -66,8 +66,11 @@ import test_torch_twisted as twisted_tests
 import torch_dist
 import torch_threads  # noqa: F401
 from aesmc_tpu import blockpf as jax_blockpf
+from aesmc_tpu import gradients as jax_gradients
 from aesmc_tpu import if2 as jax_if2
 from aesmc_tpu import inference as jax_inference
+from aesmc_tpu import losses as jax_losses
+from aesmc_tpu import ot as jax_ot_module
 from aesmc_tpu import parallel as jax_parallel
 from aesmc_tpu import rbpf as jax_rbpf
 from aesmc_tpu import resample_move as jax_rm
@@ -78,12 +81,13 @@ from aesmc_tpu import statistics as jax_statistics
 from aesmc_tpu import twisted as jax_twisted
 from aesmc_tpu.models import lgssm as jax_lgssm
 from aesmc_tpu.models import lorenz as jax_lorenz
-from aesmc_tpu_torch import (blockpf, if2, inference, online, ot, rbpf,
-                             resample_move, samplers, smc2, smoothing,
-                             twisted)
+from aesmc_tpu_torch import (blockpf, gradients, if2, inference, losses,
+                             online, ot, rbpf, resample_move, resampling,
+                             samplers, smc2, smoothing, train, twisted)
 from aesmc_tpu_torch.models import hmm
 from aesmc_tpu_torch.noise import NoiseSource
-from torch_replay import fields, lgssm_params, normal_draw
+from torch_replay import (fields, lgssm_params, normal_draw, proposal_eps,
+                          replayed_noise)
 
 A, Q, EM, R0 = 0.9, 1.0, 1.0, 0.5
 T, B, K, M = 5, 4, 32, 8
@@ -407,6 +411,115 @@ CASES["if2_jax"] = ("if2_case", dict(
     num_iterations=if2_tests.M, cooling=0.8,
     draws=_lists(if2_tests._replay(if2_tests.KEY, if2_tests.T,
                                    if2_tests.M, 1))))
+
+
+# ---- slice E3: residual resampling, the low-rank OT, TMC and the score
+# estimator on a mesh, on the file's LGSSM (T, B, K) = (5, 4, 32). The
+# JAX draws are replayed from E3_KEY's schedule: `infer`'s `split(key, (T,
+# 2))` (residual's `[B, K]` uniforms as stratified's, multinomial's K + 1
+# exponentials, the proposal's eps recovered from the JAX latents), the
+# low-rank jitter from `split(keys[t, 0])`, TMC's eps from the JAX
+# `infer('is')` run with the same key (TMC samples as IS does).
+E3_KEY = jax.random.PRNGKey(6)
+LR_RANK, LR_ITERS, LR_KEY = 4, 10, jax.random.PRNGKey(8)
+RES_LW = (3.0 * np.random.RandomState(15).randn(B, K)).astype(np.float32)
+RES_VALUE = {"x": np.random.RandomState(16).randn(B, K).astype(np.float32),
+             "s": np.arange(B * K, dtype=np.int32).reshape(B, K) - 50}
+
+
+def _replay_lists(replay):
+    return {kind: [np.asarray(x) for x in xs] for kind, xs in (
+        ("uniform", replay.uniforms), ("normal", replay.normals),
+        ("exponential", replay.exponentials)) if xs}
+
+
+def _jax_run(method, components, obs):
+    """The JAX `infer` on the (2, 4) mesh from E3_KEY: log-Z, latents and
+    ancestors of ``method``."""
+    mesh = jax_parallel.make_mesh(data=2, particle=4)
+    return jax.jit(lambda o: jax_inference.infer(
+        "smc", o, *components, K, key=E3_KEY, resampling_method=method,
+        mesh=mesh, return_log_marginal_likelihood=True,
+        return_original_latents=True, return_ancestral_indices=True,
+        return_latents=False, return_log_weight=False))(jnp.asarray(obs))
+
+
+# Residual against JAX on the OT cases' LGSSM: under the file's exact
+# proposal every K w sits at 1, where the two packages' float32
+# exponentials put floor(K w) on either side (one device against one
+# device too); that proposal's weights are spread.
+RES_JAX = _jax_run("residual", _OT_JAX, OT_OBS)
+MULTINOMIAL_JAX = _jax_run("multinomial", _jax_components(), OBS)
+
+
+def _e3_draws(run, method, components, obs):
+    return _replay_lists(replayed_noise(
+        components[3], obs, E3_KEY, run["original_latents"],
+        run["ancestral_indices"], method))
+
+
+def _lowrank_draws(key, num_timesteps):
+    """The low-rank engine's draws from ``key``: the proposal's normals
+    and each step's two `[B, K, r]` jitter draws before them."""
+    keys = jax.random.split(key, (num_timesteps, 2))
+    normals = [normal_draw(keys[0, 1], (K,), (B,), batch_expanded=True)]
+    for t in range(1, num_timesteps):
+        normals += [np.asarray(jax.random.normal(kk, (B, K, LR_RANK)))
+                    for kk in jax.random.split(keys[t, 0])]
+        normals.append(normal_draw(keys[t, 1], (), (B, K)))
+    return {"normal": normals}
+
+
+def _tmc_draws():
+    latents = jax_inference.infer("is", jnp.asarray(OBS), *_jax_components(),
+                                  K, key=E3_KEY)["latents"]
+    return {"normal": proposal_eps(torch_dist.lgssm_components(PARAMS)[3],
+                                   OBS, latents, None)}
+
+
+LR_DIRECT_DRAWS = {"normal": [np.asarray(jax.random.normal(kk, (B, K,
+                                                                LR_RANK)))
+                              for kk in jax.random.split(LR_KEY)]}
+E3 = dict(obs=OBS, params=PARAMS, num_particles=K)
+for _dp, _pp in MESHES:
+    CASES[("residual", _dp, _pp)] = ("residual_case", dict(E3, dp=_dp,
+                                                           pp=_pp))
+    CASES[("residual_online", _dp, _pp)] = ("residual_case", dict(
+        E3, dp=_dp, pp=_pp, online=True))
+    CASES[("residual_direct", _dp, _pp)] = ("residual_direct_case", dict(
+        dp=_dp, pp=_pp, log_weight=RES_LW, value=RES_VALUE))
+    CASES[("residual_loss", _dp, _pp)] = ("loss_case", dict(
+        E3, dp=_dp, pp=_pp, algorithm="aesmc", resampling_method="residual"))
+    CASES[("lowrank", _dp, _pp)] = ("lowrank_case", dict(
+        dp=_dp, pp=_pp, log_weight=OT_LW, value=OT_VALUE, rank=LR_RANK,
+        num_iterations=LR_ITERS, draws=LR_DIRECT_DRAWS))
+    CASES[("lowrank_infer", _dp, _pp)] = ("lowrank_engine_case", dict(
+        OT, dp=_dp, pp=_pp, rank=LR_RANK, num_iterations=LR_ITERS))
+    CASES[("tmc", _dp, _pp)] = ("loss_case", dict(E3, dp=_dp, pp=_pp,
+                                                  algorithm="tmc"))
+    CASES[("tmc_train", _dp, _pp)] = ("train_case", dict(
+        E3, dp=_dp, pp=_pp, algorithm="tmc", steps=2))
+    for _baseline in ("batch", "none"):
+        CASES[("score", _dp, _pp, _baseline)] = ("loss_case", dict(
+            E3, dp=_dp, pp=_pp, algorithm="aesmc",
+            resampling_method="multinomial", gradient_estimator="score",
+            score_baseline=_baseline))
+CASES["residual_jax"] = ("residual_case", dict(
+    OT, dp=2, pp=2, draws=_e3_draws(RES_JAX, "residual", _OT_JAX, OT_OBS)))
+CASES["lowrank_online"] = ("lowrank_engine_case", dict(
+    OT, dp=1, pp=4, rank=LR_RANK, num_iterations=LR_ITERS, online=True))
+CASES["lowrank_infer_jax"] = ("lowrank_engine_case", dict(
+    OT, dp=2, pp=2, rank=LR_RANK, num_iterations=LR_ITERS,
+    draws=_lowrank_draws(OT_KEY, OT_OBS.shape[0])))
+CASES["tmc_jax"] = ("loss_case", dict(E3, dp=2, pp=2, algorithm="tmc",
+                                      draws=_tmc_draws()))
+for _baseline in ("batch", "none"):
+    CASES[("score_jax", _baseline)] = ("loss_case", dict(
+        E3, dp=2, pp=2, algorithm="aesmc", resampling_method="multinomial",
+        gradient_estimator="score", score_baseline=_baseline,
+        draws=_e3_draws(MULTINOMIAL_JAX, "multinomial", _jax_components(),
+                        OBS)))
+
 
 
 @pytest.fixture(scope="module")
@@ -1083,3 +1196,335 @@ def test_ring_shift_forms_are_bit_equal(world):
                 np.testing.assert_array_equal(d, s)
             for d, mine in zip(direct, src["mine"]):
                 np.testing.assert_array_equal(d, mine)
+
+
+# ---- slice E3 ----------------------------------------------------------
+
+def _single_lgssm(params=PARAMS):
+    return torch_dist.lgssm_components(params)
+
+
+def _mean_grads(results):
+    """The mean of the ranks' gradients: the single-device gradient
+    (`parallel.sharded`)."""
+    return [np.mean([r["grads"][i] for r in results], axis=0)
+            for i in range(len(results[0]["grads"]))]
+
+
+def _single_grads(algorithm, noise, params=PARAMS, obs=OBS, **kwargs):
+    comps = _single_lgssm(params)
+    loss = losses.get_loss(torch.tensor(obs), K, algorithm, *comps,
+                           noise=noise, **kwargs)
+    loss.backward()
+    return float(loss.detach()), torch_dist._grads(comps)
+
+
+def _assert_grads(got, want, rtol, atol=0.0):
+    """Each leaf within ``rtol`` times its largest entry, plus ``atol``."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        bar = rtol * float(np.abs(w).max()) + atol
+        np.testing.assert_allclose(g, w, rtol=0, atol=bar, err_msg=f"{i}")
+
+
+class TestResidual:
+    """Residual resampling on a mesh (the residual exchange) against the
+    single-device port call on the same seed: ancestors and latents
+    exactly (every rank computes the copies and the residual CDF on the
+    gathered rows with one device's arithmetic, and counts cross ranks as
+    integers; the file's exact proposal puts every K w at 1, where a
+    distributed logsumexp's last bit moved 23 of 32 first-step slots),
+    log-Z within 1e-5 relative (the engine's log-Z terms cross the
+    particle group); against the JAX mesh call on its replayed draws
+    (the OT cases' LGSSM, see RES_JAX), ancestors exactly and log-Z
+    within 1e-5 relative."""
+
+    @pytest.mark.parametrize("dp,pp", MESHES)
+    def test_infer_equals_single_device(self, world, dp, pp):
+        results = world[("residual", dp, pp)]
+        want = inference.infer(
+            "smc", torch.tensor(OBS), *_single_lgssm(), K, noise=_seeded(),
+            resampling_method="residual",
+            return_log_marginal_likelihood=True,
+            return_ancestral_indices=True)
+        layout = dict(row_dim=1, particle_dim=2)
+        np.testing.assert_array_equal(
+            torch_dist.assemble([r["ancestral_indices"] for r in results],
+                                dp, pp, **layout),
+            want["ancestral_indices"].numpy())
+        np.testing.assert_array_equal(
+            torch_dist.assemble([r["latents"] for r in results], dp, pp,
+                                **layout), want["latents"].detach().numpy())
+        np.testing.assert_allclose(
+            _rows(results, "log_marginal_likelihood", dp, pp),
+            want["log_marginal_likelihood"].detach().numpy(), rtol=1e-5)
+
+    @pytest.mark.parametrize("dp,pp", MESHES)
+    def test_stream_equals_single_device(self, world, dp, pp):
+        results = world[("residual_online", dp, pp)]
+        init_fn, step_fn = online.make_online_filter(
+            *_single_lgssm(), K, resampling_method="residual",
+            return_ancestors=True)
+        noise, obs = _seeded(), torch.tensor(OBS)
+        fs = init_fn(obs[0], noise)
+        preds, ancestors = [], []
+        for t in range(1, T):
+            fs, info = step_fn(fs, obs[t], noise)
+            preds.append(info["log_pred"].detach().numpy())
+            ancestors.append(info["ancestral_index"].numpy())
+        np.testing.assert_array_equal(
+            torch_dist.assemble([r["ancestral_indices"] for r in results],
+                                dp, pp, row_dim=1, particle_dim=2),
+            np.stack(ancestors))
+        # log_pred is a difference of two log-Z values: 1e-5 of those.
+        np.testing.assert_allclose(_rows(results, "log_pred", dp, pp, 1),
+                                   np.stack(preds), rtol=0, atol=1e-4)
+        np.testing.assert_allclose(
+            _rows(results, "log_marginal_likelihood", dp, pp),
+            online.log_marginal_likelihood(fs).detach().numpy(), rtol=1e-5)
+
+    @pytest.mark.parametrize("dp,pp", MESHES)
+    def test_exchange_equals_single_device_through_the_kernels(
+            self, world, dp, pp):
+        # The direct call, with 'auto' routed to the kernels' wrappers: K4
+        # searches the residual draws and, with no value, the slots; K3
+        # gathers the float32 leaf with K2 as its backward; K5 moves the
+        # int32 leaf. The indices are one device's exactly.
+        results = world[("residual_direct", dp, pp)]
+        want = resampling.residual_indices(torch.tensor(RES_LW),
+                                           _seeded()).numpy()
+        idx = torch_dist.assemble([r["idx"] for r in results], dp, pp)
+        np.testing.assert_array_equal(idx, want)
+        np.testing.assert_array_equal(
+            torch_dist.assemble([r["indices_only"] for r in results], dp,
+                                pp), want)
+        for k, v in RES_VALUE.items():
+            np.testing.assert_array_equal(
+                torch_dist.assemble([r[k] for r in results], dp, pp),
+                np.take_along_axis(v, want, axis=1))
+        # d sum(x[idx]^2) / dx_i = 2 x_i times its count.
+        counts = np.stack([np.bincount(row, minlength=K) for row in want])
+        np.testing.assert_allclose(
+            torch_dist.assemble([r["grad_x"] for r in results], dp, pp),
+            2.0 * counts * RES_VALUE["x"], rtol=1e-6)
+        shape = (B // dp, K // pp)
+        for r in results:
+            assert r["calls"] == {
+                "searchsorted_sorted": [shape] * 3,
+                "resample_and_gather_sorted": [shape],
+                "range_sum": [shape],
+                "gather_sorted": [shape]}, r["calls"]
+
+    @pytest.mark.parametrize("dp,pp", MESHES)
+    def test_aesmc_gradients_equal_single_device(self, world, dp, pp):
+        results = world[("residual_loss", dp, pp)]
+        loss, grads = _single_grads("aesmc", _seeded(),
+                                    resampling_method="residual")
+        for r in results:
+            np.testing.assert_allclose(r["loss"], loss, rtol=1e-5)
+        _assert_grads(_mean_grads(results), grads, rtol=1e-5)
+
+    def test_matches_jax_mesh(self, world):
+        results = world["residual_jax"]
+        np.testing.assert_array_equal(
+            torch_dist.assemble([r["ancestral_indices"] for r in results],
+                                2, 2, row_dim=1, particle_dim=2),
+            np.asarray(RES_JAX["ancestral_indices"]))
+        np.testing.assert_allclose(
+            _rows(results, "log_marginal_likelihood", 2, 2),
+            np.asarray(RES_JAX["log_marginal_likelihood"]), rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def jax_lowrank():
+    """The JAX low-rank transport of the OT cases' cloud (one device; its
+    mesh form is `infer`'s) and the gradients of sum(x^2) + sum(y)."""
+    value = {k: jnp.asarray(v) for k, v in OT_VALUE.items()}
+
+    def loss(lw_, vx):
+        out = jax_ot_module.lowrank_ot_resample(
+            lw_, {**value, "x": vx}, rank=LR_RANK,
+            num_iterations=LR_ITERS, key=LR_KEY)[0]
+        return jnp.sum(out["x"] ** 2) + jnp.sum(out["y"]), out
+
+    (_, got), grads = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(jnp.asarray(OT_LW), value["x"])
+    return got, dict(zip(("grad_lw", "grad_x"), grads))
+
+
+class TestLowRankOT:
+    """The low-rank transport on a particle group: within 1e-4 of the
+    single-device port call (same jitter) and of the JAX call (its
+    jitter replayed), gradients within atol 2e-4 / rtol 1e-3 (the 'ot'
+    cases' bars); in `infer` and the stream within 1e-4 of one device,
+    and of the JAX mesh `infer` on its replayed draws."""
+
+    @pytest.mark.parametrize("dp,pp", MESHES)
+    def test_matches_jax_and_single_device(self, world, jax_lowrank, dp,
+                                           pp):
+        results = world[("lowrank", dp, pp)]
+        got_jax, jax_grads = jax_lowrank
+        lw = torch.tensor(OT_LW).requires_grad_(True)
+        value = {k: torch.tensor(v) for k, v in OT_VALUE.items()}
+        value["x"].requires_grad_(True)
+        single, _ = ot.lowrank_ot_resample(
+            lw, value, rank=LR_RANK, num_iterations=LR_ITERS,
+            noise=torch_dist.ListNoise(**LR_DIRECT_DRAWS))
+        ((single["x"] ** 2).sum() + single["y"].sum()).backward()
+        for k in OT_VALUE:
+            got = torch_dist.assemble([r["value"][k] for r in results],
+                                      dp, pp)
+            np.testing.assert_allclose(got, single[k].detach().numpy(),
+                                       atol=1e-4, rtol=1e-4)
+            np.testing.assert_allclose(got, np.asarray(got_jax[k]),
+                                       atol=1e-4, rtol=1e-4)
+        assert not any(r["new_log_weight"].any() for r in results)
+        for name, want in (("grad_lw", lw.grad), ("grad_x", value["x"].grad)):
+            got = torch_dist.assemble([r[name] for r in results], dp, pp)
+            np.testing.assert_allclose(got, want.numpy(), atol=2e-4,
+                                       rtol=1e-3, err_msg=name)
+            np.testing.assert_allclose(got, np.asarray(jax_grads[name]),
+                                       atol=2e-4, rtol=1e-3, err_msg=name)
+
+    @pytest.mark.parametrize("dp,pp", MESHES)
+    def test_engine_equals_single_device(self, world, dp, pp):
+        results = world[("lowrank_infer", dp, pp)]
+        want = inference.infer(
+            "smc", torch.tensor(OT_OBS), *_single_lgssm(OT_PARAMS), K,
+            noise=_seeded(), resampling_method="ot", ot_rank=LR_RANK,
+            ot_num_iterations=LR_ITERS, return_log_marginal_likelihood=True,
+            return_latents=False)
+        np.testing.assert_allclose(
+            _rows(results, "log_marginal_likelihood", dp, pp),
+            want["log_marginal_likelihood"].detach().numpy(), atol=1e-4)
+        np.testing.assert_allclose(
+            torch_dist.assemble([r["last_latent"] for r in results], dp,
+                                pp), want["last_latent"].detach().numpy(),
+            atol=1e-4)
+
+    def test_stream_equals_single_device(self, world):
+        init_fn, step_fn = online.make_online_filter(
+            *_single_lgssm(OT_PARAMS), K, resampling_method="ot",
+            ot_rank=LR_RANK, ot_num_iterations=LR_ITERS)
+        noise, obs = _seeded(), torch.tensor(OT_OBS)
+        fs = init_fn(obs[0], noise)
+        preds = []
+        for t in range(1, OT_OBS.shape[0]):
+            fs, info = step_fn(fs, obs[t], noise)
+            preds.append(info["log_pred"].detach().numpy())
+        np.testing.assert_allclose(world["lowrank_online"][0]["log_pred"],
+                                   np.stack(preds), atol=1e-4)
+
+    def test_engine_matches_jax_mesh(self, world, jax_mesh):
+        want = jax.jit(lambda o: jax_inference.infer(
+            "smc", o, *_OT_JAX, K, key=OT_KEY, resampling_method="ot",
+            ot_rank=LR_RANK, ot_num_iterations=LR_ITERS, mesh=jax_mesh,
+            return_log_marginal_likelihood=True, return_latents=False,
+            return_log_weight=False))(jnp.asarray(OT_OBS))
+        np.testing.assert_allclose(
+            _rows(world["lowrank_infer_jax"], "log_marginal_likelihood", 2,
+                  2), np.asarray(want["log_marginal_likelihood"]), atol=1e-4)
+
+
+class TestTMC:
+    """TMC on a mesh: the loss within 1e-5 relative of the single-device
+    port's, and the mean of the ranks' gradients within 1e-5 relative of
+    its gradient plus 1e-6 absolute (the proposal's bias gradient is
+    ~0.009 here, the largest entries ~10); the loss within 1e-5 relative
+    of JAX `get_loss('tmc', mesh=)` on the replayed draws; parameters
+    after 2 sharded Adam steps within 1e-5 relative of
+    `train.make_train_step`'s."""
+
+    @pytest.mark.parametrize("dp,pp", MESHES)
+    def test_loss_and_gradients_equal_single_device(self, world, dp, pp):
+        results = world[("tmc", dp, pp)]
+        loss, grads = _single_grads("tmc", _seeded())
+        for r in results:
+            np.testing.assert_allclose(r["loss"], loss, rtol=1e-5)
+        _assert_grads(_mean_grads(results), grads, rtol=1e-5, atol=1e-6)
+
+    @pytest.mark.parametrize("dp,pp", MESHES)
+    def test_sharded_steps_equal_single_device(self, world, dp, pp):
+        results = world[("tmc_train", dp, pp)]
+        comps = _single_lgssm()
+        step = train.make_train_step(K, "tmc", torch.optim.Adam(
+            train.get_chained_params(*comps), lr=1e-2))
+        for i in range(2):
+            loss = float(step(comps, torch.tensor(OBS),
+                              NoiseSource.seeded(i, "cpu")))
+            for r in results:
+                np.testing.assert_allclose(r["losses"][i], loss, rtol=1e-5)
+        for r in results:
+            for got, want in zip(r["params"],
+                                 train.get_chained_params(*comps)):
+                np.testing.assert_allclose(got, want.detach().numpy(),
+                                           rtol=1e-5, atol=1e-7)
+
+    def test_matches_jax_mesh(self, world, jax_mesh):
+        want = jax.jit(lambda o: jax_losses.get_loss(
+            o, K, "tmc", *_jax_components(), key=E3_KEY, mesh=jax_mesh))(
+                jnp.asarray(OBS))
+        for r in world["tmc_jax"]:
+            np.testing.assert_allclose(r["loss"], float(want), rtol=1e-5)
+
+
+class TestScore:
+    """The score estimator on a mesh: the loss equal to the single-device
+    port's within 1e-6 relative (the per-step logsumexps cross the
+    particle group in another order). The mean of the ranks' gradients
+    within 1e-5 of each leaf's largest entry of the single-device port's
+    plus 10 times that leaf's float32 rounding, measured as the
+    single-device gradient's distance from a float64 evaluation of the
+    same surrogate on the same engine output: the score term sums K
+    per-particle gradients times advantages of several nats, which cancel
+    to a gradient far smaller than its terms (here up to 1.8e-4 of a
+    leaf, baseline 'none'; on the card's draws in `chip_smoke.py` phase
+    37 a leaf of 127 cancelled terms of ~1e4), and the mesh sums them in
+    another order.
+    Against the JAX mesh call on replayed draws: the loss within 1e-4,
+    gradients within rtol 1e-3 / atol 1e-4 (`tests/test_torch_gradients.
+    py`'s bars), baselines 'batch' and 'none'."""
+
+    @pytest.mark.parametrize("dp,pp", MESHES)
+    @pytest.mark.parametrize("baseline", ["batch", "none"])
+    def test_equals_single_device(self, world, dp, pp, baseline):
+        results = world[("score", dp, pp, baseline)]
+        loss, grads = _single_grads(
+            "aesmc", _seeded(), resampling_method="multinomial",
+            gradient_estimator="score", score_baseline=baseline)
+        for r in results:
+            np.testing.assert_allclose(r["loss"], loss, rtol=1e-6)
+        comps = _single_lgssm()
+        result = inference.infer(
+            "smc", torch.tensor(OBS), *comps, K, noise=_seeded(),
+            resampling_method="multinomial", return_log_weights=True,
+            return_ancestral_indices=True, return_latents=False)
+        wide = dict(result, log_weights=result["log_weights"].double())
+        gradients.score_surrogate_from_result(wide, baseline).backward()
+        rounding = [np.abs(g - w).max() for g, w in
+                    zip(grads, torch_dist._grads(comps))]
+        for i, (got, want) in enumerate(zip(_mean_grads(results), grads)):
+            np.testing.assert_allclose(
+                got, want, rtol=0, err_msg=f"{i}",
+                atol=1e-5 * np.abs(want).max() + 10 * rounding[i])
+
+    @pytest.mark.parametrize("baseline", ["batch", "none"])
+    def test_matches_jax_mesh(self, world, jax_mesh, baseline):
+        def loss_fn(trainable):
+            return jax_gradients.score_gradient_loss(
+                jnp.asarray(OBS), K, _jax_components()[0], *trainable,
+                key=E3_KEY, baseline=baseline, mesh=jax_mesh)
+
+        loss, grads = jax.jit(jax.value_and_grad(loss_fn))(
+            tuple(_jax_components()[1:]))
+        results = world[("score_jax", baseline)]
+        for r in results:
+            np.testing.assert_allclose(r["loss"], float(loss), atol=1e-4)
+        # The port's chained parameters, in order: the transition's and
+        # the emission's mult, then the proposal's four fields.
+        leaves = ((0, "mult"), (1, "mult"), (2, "lin_0_weight"),
+                  (2, "lin_0_bias"), (2, "lin_t_weight"), (2, "lin_t_bias"))
+        for (i, name), got in zip(leaves, _mean_grads(results)):
+            np.testing.assert_allclose(got, np.asarray(getattr(grads[i],
+                                                               name)),
+                                       rtol=1e-3, atol=1e-4,
+                                       err_msg=f"{i}.{name}")

@@ -378,16 +378,18 @@ class TestOnlineMesh:
 
 class TestErrors:
     # kind None: the call runs on a mesh ('ot', streaming PaRIS and
-    # genealogy run since the slice that ported them; their results are
-    # held in tests/test_torch_mesh_algorithms.py).
+    # genealogy since the slice that ported them; the low-rank OT,
+    # residual resampling and TMC since the one that closed those
+    # refusals; their results are held in
+    # tests/test_torch_mesh_algorithms.py).
     @pytest.mark.parametrize("name,kind,match", [
         ("ot", None, None),
-        ("ot_rank", "ValueError", "low-rank"),
-        ("residual", "ValueError", "residual"),
+        ("ot_rank", None, None),
+        ("residual", None, None),
         ("no_mesh", "ValueError", "mesh="),
         ("paris", None, None),
         ("genealogy", None, None),
-        ("tmc", "NotImplementedError", "mesh="),
+        ("tmc", None, None),
         ("split", "ValueError", "particle shards")])
     def test_refused_on_a_mesh(self, world, name, kind, match):
         got = world["errors"][0][name]

@@ -257,7 +257,7 @@ def _grads(components):
 
 def train_case(dp, pp, obs, params, num_particles, steps=1, lr=1e-2,
                method="systematic", exchange=None, soft_alpha=0.5,
-               seed=0, draws=None, explicit=False):
+               seed=0, draws=None, explicit=False, algorithm="aesmc"):
     """``steps`` of `make_sharded_train_step` with Adam: each step's loss,
     the averaged gradients of the last step and the parameters after.
     Step i draws from a source seeded ``seed + i``, or the first step
@@ -274,7 +274,7 @@ def train_case(dp, pp, obs, params, num_particles, steps=1, lr=1e-2,
     elif explicit:
         impl = parallel.make_distributed_systematic_resampler(m)
     step = parallel.make_sharded_train_step(
-        num_particles, "aesmc", optimizer, m, resampling_method=method,
+        num_particles, algorithm, optimizer, m, resampling_method=method,
         resampling_implementation=impl)
     obs_b = parallel.shard_batch(_tensor(obs), m)
     losses = []
@@ -918,3 +918,143 @@ def if2_case(dp, pp, obs, theta0, num_particles, num_iterations, seed=0,
                   noise=_noise(draws, seed), resampling_implementation=(
                       parallel.make_distributed_fused_resampler(m)))
     return {k: _numpy(v) for k, v in out.items()}
+
+
+# ---- slice E3: residual resampling, the low-rank OT, TMC and the score
+# estimator on a mesh -------------------------------------------------------
+
+def residual_case(dp, pp, obs, params, num_particles, draws=None, seed=0,
+                  online=False):
+    """'residual' with ``mesh``: `infer`'s ancestors, traced latents and
+    log-Z; with ``online`` the streaming filter's ancestors, log-
+    predictives and final log-Z."""
+    m = mesh(dp, pp)
+    comps = lgssm_components(params)
+    obs_b = block(_tensor(obs), m, {1: "data"})
+    noise = _noise(draws, seed)
+    if online:
+        init_fn, step_fn = port.online.make_online_filter(
+            *comps, num_particles, resampling_method="residual",
+            return_ancestors=True, mesh=m)
+        fs = init_fn(obs_b[0], noise)
+        preds, ancestors = [], []
+        for t in range(1, obs_b.shape[0]):
+            fs, info = step_fn(fs, obs_b[t], noise)
+            preds.append(_numpy(info["log_pred"]))
+            ancestors.append(_numpy(info["ancestral_index"]))
+        return {"log_pred": np.stack(preds),
+                "ancestral_indices": np.stack(ancestors),
+                "log_marginal_likelihood": _numpy(
+                    port.online.log_marginal_likelihood(fs, m))}
+    out = port.inference.infer(
+        "smc", obs_b, *comps, num_particles, noise=noise,
+        resampling_method="residual", return_log_marginal_likelihood=True,
+        return_ancestral_indices=True, mesh=m)
+    return {k: _numpy(out[k]) for k in (
+        "ancestral_indices", "latents", "log_marginal_likelihood")}
+
+
+def residual_direct_case(dp, pp, log_weight, value, seed=0):
+    """`distributed_residual_resample` on this rank's blocks of global
+    `[B, K]` log-weights and a value with a float32 and an int32 leaf,
+    and with no value; the gradient of sum(x^2) with respect to this
+    rank's x. 'auto' routes to the kernels' wrappers (their plain
+    versions on CPU tensors), and each wrapper's calls are counted."""
+    from aesmc_tpu_torch import resampling
+    from aesmc_tpu_torch.ops import (gather_sorted_cuda, range_sum_cuda,
+                                     resample_sorted_cuda,
+                                     searchsorted_sorted_cuda)
+    m = mesh(dp, pp)
+    dims = {0: "data", 1: "particle"}
+    lw = block(_tensor(log_weight), m, dims)
+    x = block(_tensor(value["x"]), m, dims).clone().requires_grad_(True)
+    s = block(_tensor(value["s"]), m, dims)
+    patches = [(resampling, "_route", lambda device, impl: "cuda")]
+    calls = {}
+    for module, name in ((searchsorted_sorted_cuda, "searchsorted_sorted"),
+                         (resample_sorted_cuda, "resample_and_gather_sorted"),
+                         (range_sum_cuda, "range_sum"),
+                         (gather_sorted_cuda, "gather_sorted")):
+        def counted(*args, _f=getattr(module, name), _n=name, **kw):
+            calls.setdefault(_n, []).append(tuple(args[1].shape))
+            return _f(*args, **kw)
+        patches.append((module, name, counted))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        idx, out = dist_resampling.distributed_residual_resample(
+            lw, _noise(None, seed), {"x": x, "s": s},
+            m.get_group("particle"), m.get_group("data"))
+        (out["x"] ** 2).sum().backward()
+        indices_only, _ = dist_resampling.distributed_residual_resample(
+            lw, _noise(None, seed), None, m.get_group("particle"),
+            m.get_group("data"))
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return {"idx": idx.numpy(), "x": _numpy(out["x"]), "s": out["s"].numpy(),
+            "grad_x": x.grad.numpy(), "indices_only": indices_only.numpy(),
+            "calls": calls}
+
+
+def lowrank_case(dp, pp, log_weight, value, rank, num_iterations, draws):
+    """`ot.lowrank_ot_resample(group=)` on this rank's blocks, its jitter
+    this rank's blocks of the global ``draws``: the transported value and
+    the gradients of sum(x^2) + sum(y) with respect to this rank's
+    log-weights and x."""
+    from aesmc_tpu_torch import ot
+    from aesmc_tpu_torch.sharding_utils import Cloud
+    m = mesh(dp, pp)
+    dims = {0: "data", 1: "particle"}
+    lw = block(_tensor(log_weight), m, dims).clone().requires_grad_(True)
+    val = {k: block(_tensor(v), m, dims).clone() for k, v in value.items()}
+    val["x"].requires_grad_(True)
+    out, new_lw = ot.lowrank_ot_resample(
+        lw, val, rank=rank, num_iterations=num_iterations,
+        noise=Cloud(m).noise(ListNoise(**draws)),
+        group=m.get_group("particle"))
+    ((out["x"] ** 2).sum() + out["y"].sum()).backward()
+    return {"value": _numpy(out), "new_log_weight": _numpy(new_lw),
+            "grad_lw": lw.grad.numpy(), "grad_x": val["x"].grad.numpy()}
+
+
+def lowrank_engine_case(dp, pp, obs, params, num_particles, rank,
+                        num_iterations, draws=None, seed=0, online=False):
+    """'ot' with ``ot_rank`` and ``mesh``: `infer`'s log-Z and last latent,
+    or with ``online`` the streaming filter's log-predictives."""
+    m = mesh(dp, pp)
+    comps = lgssm_components(params)
+    obs_b = block(_tensor(obs), m, {1: "data"})
+    noise = _noise(draws, seed)
+    kwargs = dict(resampling_method="ot", ot_rank=rank,
+                  ot_num_iterations=num_iterations)
+    if online:
+        init_fn, step_fn = port.online.make_online_filter(
+            *comps, num_particles, mesh=m, **kwargs)
+        fs = init_fn(obs_b[0], noise)
+        preds = []
+        for t in range(1, obs_b.shape[0]):
+            fs, info = step_fn(fs, obs_b[t], noise)
+            preds.append(_numpy(info["log_pred"]))
+        return {"log_pred": np.stack(preds)}
+    out = port.inference.infer(
+        "smc", obs_b, *comps, num_particles, noise=noise,
+        return_log_marginal_likelihood=True, return_latents=False,
+        return_log_weight=False, mesh=m, **kwargs)
+    return {"log_marginal_likelihood": _numpy(out["log_marginal_likelihood"]),
+            "last_latent": _numpy(out["last_latent"])}
+
+
+def loss_case(dp, pp, obs, params, num_particles, algorithm, draws=None,
+              seed=0, **kwargs):
+    """`get_loss(mesh=...)` and this rank's backward pass: the loss and the
+    parameters' gradients (the mean of the ranks' is the single-device
+    gradient)."""
+    m = mesh(dp, pp)
+    comps = lgssm_components(params)
+    loss = port.losses.get_loss(
+        block(_tensor(obs), m, {1: "data"}), num_particles, algorithm,
+        *comps, noise=_noise(draws, seed), mesh=m, **kwargs)
+    loss.backward()
+    return {"loss": float(loss.detach()), "grads": _grads(comps)}
