@@ -66,6 +66,7 @@ from . import device as _device
 from . import ot as _ot
 from . import resampling, state
 from .noise import NoiseSource
+from .profiling import annotate
 from .resampling import sample_ancestral_index  # noqa: F401  (parity export)
 
 __all__ = [
@@ -516,6 +517,7 @@ def _sum_in_order(values):
     return functools.reduce(operator.add, values)
 
 
+@annotate("aesmc.smc.resample")
 def _resample_step(prev_log_weight, values, noise, time, prev_latents,
                    observations, method, implementation, need_ancestors,
                    alpha=0.5, lookahead=None, ess_threshold=None, ot=None,
@@ -719,14 +721,17 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
         return source if cloud is None else cloud.noise(source)
 
     # ---- t = 0 (hoisted: `time` is the int 0).
-    proposal_dist = proposal(time=0, observations=obs_seq)
-    latent_0 = state.sample(proposal_dist, batch_size, local_k, view(noise))
-    proposal_log_prob = state.log_prob(proposal_dist, latent_0)
-    initial_log_prob = state.log_prob(initial(), latent_0)
-    emission_log_prob = state.log_prob(
-        emission(latents=[latent_0], time=0),
-        state.expand_observation(obs_seq[0], local_k))
-    log_weight_0 = initial_log_prob + emission_log_prob - proposal_log_prob
+    with annotate("aesmc.smc.initial"):
+        proposal_dist = proposal(time=0, observations=obs_seq)
+        latent_0 = state.sample(proposal_dist, batch_size, local_k,
+                                view(noise))
+        proposal_log_prob = state.log_prob(proposal_dist, latent_0)
+        initial_log_prob = state.log_prob(initial(), latent_0)
+        emission_log_prob = state.log_prob(
+            emission(latents=[latent_0], time=0),
+            state.expand_observation(obs_seq[0], local_k))
+        log_weight_0 = (initial_log_prob + emission_log_prob -
+                        proposal_log_prob)
 
     log_num_particles = _stdmath.log(num_particles)
     # Ancestor indices feed lineage tracing and the ancestral-indices output
@@ -771,23 +776,28 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
                     (0,), dtype=torch.int32, device=first.device)
         else:
             previous_latents = prev_latents
-        proposal_dist = proposal(previous_latents=previous_latents,
-                                 time=time, observations=obs_seq)
-        latent_t = state.sample(proposal_dist, batch_size, local_k, noise)
-        proposal_lp = state.log_prob(proposal_dist, latent_t)
-        transition_lp = state.log_prob(
-            transition(previous_latents=previous_latents, time=time,
-                       previous_observations=prev_obs_list),
-            latent_t)
-        # The emission sees the un-resampled history and the new latent.
-        emission_lp = state.log_prob(
-            emission(latents=prev_latents[1:] + [latent_t], time=time,
-                     previous_observations=prev_obs_list),
-            state.expand_observation(obs_seq[t], local_k))
-        # With no base (always-resampling) the new weight is the increment.
-        log_weight_t = transition_lp + emission_lp - proposal_lp
-        if base is not None:
-            log_weight_t = base + log_weight_t
+        with annotate("aesmc.smc.propose"):
+            proposal_dist = proposal(previous_latents=previous_latents,
+                                     time=time, observations=obs_seq)
+            latent_t = state.sample(proposal_dist, batch_size, local_k,
+                                    noise)
+            proposal_lp = state.log_prob(proposal_dist, latent_t)
+        with annotate("aesmc.smc.weigh"):
+            transition_lp = state.log_prob(
+                transition(previous_latents=previous_latents, time=time,
+                           previous_observations=prev_obs_list),
+                latent_t)
+            # The emission sees the un-resampled history and the new
+            # latent.
+            emission_lp = state.log_prob(
+                emission(latents=prev_latents[1:] + [latent_t], time=time,
+                         previous_observations=prev_obs_list),
+                state.expand_observation(obs_seq[t], local_k))
+            # With no base (always-resampling) the new weight is the
+            # increment.
+            log_weight_t = transition_lp + emission_lp - proposal_lp
+            if base is not None:
+                log_weight_t = base + log_weight_t
         return latent_t, log_weight_t, ancestral_index, contribution
 
     def remat_step(t, prev_latents, prev_log_weight, tape):
@@ -828,45 +838,47 @@ def _infer(inference_algorithm, observations, initial, transition, emission,
 
     last_latent, last_log_weight = prev_latents[-1], prev_log_weight
 
-    original_latents = _stack_time(latents) if need_original else None
-    stacked_log_weights = (_stack_time(log_weights)
-                           if need_stacked_weights else None)
-    if is_smc:
-        ancestral_indices = (
-            torch.stack(ancestors, dim=0) if ancestors else
-            torch.zeros((0, batch_size, local_k), dtype=torch.int32,
-                        device=first.device))
-    else:
-        ancestral_indices = None
+    with annotate("aesmc.smc.estimate"):
+        original_latents = _stack_time(latents) if need_original else None
+        stacked_log_weights = (_stack_time(log_weights)
+                               if need_stacked_weights else None)
+        if is_smc:
+            ancestral_indices = (
+                torch.stack(ancestors, dim=0) if ancestors else
+                torch.zeros((0, batch_size, local_k), dtype=torch.int32,
+                            device=first.device))
+        else:
+            ancestral_indices = None
 
-    # ---- Estimators: AESMC (smc) and IWAE (is) differ in where the
-    # logsumexp over particles sits relative to the sum over time.
-    if is_smc:
-        if return_log_marginal_likelihood:
-            summed = _sum_in_order(contributions) if contributions else 0.0
-            log_marginal_likelihood = (
-                summed + lse(last_log_weight) - log_num_particles)
+        # ---- Estimators: AESMC (smc) and IWAE (is) differ in where the
+        # logsumexp over particles sits relative to the sum over time.
+        if is_smc:
+            if return_log_marginal_likelihood:
+                summed = (_sum_in_order(contributions) if contributions
+                          else 0.0)
+                log_marginal_likelihood = (
+                    summed + lse(last_log_weight) - log_num_particles)
+            else:
+                log_marginal_likelihood = None
+            if not return_latents:
+                traced = None
+            elif cloud is None:
+                traced = get_resampled_latents(original_latents,
+                                               ancestral_indices)
+            else:
+                traced = _traced_on_mesh(original_latents, ancestral_indices,
+                                         cloud)
+            log_weight = last_log_weight if return_log_weight else None
         else:
-            log_marginal_likelihood = None
-        if not return_latents:
-            traced = None
-        elif cloud is None:
-            traced = get_resampled_latents(original_latents,
-                                           ancestral_indices)
-        else:
-            traced = _traced_on_mesh(original_latents, ancestral_indices,
-                                     cloud)
-        log_weight = last_log_weight if return_log_weight else None
-    else:
-        if return_log_marginal_likelihood or return_log_weight:
-            total_log_weight = stacked_log_weights.sum(dim=0)  # [B, K]
-        if return_log_marginal_likelihood:
-            log_marginal_likelihood = (
-                lse(total_log_weight) - log_num_particles)
-        else:
-            log_marginal_likelihood = None
-        traced = original_latents if return_latents else None
-        log_weight = total_log_weight if return_log_weight else None
+            if return_log_marginal_likelihood or return_log_weight:
+                total_log_weight = stacked_log_weights.sum(dim=0)  # [B, K]
+            if return_log_marginal_likelihood:
+                log_marginal_likelihood = (
+                    lse(total_log_weight) - log_num_particles)
+            else:
+                log_marginal_likelihood = None
+            traced = original_latents if return_latents else None
+            log_weight = total_log_weight if return_log_weight else None
 
     return {
         "log_marginal_likelihood": log_marginal_likelihood,

@@ -70,6 +70,7 @@ from . import resampling, smoothing, state, variance
 from .inference import (DeviceTimeIndex,
                         _particle_logsumexp, _resample_step,
                         _resolve_implementation)
+from .profiling import annotate
 from .sharding_utils import particle_softmax
 
 __all__ = [
@@ -392,22 +393,25 @@ def make_online_filter(initial,
                                    device=prev_log_weight.device)
                         if do is None else do)
 
-        proposal_dist = proposal(previous_latents=[previous_latent],
-                                 time=time, observations=obs_view)
-        latent_t = state.sample(proposal_dist, batch_size, local_k, noise)
-        proposal_lp = state.log_prob(proposal_dist, latent_t)
-        transition_lp = state.log_prob(
-            transition(previous_latents=[previous_latent], time=time,
-                       previous_observations=prev_obs_list),
-            latent_t)
-        emission_lp = state.log_prob(
-            emission(latents=[latent_t], time=time,
-                     previous_observations=prev_obs_list),
-            state.expand_observation(observation, local_k))
-        # `infer`'s arithmetic, in its order: the same bits.
-        log_weight_t = transition_lp + emission_lp - proposal_lp
-        if base is not None:
-            log_weight_t = base + log_weight_t
+        with annotate("aesmc.smc.propose"):
+            proposal_dist = proposal(previous_latents=[previous_latent],
+                                     time=time, observations=obs_view)
+            latent_t = state.sample(proposal_dist, batch_size, local_k,
+                                    noise)
+            proposal_lp = state.log_prob(proposal_dist, latent_t)
+        with annotate("aesmc.smc.weigh"):
+            transition_lp = state.log_prob(
+                transition(previous_latents=[previous_latent], time=time,
+                           previous_observations=prev_obs_list),
+                latent_t)
+            emission_lp = state.log_prob(
+                emission(latents=[latent_t], time=time,
+                         previous_observations=prev_obs_list),
+                state.expand_observation(observation, local_k))
+            # `infer`'s arithmetic, in its order: the same bits.
+            log_weight_t = transition_lp + emission_lp - proposal_lp
+            if base is not None:
+                log_weight_t = base + log_weight_t
 
         eve = num_events = lag_buffer = tau = None
         info = {}
@@ -578,10 +582,12 @@ class CapturedStep:
             self.graph, self.info = train._capture(run, noise.generator)
 
     def __call__(self, observation):
-        for dst, src in zip(pytree.tree_leaves(self.observation),
-                            pytree.tree_leaves(observation)):
-            dst.copy_(src)
-        self.graph.replay()
+        with annotate("aesmc.online.copy_in"):
+            for dst, src in zip(pytree.tree_leaves(self.observation),
+                                pytree.tree_leaves(observation)):
+                dst.copy_(src)
+        with annotate("aesmc.online.replay"):
+            self.graph.replay()
         return self.info
 
 

@@ -56,6 +56,7 @@ import math as _stdmath
 import torch
 
 from . import math as amath
+from .profiling import annotate
 from .ops import (gather_sorted_cuda, resample_cuda, resample_sorted_cuda,
                   searchsorted_sorted_cuda)
 
@@ -66,6 +67,8 @@ IMPLEMENTATIONS = ("auto", "cuda", "torch")
 # up to this K, as the JAX package's 'xla' route does: the [B, K, K]
 # selector costs O(K^2) memory a step.
 DENSE_GATHER_MAX_K = 1024
+# The span of the positions and the search and gather that follow the CDF.
+KERNEL_SPAN = "aesmc.resample.kernel"
 
 
 def _check_nan_eager(log_weight):
@@ -115,6 +118,7 @@ def _two_level_cumsum(x):
     return (inner + offsets[:, None]).reshape(1, -1)[:, :k]
 
 
+@annotate("aesmc.resample.cdf")
 def _normalized_cumsum(log_weight):
     """`[B, K]` log-weights -> `[B, K]` normalized CDF.
 
@@ -366,13 +370,14 @@ def sample_indices(log_weight, noise, method, implementation):
     if implementation == "torch":
         return _indices(log_weight, noise, method)
     cdf = _normalized_cumsum(log_weight)
-    if method == "systematic":
-        u = noise.uniform((log_weight.shape[0], 1))
-        idx, _ = resample_cuda.resample_and_gather_systematic(
-            cdf, u, _no_columns(cdf))
-        return idx
-    pos = resampling_positions(log_weight, noise, method)
-    return searchsorted_sorted_cuda.searchsorted_sorted(cdf, pos)
+    with annotate(KERNEL_SPAN):
+        if method == "systematic":
+            u = noise.uniform((log_weight.shape[0], 1))
+            idx, _ = resample_cuda.resample_and_gather_systematic(
+                cdf, u, _no_columns(cdf))
+            return idx
+        pos = resampling_positions(log_weight, noise, method)
+        return searchsorted_sorted_cuda.searchsorted_sorted(cdf, pos)
 
 
 def _no_columns(cdf):
@@ -549,23 +554,27 @@ def _resample(log_weight, noise, value, method, implementation,
     batch_size, k = log_weight.shape
     cuda = implementation == "cuda"
     if method == "residual":
-        idx = residual_indices(log_weight, noise)
-        out = _unflatten(value, iter(_gather_apart(_leaves(value), idx,
-                                                   False)))
+        with annotate(KERNEL_SPAN):
+            idx = residual_indices(log_weight, noise)
+            out = _unflatten(value, iter(_gather_apart(_leaves(value), idx,
+                                                       False)))
         return (idx if need_indices else None), out
     if (not cuda and k <= DENSE_GATHER_MAX_K and
             all(leaf.is_floating_point() for leaf in _leaves(value))):
-        pos = resampling_positions(log_weight, noise, method)
-        idx, out = dense_indices_and_gather(log_weight, pos, value)
+        # One compare around the CDF: its span nests in the kernel's.
+        with annotate(KERNEL_SPAN):
+            pos = resampling_positions(log_weight, noise, method)
+            idx, out = dense_indices_and_gather(log_weight, pos, value)
         return (idx if need_indices else None), out
     cdf = _normalized_cumsum(log_weight)
-    if method == "systematic":
-        # K1 builds the positions itself from one uniform a row.
-        u, pos = noise.uniform((batch_size, 1)), None
-    else:
-        u, pos = None, resampling_positions(log_weight, noise, method)
-    idx, out, _ = _search_gather(cdf, value, cuda, need_indices, u=u,
-                                 pos=pos)
+    with annotate(KERNEL_SPAN):
+        if method == "systematic":
+            # K1 builds the positions itself from one uniform a row.
+            u, pos = noise.uniform((batch_size, 1)), None
+        else:
+            u, pos = None, resampling_positions(log_weight, noise, method)
+        idx, out, _ = _search_gather(cdf, value, cuda, need_indices, u=u,
+                                     pos=pos)
     return idx, out
 
 
@@ -701,9 +710,11 @@ def _soft_resample(log_weight, noise, value, alpha, implementation,
     lq_det = log_q.detach()
     if implementation == "cuda":
         cdf = _normalized_cumsum(lq_det)
-        pos = resampling_positions(lq_det, noise, "multinomial")
-        idx, out, (log_w_sel, log_q_sel) = _search_gather(
-            cdf, value, True, need_indices, pos=pos, columns=(log_w, lq_det))
+        with annotate(KERNEL_SPAN):
+            pos = resampling_positions(lq_det, noise, "multinomial")
+            idx, out, (log_w_sel, log_q_sel) = _search_gather(
+                cdf, value, True, need_indices, pos=pos,
+                columns=(log_w, lq_det))
         return idx, log_w_sel - log_q_sel, out
     idx = multinomial_indices(lq_det, noise)
     index = idx.long()
