@@ -30,13 +30,18 @@
 // wrappers' limit). Blocks that search have kBlockThreads threads.
 //
 // It also holds the launch geometry K1-K5 share: any number of batch
-// rows in one launch (`row_grid`, `block_row`).
+// rows in one launch (`row_grid`, `block_row`); and what K6 and the CDF
+// kernel (normalized_cdf.cu) share to build a CDF with a cluster a row:
+// the block scan in one fixed order (`block_scan`: K6's maximum, the CDF
+// kernel's maxima and sums) and the fold of the partials the cluster's
+// blocks publish (`cluster_fold`).
 //
 // Comparisons are exact (the build never uses fast math) and follow
 // torch.searchsorted(right=True): an entry counts when !(entry > p).
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,6 +51,76 @@ constexpr int kBlockThreads = 256;
 constexpr int kLogBlockThreads = 8;
 // CDF entries a block stages in shared memory: 32 KB, static.
 constexpr int kWindowCap = 8192;
+
+struct Sum {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T a, T b) const {
+    return a + b;
+  }
+};
+
+struct Max {
+  __device__ __forceinline__ float operator()(float a, float b) const {
+    return fmaxf(a, b);
+  }
+};
+
+template <typename T>
+struct Scan {
+  T before;  // op over the threads before this one (identity for 0)
+  T total;   // op over the whole block
+};
+
+// The exclusive scan of one value a thread, in thread order: an inclusive
+// warp scan by shuffles, then the same scan of the warps' totals, in one
+// fixed tree, behind one barrier. Every thread of the block calls it; the
+// block has a multiple of 32 threads, at most 1,024. `shared` holds
+// blockDim.x / 32 values; it is written before the barrier and read after
+// it, so it must not be written again until every thread has passed a
+// later barrier.
+template <typename T, typename Op>
+__device__ __forceinline__ Scan<T> block_scan(T x, T identity, Op op,
+                                              T* shared) {
+  constexpr unsigned int kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  T incl = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T n = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl = op(n, incl);
+  }
+  T excl = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) excl = identity;
+  if (lane == 31) shared[warp] = incl;
+  __syncthreads();
+  T w_incl = lane < warps ? shared[lane] : identity;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T n = __shfl_up_sync(kFull, w_incl, o);
+    if (lane >= o) w_incl = op(n, w_incl);
+  }
+  T w_excl = __shfl_up_sync(kFull, w_incl, 1);
+  if (lane == 0) w_excl = identity;
+  const T warps_before = __shfl_sync(kFull, w_excl, warp);
+  return Scan<T>{op(warps_before, excl), __shfl_sync(kFull, w_incl, 31)};
+}
+
+// op over `field` of the partial each of a cluster's first `size` blocks
+// published at `published` in its shared memory, in rank order. Call it
+// after the cluster barrier that follows the publishing, and keep every
+// block's shared memory alive until all have read it.
+template <typename T, typename Partial, typename Op>
+__device__ __forceinline__ T cluster_fold(
+    cooperative_groups::cluster_group cluster, Partial* published,
+    T Partial::*field, int size, T init, Op op) {
+  T acc = init;
+  for (int r = 0; r < size; ++r) {
+    acc = op(acc, cluster.map_shared_rank(published, r)->*field);
+  }
+  return acc;
+}
 
 // The grid of every kernel: blockIdx.x runs over a row's tiles, and
 // blockIdx.y + blockIdx.z * gridDim.y over the rows, up to 65,535 a

@@ -32,7 +32,9 @@ ranks of K_l = K / n:
 
 The arithmetic of steps 1-2 is that of `resampling._normalized_cumsum`
 with the cumulative sum cut at the shard edges: over one rank it gives
-the single-device CDF bit for bit. Its last edge is pinned to 1.0.
+that CDF bit for bit (on the card the single-device 'cuda' route sums
+its CDF in the CDF kernel's order instead, `ops.normalized_cdf_cuda`).
+Its last edge is pinned to 1.0.
 
 Residual resampling (`distributed_residual_resample`, which `infer`
 makes for 'residual' with a mesh; `make_distributed_fused_resampler`

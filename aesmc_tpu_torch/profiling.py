@@ -13,9 +13,11 @@ with ``aesmc.``:
 - ``aesmc.smc.resample``: a step's resampling (`inference._resample_step`:
   the ESS test, the normalisation, the CDF and the kernel), in `infer` and
   in the streaming filter's ``step_fn``;
-- ``aesmc.resample.cdf``: the normalised CDF (`resampling._normalized_cumsum`:
-  the weights' normalisation, the cumulative sum, its running max, the
-  division by the total and the pinned last entry);
+- ``aesmc.resample.cdf``: the normalised CDF: on the 'cuda' route one
+  launch of the CDF kernel (`ops.normalized_cdf_cuda`), otherwise
+  `resampling._normalized_cumsum` (the weights' normalisation, the
+  cumulative sum, its running max, the division by the total and the
+  pinned last entry);
 - ``aesmc.resample.kernel``: the positions and the search and gather
   (K1, K3, K4 and K5, or the 'torch' route's plain versions; the dense
   gather of that route, at K <= 1,024, builds its CDF inside it);

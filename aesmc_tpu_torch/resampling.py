@@ -18,9 +18,11 @@ next weights corrected by w[a] / q[a], so that gradients reach the
 weights).
 
 Two implementations:
-- 'cuda': the hand-written kernels, for CUDA tensors only: the fused
-  systematic resample+gather (`ops.resample_cuda`, K1), the search +
-  gather over loaded positions (`ops.resample_sorted_cuda`, K3: stratified,
+- 'cuda': the hand-written kernels, for CUDA tensors only: the CDF in one
+  launch (`ops.normalized_cdf_cuda`: `_normalized_cumsum`'s contract,
+  summed in the kernel's order), then the fused systematic
+  resample+gather (`ops.resample_cuda`, K1), the search + gather over
+  loaded positions (`ops.resample_sorted_cuda`, K3: stratified,
   multinomial and soft, whose two weight columns ride the launch beside
   the particles) and, where only indices are needed, the index-only
   search of loaded positions (`ops.searchsorted_sorted_cuda`, K4); the
@@ -57,8 +59,8 @@ import torch
 
 from . import math as amath
 from .profiling import annotate
-from .ops import (gather_sorted_cuda, resample_cuda, resample_sorted_cuda,
-                  searchsorted_sorted_cuda)
+from .ops import (gather_sorted_cuda, normalized_cdf_cuda, resample_cuda,
+                  resample_sorted_cuda, searchsorted_sorted_cuda)
 
 METHODS = ("systematic", "stratified", "multinomial", "residual")
 IMPLEMENTATIONS = ("auto", "cuda", "torch")
@@ -67,6 +69,8 @@ IMPLEMENTATIONS = ("auto", "cuda", "torch")
 # up to this K, as the JAX package's 'xla' route does: the [B, K, K]
 # selector costs O(K^2) memory a step.
 DENSE_GATHER_MAX_K = 1024
+# The span of the CDF build.
+CDF_SPAN = "aesmc.resample.cdf"
 # The span of the positions and the search and gather that follow the CDF.
 KERNEL_SPAN = "aesmc.resample.kernel"
 
@@ -118,7 +122,7 @@ def _two_level_cumsum(x):
     return (inner + offsets[:, None]).reshape(1, -1)[:, :k]
 
 
-@annotate("aesmc.resample.cdf")
+@annotate(CDF_SPAN)
 def _normalized_cumsum(log_weight):
     """`[B, K]` log-weights -> `[B, K]` normalized CDF.
 
@@ -131,6 +135,17 @@ def _normalized_cumsum(log_weight):
     cum = torch.cummax(_row_cumsum(w), dim=-1).values
     cum = cum / cum[:, -1:]
     return _pin_last(cum)
+
+
+def _cuda_route_cdf(log_weight):
+    """The normalized CDF on the 'cuda' route: one launch of the CDF kernel
+    (`ops.normalized_cdf_cuda`) for a tensor on the card, summed in the
+    kernel's order; otherwise (the route patched onto CPU tensors)
+    `_normalized_cumsum`."""
+    if log_weight.is_cuda:
+        with annotate(CDF_SPAN):
+            return normalized_cdf_cuda.normalized_cdf(log_weight.contiguous())
+    return _normalized_cumsum(log_weight)
 
 
 def _pin_last(cum):
@@ -369,7 +384,7 @@ def sample_indices(log_weight, noise, method, implementation):
     log_weight = log_weight.detach()
     if implementation == "torch":
         return _indices(log_weight, noise, method)
-    cdf = _normalized_cumsum(log_weight)
+    cdf = _cuda_route_cdf(log_weight)
     with annotate(KERNEL_SPAN):
         if method == "systematic":
             u = noise.uniform((log_weight.shape[0], 1))
@@ -566,7 +581,8 @@ def _resample(log_weight, noise, value, method, implementation,
             pos = resampling_positions(log_weight, noise, method)
             idx, out = dense_indices_and_gather(log_weight, pos, value)
         return (idx if need_indices else None), out
-    cdf = _normalized_cumsum(log_weight)
+    cdf = _cuda_route_cdf(log_weight) if cuda else _normalized_cumsum(
+        log_weight)
     with annotate(KERNEL_SPAN):
         if method == "systematic":
             # K1 builds the positions itself from one uniform a row.
@@ -709,7 +725,7 @@ def _soft_resample(log_weight, noise, value, alpha, implementation,
     log_w, log_q = _soft_tempered_log_weights(log_weight, alpha)
     lq_det = log_q.detach()
     if implementation == "cuda":
-        cdf = _normalized_cumsum(lq_det)
+        cdf = _cuda_route_cdf(lq_det)
         with annotate(KERNEL_SPAN):
             pos = resampling_positions(lq_det, noise, "multinomial")
             idx, out, (log_w_sel, log_q_sel) = _search_gather(

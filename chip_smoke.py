@@ -9,7 +9,7 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 1. device: a CUDA card must be present (there is no CPU path); prints
    `nvidia-smi`'s name and power limit of the card;
-2. build: builds the six CUDA kernel sources of the port from
+2. build: builds the seven CUDA kernel sources of the port from
    `aesmc_tpu_torch/csrc/`, one nvcc each, all started together, into
    `aesmc_tpu_torch/_build/` (or the user's cache directory when the
    package cannot be written);
@@ -50,6 +50,28 @@ Phases, in order; any failure raises and the exit code is not 0:
      particle a row at (10, 10,000) and (2, 4,194,304);
    - every kernel at B = 65,536 rows (more than a grid's second dimension
      holds) and K = 4, exact;
+   - the CDF kernel (phase 3k) against the plain CDF
+     (`resampling._normalized_cumsum`) at the paths' shapes up to (1,
+     4,194,304), at one particle, the edges of a one-block row and of a
+     chunk's tiles, 65,537 rows, runs of -inf, one dominant particle and a row
+     with no finite entry: monotone, last entry exactly 1.0, the same bits
+     on 10 launches, NaN rows as the plain CDF's, at most twice the plain
+     CDF's error against a float64 CDF; K1's ancestors on it against those
+     on the plain CDF (fewer than 0.5% differ, by at most 3, at K <=
+     100,000); never slower on the card than the plain CDF; 199 launches
+     in one graphed filter call and its replay, whose replays it times
+     against the plain CDF's graph, as the serving step's at (64,
+     10,000); the exported serving step records its operator. Every
+     path's launch line counts the CDF kernel beside K1-K6. A later check
+     that holds the kernel route exactly against the plain route gives
+     the kernel route the plain CDF for that check alone (`_plain_cdf`):
+     fed one CDF, K1-K5 give the plain ancestors exactly. The filter (4),
+     every `_compare_routes` (5, 11, 17, 22) and the HMM filter (6) also
+     hold the kernel route with the CDF kernel against the plain route
+     (`_against_plain`): the first resampling step's ancestors within
+     the share above, and log-Z or the loss within `ROUTE_RTOL` of the
+     plain route's. The mesh phases' ranks hold the mesh against the
+     single-device 'cuda' route with the plain CDF (`_md_worker`);
    - K1 and K4 at the shapes of the slice-D2 and D3 paths (phase 3j): K1
      at (10, 4,096, 2), (1,024, 256, 1), (1, 262,144, 0), the block PF's,
      IF2's and the sampler's rows, and learn_twist's (10, 2,048, 1), (4,
@@ -383,6 +405,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import ctypes
+import io
 import json
 import math
 import pathlib
@@ -406,8 +429,9 @@ from aesmc_tpu_torch.models import (bouncing_ball, hmm, kalman, kalman_nd,
 from aesmc_tpu_torch.noise import NoiseSource
 from aesmc_tpu_torch.state import BatchShapeMode
 from aesmc_tpu_torch.ops import (_build, _launch, gather_sorted_cuda,
-                                 range_sum_cuda, resample_cuda,
-                                 resample_sorted_cuda, searchsorted_cdf_cuda,
+                                 normalized_cdf_cuda, range_sum_cuda,
+                                 resample_cuda, resample_sorted_cuda,
+                                 searchsorted_cdf_cuda,
                                  searchsorted_sorted_cuda)
 
 T, B, K = 200, 10, 10000
@@ -476,8 +500,14 @@ KERNELS = {
                          "aesmc_tpu/ops/resample_pallas.py:975"),
 }
 
+# The CDF kernel (`ops.normalized_cdf_cuda`), counted beside them: one
+# launch a resampling step on the 'cuda' route, before K1, K3 or K4 (none
+# for residual resampling, the dense gather, the samplers' and SQMC's own
+# CDFs and the mesh exchanges).
+CDF = "normalized_cdf"
+
 # Kernel launches on each main path, read from the wrappers' counts.
-LAUNCHES = {name: {} for name in KERNELS}
+LAUNCHES = {name: {} for name in (*KERNELS, CDF)}
 # Medians (ms) and peak memory (MiB) of the eager paths, for the graphed
 # ones to stand beside.
 EAGER_MS = {}
@@ -495,18 +525,27 @@ def phase(name):
 def reset_counts():
     for module, counter, _, _ in KERNELS.values():
         setattr(module, counter, 0)
+    normalized_cdf_cuda.LAUNCHES = 0
 
 
 def read_counts(path):
-    """Records each kernel's launches on ``path`` since `reset_counts`."""
+    """Records each kernel's launches on ``path`` since `reset_counts`, the
+    CDF kernel's under `CDF`."""
     torch.cuda.synchronize()
     counts = {name: getattr(module, counter)
               for name, (module, counter, _, _) in KERNELS.items()}
+    counts[CDF] = normalized_cdf_cuda.LAUNCHES
     for name, n in counts.items():
         if n:
             LAUNCHES[name][path] = n
     print(f"launches on {path}: {counts}", flush=True)
     return counts
+
+
+def _searches(counts):
+    """The launches of K1-K6 in ``counts`` (`read_counts`), without the
+    CDF kernel's."""
+    return sum(counts[name] for name in KERNELS)
 
 
 def device_phase():
@@ -528,7 +567,8 @@ def device_phase():
 
 def build_phase():
     phase("2 build")
-    sources = sorted({module.SOURCE for module, _, _, _ in KERNELS.values()})
+    sources = sorted({module.SOURCE for module, _, _, _ in KERNELS.values()}
+                     | {normalized_cdf_cuda.SOURCE})
     # Build from the sources in this checkout, never from a stale library.
     for source in sources:
         _build.library_path(source).unlink(missing_ok=True)
@@ -800,11 +840,20 @@ def _device_ms(fn, kernel, calls=50):
     return total_us / count / 1e3 if count else None
 
 
+def _on_card(events):
+    """The profiler's events on the card, less the program's spans
+    (`profiling.annotate`, ``aesmc.*``), whose rows there sum the kernels
+    they hold and would count them twice."""
+    from torch.autograd import DeviceType
+    return [e for e in events
+            if getattr(e, "device_type", None) == DeviceType.CUDA and
+            not e.key.startswith("aesmc.")]
+
+
 def _calls_device_ms(fn, calls=50):
     """Mean device time of one call of ``fn`` over ``calls`` calls, summed
     over every kernel, copy and fill it runs on the card (torch.profiler);
     None if the profiler saw none."""
-    from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
     with _profiled() as prof:
@@ -812,8 +861,7 @@ def _calls_device_ms(fn, calls=50):
             fn()
     total_us = sum(getattr(e, "device_time_total",
                            getattr(e, "cuda_time_total", 0.0))
-                   for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+                   for e in _on_card(prof.key_averages()))
     return total_us / calls / 1e3 if total_us else None
 
 
@@ -1423,6 +1471,352 @@ def rows_phase(dev):
     _k6_check(logw, pos, value, f"(B, K, D) = {(ROWS_B, ROWS_K, 1)} normal")
 
 
+# Phase 3k: the CDF kernel (`ops.normalized_cdf_cuda`) against the plain
+# CDF (`resampling._normalized_cumsum`) at the shapes of the paths that
+# build it on the 'cuda' route: the filters' (10, 10,000), serving's (64,
+# 10,000), the VRNN step's (16, 4,096), the sampler's one row of 262,144,
+# the soft step's (2, 10^6) and one row of 4,194,304; then SMC^2's [M B,
+# 256] rows, the block PF's [J B, K] rows and IF2's (8, 32,768).
+CDF_SHAPES = ((10, 10000), (64, 10000), (16, 4096), (1, 262144),
+              (2, 1000000), (1, 4194304), (128, 256), (1024, 256),
+              (16, 1024), (128, 4096), (8, 32768))
+# One entry, a one-block row's longest and a two-block cluster's shortest
+# (a block a 2,048 entries), a chunk of one tile of 1,024 threads and one
+# of two (K = 8 x 8,192 and one more), and more rows than a grid
+# dimension holds.
+CDF_EDGES = ((1, 1), (3, 2048), (3, 2049), (3, 65536), (3, 65537),
+             (ROWS_B + 1, ROWS_K))
+CDF_REPEATS = 10
+# K1's ancestors on the kernel's CDF against those on the plain CDF, the
+# same uniforms, at K <= CDF_ANCESTOR_MAX_K: fewer than this share differ,
+# each by at most this many slots (the bound of
+# tests/test_resample_pallas.py::test_near_exact_large).
+CDF_ANCESTOR_MAX_K = 100000
+CDF_ANCESTOR_SHARE, CDF_ANCESTOR_SHIFT = 0.005, 3
+# The kernel's largest |CDF - float64 CDF| within this factor of the plain
+# CDF's.
+CDF_FLOAT64_FACTOR = 2.0
+# Serving rows (the benchmark's lgssm-serve cell).
+CDF_SERVE_B = 64
+
+
+@contextlib.contextmanager
+def _plain_cdf():
+    """The 'cuda' route with the plain CDF (`_normalized_cumsum`) in place
+    of the CDF kernel: for checks that feed one CDF to both sides."""
+    kernel = resampling._cuda_route_cdf
+    resampling._cuda_route_cdf = resampling._normalized_cumsum
+    try:
+        yield
+    finally:
+        resampling._cuda_route_cdf = kernel
+
+
+# The kernel route with the CDF kernel against the plain route on the same
+# noise (`_against_plain`). The two CDFs differ by float32 rounding (phase
+# 3k), so the first resampling step's ancestors differ at bin edges only,
+# at fewer than `CDF_ANCESTOR_SHARE` of the slots (phase 3k's shift bound
+# holds on its N(0, 2^2) weights; where a step's weights are degenerate a
+# flip skips the zero-weight particles between two bins, and a CDF
+# rounded from float64 moves the same slots as far). Once one differs,
+# the runs part, as the plain route parts from itself when it searches a
+# CDF rounded from float64 instead (`_rounded_plain_cdf`, printed
+# beside). Log-Z, or the loss, of every row within these shares of the
+# plain route's, set from readings on an H100 (4-8 seeds a path, PERF.md
+# §6): the LGSSM filter with the bench's proposal
+# read 0.0042-0.0106 (the rounded CDF 0.0037-0.0085; log-Z's spread over
+# seeds is 1.4% there), the HMM filter 1.0-1.9e-5 (6.3e-6 to 9.8e-5), the
+# losses at K = 100 and 256 0 to 1.6e-6 (0), the soft loss at 10^6
+# 1.2e-4 to 2.5e-3 (1.8e-4 to 1.6e-3).
+ROUTE_RTOL = {"lgssm": 0.03, "hmm": 5e-4, "loss": 1e-4, "soft": 1e-2}
+
+
+def _float64_rounded_cdf(log_weight):
+    """`_normalized_cumsum`'s contract, summed in float64 and rounded to
+    float32 once: another float32 rounding of the same CDF."""
+    lw = log_weight.double()
+    cum = torch.exp(lw - lw.max(dim=1, keepdim=True).values).cumsum(dim=1)
+    cdf = torch.cummax((cum / cum[:, -1:]).float(), dim=1).values
+    return resampling._pin_last(cdf)
+
+
+@contextlib.contextmanager
+def _rounded_plain_cdf():
+    """The plain route searching `_float64_rounded_cdf`, for a reading of
+    how far float32 rounding of the CDF moves a path."""
+    plain = resampling._normalized_cumsum
+    resampling._normalized_cumsum = _float64_rounded_cdf
+    try:
+        yield
+    finally:
+        resampling._normalized_cumsum = plain
+
+
+def _against_plain(label, kernel, plain, rounded, rtol, ancestors=None):
+    """``kernel``: log-Z `[B]` (or a loss) of the kernel route with the CDF
+    kernel; ``plain``: the plain route's on the same noise; ``rounded``:
+    the plain route's with `_rounded_plain_cdf`. Each row within ``rtol``
+    of the plain route's; with ``ancestors`` (the two routes' `[T - 1, B,
+    K]` ancestors), the first resampling step's differ at fewer than
+    `CDF_ANCESTOR_SHARE` of the slots."""
+    got, want, other = (torch.as_tensor(x).double().reshape(-1).cpu()
+                        for x in (kernel, plain, rounded))
+    rel = float(((got - want).abs() / want.abs()).max())
+    rel_rounded = float(((other - want).abs() / want.abs()).max())
+    line = (f"{label}: the kernel route with the CDF kernel within relative "
+            f"{rel:.3g} of the plain route (bound {rtol:g}; the plain route "
+            f"on a CDF rounded from float64: {rel_rounded:.3g})")
+    far = not rel <= rtol
+    if ancestors is not None:
+        a, b = (x.long() for x in ancestors)
+        shift = (a[0] - b[0]).abs()
+        share, most = float((shift > 0).float().mean()), int(shift.max())
+        later = float((a[1:] != b[1:]).float().mean())
+        line += (f"; the first step's ancestors differ at {share:.4%} of the "
+                 f"slots (bound {CDF_ANCESTOR_SHARE:.1%}), by at most {most}, "
+                 f"the later steps' at {later:.2%}")
+        far = far or share >= CDF_ANCESTOR_SHARE
+    print(line, flush=True)
+    if far:
+        raise AssertionError(f"{label}: the CDF kernel's route is too far "
+                             f"from the plain route")
+
+
+def _cdf_inputs(batch, k, kind, generator, dev):
+    """`[B, K]` log-weights: N(0, 2^2), with runs of -inf, with one
+    particle 60 nats above the rest, or with the last row all -inf."""
+    logw = 2.0 * torch.randn(batch, k, generator=generator, device=dev)
+    if kind == "-inf runs":
+        logw[:, k // 4:k // 2] = -math.inf
+        logw[:, -min(k // 8, 100):] = -math.inf
+    elif kind == "one particle":
+        logw[:, k // 3] += 60.0
+    elif kind == "nan row":
+        logw[-1] = -math.inf
+    return logw
+
+
+def _cdf_float64_err(cdf, logw):
+    """The largest |cdf - the float64 CDF of logw| over the finite rows."""
+    lw = logw.double()
+    ref = torch.exp(lw - lw.max(dim=1, keepdim=True).values).cumsum(dim=1)
+    ref = ref / ref[:, -1:]
+    return float((cdf.double() - ref).abs().max())
+
+
+def _cdf_check(logw, label, float64=False):
+    """The kernel's CDF of ``logw``: monotone, in [0, 1], its last entry
+    exactly 1, the same bits on `CDF_REPEATS` launches, NaN where the plain
+    CDF is NaN; with ``float64``, within `CDF_FLOAT64_FACTOR` of the plain
+    CDF's error against a float64 CDF. Returns (kernel CDF, plain CDF)."""
+    got = normalized_cdf_cuda.normalized_cdf(logw)
+    plain = resampling._normalized_cumsum(logw)
+    repeats = [normalized_cdf_cuda.normalized_cdf(logw)
+               for _ in range(CDF_REPEATS - 1)]
+    torch.cuda.synchronize()
+    if not all(_same_bits(got, r) for r in repeats):
+        raise AssertionError(f"CDF kernel at {label}: {CDF_REPEATS} launches "
+                             f"gave different bits")
+    nan = torch.isnan(got)
+    if not torch.equal(nan, torch.isnan(plain)):
+        raise AssertionError(f"CDF kernel at {label}: NaN where the plain CDF"
+                             f" is not, or the reverse")
+    finite = ~nan.any(dim=1)
+    rows = got[finite]
+    if not (bool((rows[:, 1:] >= rows[:, :-1]).all()) and
+            bool((rows >= 0).all()) and bool((got[:, -1] == 1.0).all())):
+        raise AssertionError(f"CDF kernel at {label}: not monotone in [0, 1] "
+                             f"with its last entry 1")
+    diff = float((rows - plain[finite]).abs().max()) if rows.numel() else 0.0
+    line = (f"CDF kernel at {label}: monotone, last entry 1.0, "
+            f"{CDF_REPEATS} launches bit-equal, NaN rows as the plain CDF's; "
+            f"largest |kernel - plain| {diff:.3g}")
+    if float64:
+        err, plain_err = (_cdf_float64_err(got, logw),
+                          _cdf_float64_err(plain, logw))
+        line += (f"; against float64: kernel {err:.3g}, plain "
+                 f"{plain_err:.3g}")
+        if err > CDF_FLOAT64_FACTOR * plain_err:
+            raise AssertionError(f"{line}: the kernel is more than "
+                                 f"{CDF_FLOAT64_FACTOR}x the plain error")
+    print(line, flush=True)
+    return got, plain
+
+
+def _cdf_ancestors(got, plain, generator, label):
+    """K1's indices on the two CDFs with the same uniforms."""
+    u = torch.rand(got.shape[0], 1, generator=generator, device=got.device)
+    none = got.new_empty(tuple(got.shape) + (0,))
+    idx, _ = resample_cuda.resample_and_gather_systematic(got, u, none)
+    want, _ = resample_cuda.resample_and_gather_systematic(plain, u, none)
+    shift = (idx - want).abs()
+    share = float((shift > 0).float().mean())
+    most = int(shift.max())
+    print(f"K1 at {label} on the kernel's CDF against the plain CDF, same "
+          f"uniforms: {share:.4%} of the ancestors differ, by at most {most} "
+          f"(bounds {CDF_ANCESTOR_SHARE:.1%}, {CDF_ANCESTOR_SHIFT})",
+          flush=True)
+    if share >= CDF_ANCESTOR_SHARE or most > CDF_ANCESTOR_SHIFT:
+        raise AssertionError(f"K1's ancestors at {label} moved too far")
+
+
+def _cdf_times(logw, label):
+    """Device µs a launch of the kernel against a call of the plain CDF
+    (torch.profiler), and CUDA-event means of both in turns; the kernel is
+    never slower on the card."""
+    batch, k = logw.shape
+
+    def kernel_fn():
+        return normalized_cdf_cuda.normalized_cdf(logw)
+
+    def plain_fn():
+        return resampling._normalized_cumsum(logw)
+
+    ms, plain_ms, _, runs = _time_pair(kernel_fn, plain_fn, warmup=5,
+                                       repeat=20 if k > 10 ** 6 else 100)
+    device_ms = _device_ms(kernel_fn, "normalized_cdf", calls=20)
+    plain_device_ms = _calls_device_ms(plain_fn, calls=20)
+    bound_ms, bound_by = _bound(8 * batch * k, 4 * batch * k)
+    print(f"CDF kernel at {label}: device {_us(device_ms)} a launch, plain "
+          f"{_us(plain_device_ms)} a call; {ms * 1e3:.2f} against "
+          f"{plain_ms * 1e3:.2f} us a call by CUDA events (runs {runs}); "
+          f"bound {bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+    if device_ms is None or plain_device_ms is None or \
+            device_ms > plain_device_ms:
+        raise AssertionError(f"CDF kernel at {label} is slower than the plain"
+                             f" CDF on the card")
+    return dict(shape=[batch, k], device_ms=device_ms,
+                plain_device_ms=plain_device_ms, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms)
+
+
+def _cdf_filter_graphs(dev):
+    """One graphed LGSSM filter call at (T, B, K), captured with the CDF
+    kernel and with the plain CDF: the kernel's launches in the capture and
+    in one profiled replay, the ops on the card a replay, and replays of
+    the two graphs timed in turns."""
+    comps, obs = _bench_lgssm(dev, TRANSITION_MULT)
+    noise = NoiseSource.seeded(31, dev)
+
+    def call():
+        return inference.infer(
+            "smc", obs, *comps, K, noise=noise,
+            return_log_marginal_likelihood=True, return_latents=False,
+            return_log_weight=False)["log_marginal_likelihood"]
+
+    graphs = {}
+    for which in ("plain", "kernel"):
+        with (_plain_cdf() if which == "plain" else
+              contextlib.nullcontext()), torch.no_grad():
+            train._warm_up(call, 1)
+            before = normalized_cdf_cuda.LAUNCHES
+            graphs[which] = train._capture(call, noise.generator)[0]
+            launches = normalized_cdf_cuda.LAUNCHES - before
+        print(f"graphed LGSSM filter ({which} CDF): {launches} CDF kernel "
+              f"launches in the capture", flush=True)
+        if launches != (T - 1 if which == "kernel" else 0):
+            raise AssertionError(f"the graphed filter launched the CDF kernel"
+                                 f" {launches} times, not {T - 1}")
+    for which, graph in graphs.items():
+        graph.replay()
+        torch.cuda.synchronize()
+        with _profiled() as prof:
+            graph.replay()
+        events = prof.key_averages()
+        ops = sum(e.count for e in _on_card(events))
+        cdf = sum(e.count for e in events if "normalized_cdf" in e.key)
+        print(f"one replay ({which} CDF): {ops} ops on the card, {cdf} CDF "
+              f"kernels", flush=True)
+        if cdf != (T - 1 if which == "kernel" else 0):
+            raise AssertionError(f"a replay ran {cdf} CDF kernels")
+    runs = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        runs[which] += _cuda_ms(graphs[which].replay, 3, 20, each=True)
+    med = {which: float(np.median(r)) for which, r in runs.items()}
+    print(f"graphed LGSSM filter at ({T}, {B}, {K:,}): median "
+          f"{med['kernel']:.3f} ms a replay with the CDF kernel against "
+          f"{med['plain']:.3f} with the plain CDF (n = 40 each)", flush=True)
+    return med
+
+
+def _cdf_serving(dev):
+    """The serving step at (64, K), captured with the CDF kernel and with
+    the plain CDF: µs a replay back to back (the step on the card), in
+    turns; and the exported step, which records the kernel's operator."""
+    comps, obs = _bench_lgssm(dev, TRANSITION_MULT, batch=CDF_SERVE_B)
+    init_fn, step_fn = online.make_online_filter(*comps, K)
+    noise = NoiseSource.seeded(47, dev)
+    with torch.no_grad():
+        state = init_fn(obs[0], noise)
+        steps = {}
+        for which in ("plain", "kernel"):
+            with (_plain_cdf() if which == "plain" else
+                  contextlib.nullcontext()):
+                steps[which] = online.CapturedStep(step_fn, state, obs[1],
+                                                   noise)
+    runs = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        runs[which].append(_cuda_ms(steps[which].graph.replay, 10, 200))
+    med = {which: float(np.mean(r)) for which, r in runs.items()}
+    print(f"captured serving step at ({CDF_SERVE_B}, {K:,}), replays back to "
+          f"back: {med['kernel'] * 1e3:.1f} us a step with the CDF kernel "
+          f"against {med['plain'] * 1e3:.1f} with the plain CDF (runs "
+          f"{runs})", flush=True)
+    with torch.no_grad():
+        blob = online.export_step(step_fn, state, obs[1])
+        program = torch.export.load(io.BytesIO(blob))
+        recorded = "aesmc_tpu_torch.normalized_cdf" in \
+            program.graph_module.code
+        step = online.load_step(blob)
+        start = noise.generator.get_state()
+        live = step_fn(state, obs[1], noise)
+        noise.generator.set_state(start)
+        before = normalized_cdf_cuda.LAUNCHES
+        loaded = step(state, obs[1], noise)
+        torch.cuda.synchronize()
+    launches = normalized_cdf_cuda.LAUNCHES - before
+    same = _same_tree((online._fields(live[0]), live[1]),
+                      (online._fields(loaded[0]), loaded[1]))
+    print(f"export_step: the program records the CDF kernel's operator "
+          f"{recorded}; a loaded step launched it {launches} time; equal to "
+          f"the live step {same}", flush=True)
+    if not (recorded and launches == 1 and same):
+        raise AssertionError("the exported step does not run the CDF kernel "
+                             "as the live step does")
+    return med
+
+
+@torch.no_grad()
+def cdf_phase(dev):
+    phase("3k the CDF kernel against the plain CDF")
+    start = time.perf_counter()
+    generator = torch.Generator(device=dev).manual_seed(12)
+    for batch, k in CDF_EDGES:
+        logw = _cdf_inputs(batch, k, "normal", generator, dev)
+        got, plain = _cdf_check(logw, f"(B, K) = {(batch, k)}")
+        if k == 1 and not bool((got == 1.0).all()):
+            raise AssertionError("the CDF of one particle is not 1")
+    for kind in ("-inf runs", "one particle", "nan row"):
+        for k in (K, 10 * K):
+            _cdf_check(_cdf_inputs(4, k, kind, generator, dev),
+                       f"(4, {k:,}) {kind}")
+    times = []
+    for batch, k in CDF_SHAPES:
+        label = f"(B, K) = ({batch}, {k:,})"
+        logw = _cdf_inputs(batch, k, "normal", generator, dev)
+        got, plain = _cdf_check(logw, label, float64=True)
+        if k <= CDF_ANCESTOR_MAX_K:
+            _cdf_ancestors(got, plain, generator, label)
+        del got, plain
+        times.append(_cdf_times(logw, label))
+    filter_ms = _cdf_filter_graphs(dev)
+    serve_ms = _cdf_serving(dev)
+    print(json.dumps({"cdf_kernel": times, "filter_replay_ms": filter_ms,
+                      "serve_step_ms": serve_ms}), flush=True)
+    _phase_seconds("3k", start)
+    return times
+
+
 @torch.no_grad()
 def filter_phase(dev):
     phase("4 filter: LGSSM SMC, T=200, B=10, K=10,000")
@@ -1449,39 +1843,56 @@ def filter_phase(dev):
     # The main path: log-Z only, so K1 runs without its index output.
     reset_counts()
     out = smc(proposal, 1, return_latents=False, return_log_weight=False)
-    launches = read_counts("filter")["resample_systematic"]
+    counts = read_counts("filter")
+    launches = counts["resample_systematic"]
     log_z = out["log_marginal_likelihood"]
-    if launches != T - 1:
-        raise AssertionError(f"K1 launched {launches} times, not {T - 1}")
+    if (launches, counts[CDF]) != (T - 1, T - 1):
+        raise AssertionError(f"K1 and the CDF kernel launched {counts}, not "
+                             f"{T - 1} times each")
     if log_z.shape != (B,) or not bool(torch.isfinite(log_z).all()):
         raise AssertionError(f"bad log-Z {log_z}")
     print(f"log-Z-only call: {launches} K1 launches (emit_idx off), "
-          f"log-Z {log_z.cpu().numpy()}", flush=True)
+          f"{counts[CDF]} of the CDF kernel, log-Z {log_z.cpu().numpy()}",
+          flush=True)
 
-    # Lineage outputs turn the index output on; the plain route with the
-    # same seed must give the same ancestors, latents and log-Z.
-    resample_cuda.LAUNCHES = 0
+    # Lineage outputs turn the index output on. The plain route with the
+    # same seed: with the CDF kernel within `_against_plain`'s bounds;
+    # given the plain CDF, the same ancestors, latents and log-Z.
+    reset_counts()
     kern = smc(proposal, 2, return_ancestral_indices=True)
-    torch.cuda.synchronize()
-    if resample_cuda.LAUNCHES != T - 1:
-        raise AssertionError(
-            f"lineage call launched K1 {resample_cuda.LAUNCHES} times")
-    plain = smc(proposal, 2, "torch", return_ancestral_indices=True)
+    counts = read_counts("filter lineage call")
+    if (counts["resample_systematic"], counts[CDF]) != (T - 1, T - 1):
+        raise AssertionError(f"lineage call launched {counts}")
     anc = kern["ancestral_indices"]
     if anc.shape != (T - 1, B, K) or anc.dtype != torch.int32:
         raise AssertionError(f"bad ancestors {anc.shape} {anc.dtype}")
+    reset_counts()
+    plain = smc(proposal, 2, "torch", return_ancestral_indices=True)
+    if any(read_counts("filter lineage call, plain route").values()):
+        raise AssertionError("the plain route launched a kernel")
+    with _rounded_plain_cdf():
+        rounded = smc(proposal, 2, "torch", return_latents=False)
+    _against_plain("LGSSM lineage call, log-Z",
+                   kern["log_marginal_likelihood"],
+                   plain["log_marginal_likelihood"],
+                   rounded["log_marginal_likelihood"], ROUTE_RTOL["lgssm"],
+                   (anc, plain["ancestral_indices"]))
+    with _plain_cdf():
+        kern = smc(proposal, 2, return_ancestral_indices=True)
+    anc = kern["ancestral_indices"]
     mismatches = int((anc != plain["ancestral_indices"]).sum())
     if mismatches or not torch.equal(kern["latents"], plain["latents"]):
         raise AssertionError(
-            f"lineage call differs from the plain route: {mismatches} "
-            f"ancestors")
+            f"lineage call differs from the plain route given one CDF: "
+            f"{mismatches} ancestors")
     lz_err = float((kern["log_marginal_likelihood"] -
                     plain["log_marginal_likelihood"]).abs().max())
     if lz_err != 0.0:
-        raise AssertionError(f"log-Z differs from the plain route: {lz_err}")
-    print(f"lineage call (emit_idx on): ancestors {tuple(anc.shape)} and "
-          f"latents {tuple(kern['latents'].shape)} equal the plain route's",
-          flush=True)
+        raise AssertionError(f"log-Z differs from the plain route given one "
+                             f"CDF: {lz_err}")
+    print(f"lineage call (emit_idx on), given the plain CDF: ancestors "
+          f"{tuple(anc.shape)} and latents {tuple(kern['latents'].shape)} "
+          f"equal the plain route's", flush=True)
 
     # Accuracy against the exact Kalman filter, optimal proposal.
     est = smc(optimal, 3, return_latents=False)["log_marginal_likelihood"]
@@ -1574,23 +1985,31 @@ def _bench_lgssm(dev, transition_mult, batch=B):
 
 
 def _compare_routes(comps, obs, k, method, seed, dev, **loss_kwargs):
-    """The loss and gradients of the kernel route against the plain route
-    on the same noise; returns the worst relative gradient error."""
+    """The loss and gradients of the kernel route, given the plain CDF,
+    against the plain route on the same noise; then the kernel route's
+    loss with the CDF kernel (`_against_plain`). Returns the worst
+    relative gradient error."""
     params = train.get_chained_params(*comps)
-    results = {}
-    for implementation in ("cuda", "torch"):
-        loss = losses.get_loss(obs, k, "aesmc", *comps,
+
+    def loss_of(implementation):
+        return losses.get_loss(obs, k, "aesmc", *comps,
                                noise=NoiseSource.seeded(seed, dev),
                                resampling_method=method,
                                resampling_implementation=implementation,
                                **loss_kwargs)
+
+    results = {}
+    for implementation in ("cuda", "torch"):
+        with (_plain_cdf() if implementation == "cuda" else
+              contextlib.nullcontext()):
+            loss = loss_of(implementation)
         results[implementation] = (loss.detach(),
                                    torch.autograd.grad(loss, params))
     (loss_k, grads_k), (loss_t, grads_t) = results["cuda"], results["torch"]
     if not torch.equal(loss_k, loss_t):
         raise AssertionError(
-            f"{method} loss differs between the routes: {float(loss_k)} "
-            f"vs {float(loss_t)}")
+            f"{method} loss differs between the routes given one CDF: "
+            f"{float(loss_k)} vs {float(loss_t)}")
     # Relative to each parameter's largest gradient entry.
     worst = max(float((a - b).abs().max() / b.abs().max())
                 for a, b in zip(grads_k, grads_t))
@@ -1598,9 +2017,15 @@ def _compare_routes(comps, obs, k, method, seed, dev, **loss_kwargs):
         raise AssertionError(
             f"{method} gradients differ between the routes: worst relative "
             f"error {worst} above {GRAD_RTOL}")
-    print(f"{method} K={k}: loss {float(loss_k):.6f} equal on both routes; "
-          f"gradients within relative error {worst:.3g} (bound "
-          f"{GRAD_RTOL})", flush=True)
+    print(f"{method} K={k}: loss {float(loss_k):.6f} equal on both routes "
+          f"given the plain CDF; gradients within relative error "
+          f"{worst:.3g} (bound {GRAD_RTOL})", flush=True)
+    with torch.no_grad():
+        kernel = loss_of("cuda")
+        with _rounded_plain_cdf():
+            rounded = loss_of("torch")
+    _against_plain(f"{method} K={k} loss", kernel, loss_t, rounded,
+                   ROUTE_RTOL["soft" if method == "soft" else "loss"])
     return worst
 
 
@@ -1615,10 +2040,10 @@ def train_phase(dev):
     reset_counts()
     loss = step(comps, obs, NoiseSource.seeded(12, dev))
     counts = read_counts("train K=100")
-    if (counts["resample_systematic"], counts["range_sum"]) != (T - 1,
-                                                                 T - 1):
-        raise AssertionError(f"one train step launched {counts}, not K1 "
-                             f"and K2 {T - 1} times each")
+    if (counts["resample_systematic"], counts["range_sum"],
+            counts[CDF]) != (T - 1, T - 1, T - 1):
+        raise AssertionError(f"one train step launched {counts}, not K1, "
+                             f"K2 and the CDF kernel {T - 1} times each")
     if not bool(torch.isfinite(loss)):
         raise AssertionError(f"train step loss {loss}")
 
@@ -1649,7 +2074,8 @@ def train_phase(dev):
         loss = method_step(comps, obs, NoiseSource.seeded(15, dev))
         counts = read_counts(f"train {method} K=100")
         if (counts["resample_sorted"], counts["range_sum"],
-                counts["resample_systematic"]) != (T - 1, T - 1, 0):
+                counts["resample_systematic"], counts[CDF]) != (
+                    T - 1, T - 1, 0, T - 1):
             raise AssertionError(f"one {method} step launched {counts}")
         if not bool(torch.isfinite(loss)):
             raise AssertionError(f"{method} step loss {loss}")
@@ -1748,10 +2174,11 @@ def hmm_filter_phase(dev):
     out = smc(1, return_latents=False, return_log_weight=False)
     counts = read_counts("hmm filter")
     log_z = out["log_marginal_likelihood"]
-    if (counts["resample_systematic"], counts["gather_sorted"]) != (T - 1,
-                                                                    T - 1):
+    if (counts["resample_systematic"], counts["gather_sorted"],
+            counts[CDF]) != (T - 1, T - 1, T - 1):
         raise AssertionError(f"the HMM log-Z call launched {counts}, not "
-                             f"K1 and K5 {T - 1} times each")
+                             f"K1, K5 and the CDF kernel {T - 1} times "
+                             f"each")
     if log_z.shape != (B,) or not bool(torch.isfinite(log_z).all()):
         raise AssertionError(f"bad HMM log-Z {log_z}")
     print(f"log-Z-only call: K1 (indices only) and K5 {T - 1} launches "
@@ -1762,12 +2189,24 @@ def hmm_filter_phase(dev):
         return_log_weight=False)
     counts = read_counts("hmm filter stratified")
     if (counts["searchsorted_sorted"], counts["gather_sorted"],
-            counts["resample_sorted"]) != (T - 1, T - 1, 0):
+            counts["resample_sorted"], counts[CDF]) != (T - 1, T - 1, 0,
+                                                        T - 1):
         raise AssertionError(f"the stratified HMM call launched {counts}")
 
-    # Lineage outputs, kernel route against plain route on the same noise.
+    # Lineage outputs, kernel route against plain route on the same noise:
+    # with the CDF kernel within `_against_plain`'s bounds; given the plain
+    # CDF, equal.
     kern = smc(2, "cuda", return_ancestral_indices=True)
     plain = smc(2, "torch", return_ancestral_indices=True)
+    with _rounded_plain_cdf():
+        rounded = smc(2, "torch", return_latents=False)
+    _against_plain("HMM lineage call, log-Z", kern["log_marginal_likelihood"],
+                   plain["log_marginal_likelihood"],
+                   rounded["log_marginal_likelihood"], ROUTE_RTOL["hmm"],
+                   (kern["ancestral_indices"], plain["ancestral_indices"]))
+    bench_log_z = kern["log_marginal_likelihood"]
+    with _plain_cdf():
+        kern = smc(2, "cuda", return_ancestral_indices=True)
     lat, anc = kern["latents"], kern["ancestral_indices"]
     if lat.dtype != torch.int32 or lat.shape != (T, B, K):
         raise AssertionError(f"bad HMM latents {lat.dtype} {lat.shape}")
@@ -1780,10 +2219,10 @@ def hmm_filter_phase(dev):
             f"HMM lineage call differs from the plain route: "
             f"{int((anc != plain['ancestral_indices']).sum())} ancestors, "
             f"{int((lat != plain['latents']).sum())} latents")
-    print(f"lineage call: int32 latents {tuple(lat.shape)}, ancestors and "
-          f"log-Z equal the plain route's exactly", flush=True)
-    bench_dev = np.abs(kern["log_marginal_likelihood"].cpu().numpy() -
-                       _hmm_exact(comps, obs))
+    print(f"lineage call given the plain CDF: int32 latents "
+          f"{tuple(lat.shape)}, ancestors and log-Z equal the plain route's "
+          f"exactly", flush=True)
+    bench_dev = np.abs(bench_log_z.cpu().numpy() - _hmm_exact(comps, obs))
     print(f"log-Z vs the forward recursion at the bench's shape "
           f"(systematic): per-row deviation {np.round(bench_dev, 4)}, max "
           f"{bench_dev.max():.4f}, mean {bench_dev.mean():.4f}", flush=True)
@@ -1952,12 +2391,10 @@ def _eager_steps(dev, num_steps, seed=21, algorithm="aesmc"):
 def _kernel_events(prof):
     """{profiler kernel name: launches} for the port's kernels, and the
     device time of every kernel, copy and fill, in ms."""
-    from torch.autograd import DeviceType
     events = prof.key_averages()
     counts = {name: sum(e.count for e in events if name in e.key)
               for name in sorted({n for _, _, n, _ in KERNELS.values()})}
-    on_card = [e for e in events
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    on_card = _on_card(events)
     device_us = sum(getattr(e, "device_time_total",
                             getattr(e, "cuda_time_total", 0.0))
                     for e in on_card)
@@ -1986,6 +2423,10 @@ def _report_profile(prof, label, want, span_ms, wall_ms):
                                     row_limit=12), flush=True)
     for name, n in want.items():
         if counts[name] != n:
+            # What the profiler did record, when it drops events.
+            seen = {e.key[:60]: e.count for e in _on_card(prof.key_averages())}
+            print(f"{label}: {sum(seen.values())} events on the card: {seen}",
+                  flush=True)
             raise AssertionError(f"{label}: {counts[name]} {name} events in "
                                  f"one replay, not {n}")
     print(f"{label}: device busy {device_ms:.3f} ms in a profiled replay "
@@ -2080,10 +2521,11 @@ def graph_train_phase(dev):
     # The wrappers count at the warm-up steps and the capture; replays
     # launch from the graph.
     captured = (train.WARMUP_STEPS + 1) * (T - 1)
-    if (counts["resample_systematic"], counts["range_sum"]) != (captured,
-                                                                captured):
+    if (counts["resample_systematic"], counts["range_sum"],
+            counts[CDF]) != (captured, captured, captured):
         raise AssertionError(f"train_on_device launched {counts} through "
-                             f"the wrappers, not K1 and K2 {captured} times")
+                             f"the wrappers, not K1, K2 and the CDF kernel "
+                             f"{captured} times")
     ms = {"cuda": timers["cuda"].ms_per_step(),
           "torch": timers["torch"].ms_per_step() +
           plain_again.ms_per_step()}
@@ -2435,16 +2877,16 @@ def soft_phase(dev):
     counts = read_counts("soft train step")
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     others = {name: n for name, n in counts.items()
-              if name not in ("resample_sorted", "range_sum") and n}
-    if (counts["resample_sorted"], counts["range_sum"]) != (steps, steps) \
-            or others:
-        raise AssertionError(f"one soft step launched {counts}, not K3 and "
-                             f"K2 {steps} times each")
+              if name not in ("resample_sorted", "range_sum", CDF) and n}
+    if (counts["resample_sorted"], counts["range_sum"], counts[CDF]) != (
+            steps, steps, steps) or others:
+        raise AssertionError(f"one soft step launched {counts}, not K3, K2 "
+                             f"and the CDF kernel {steps} times each")
     if not bool(torch.isfinite(loss)):
         raise AssertionError(f"soft step loss {loss}")
-    print(f"one soft step: K3 and K2 {steps} launches each, loss "
-          f"{float(loss):.4f}; peak device memory {peak_mb:.1f} MiB",
-          flush=True)
+    print(f"one soft step: K3, K2 and the CDF kernel {steps} launches "
+          f"each, loss {float(loss):.4f}; peak device memory "
+          f"{peak_mb:.1f} MiB", flush=True)
 
     # Eager step times, plain route against kernel route.
     routes = {impl: train.make_train_step(
@@ -2473,11 +2915,11 @@ def soft_phase(dev):
     counts = read_counts("graphed soft train step")
     graph_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     captured = (train.WARMUP_STEPS + 1) * steps
-    if (counts["resample_sorted"], counts["range_sum"]) != (captured,
-                                                            captured):
+    if (counts["resample_sorted"], counts["range_sum"], counts[CDF]) != (
+            captured, captured, captured):
         raise AssertionError(f"the graphed soft run launched {counts} "
-                             f"through the wrappers, not K3 and K2 "
-                             f"{captured} times")
+                             f"through the wrappers, not K3, K2 and the CDF "
+                             f"kernel {captured} times")
     if not bool(torch.isfinite(hist).all()):
         raise AssertionError(f"graphed soft losses {hist}")
     ms = timer.ms_per_step()
@@ -2552,7 +2994,7 @@ def lgssm_nd_phase(dev):
     log_z = smc(NoiseSource.seeded(61, dev))
     counts = read_counts(f"lgssm_nd filter D={ND_DIM}")
     if counts["resample_systematic"] != T - 1 or \
-            sum(counts.values()) != T - 1:
+            _searches(counts) != T - 1 or counts[CDF] != T - 1:
         raise AssertionError(f"the lgssm_nd filter launched {counts}")
     params = lgssm_nd.kalman_params(*comps[:3])
     obs_np = obs.cpu().numpy()
@@ -2560,12 +3002,14 @@ def lgssm_nd_phase(dev):
                       for b in range(B)])
     _check_log_z(f"lgssm_nd filter (K1 with D = {ND_DIM} columns)", log_z,
                  exact)
+    with _plain_cdf():
+        same_cdf = smc(NoiseSource.seeded(61, dev), "cuda")
     plain = smc(NoiseSource.seeded(61, dev), "torch")
-    if not torch.equal(log_z, plain):
-        raise AssertionError(f"lgssm_nd log-Z differs between the routes: "
-                             f"{log_z} vs {plain}")
-    print("kernel route's log-Z equals the plain route's exactly",
-          flush=True)
+    if not torch.equal(same_cdf, plain):
+        raise AssertionError(f"lgssm_nd log-Z differs between the routes "
+                             f"given one CDF: {same_cdf} vs {plain}")
+    print("kernel route's log-Z, given the plain CDF, equals the plain "
+          "route's exactly", flush=True)
     medians = _eager_turns({
         "lgssm_nd filter, eager, kernel route":
             lambda: smc(NoiseSource.seeded(63, dev), "cuda"),
@@ -2602,18 +3046,21 @@ def apf_residual_phase(dev):
     apf = smc(71, lookahead=lookahead)
     counts = read_counts("APF filter")
     if counts["resample_systematic"] != T - 1 or \
-            sum(counts.values()) != T - 1:
+            _searches(counts) != T - 1 or counts[CDF] != T - 1:
         raise AssertionError(f"the APF filter launched {counts}")
     _check_log_z("APF filter (K1, D = 2: latent and score)", apf, exact)
-    if not torch.equal(apf, smc(71, "torch", lookahead=lookahead)):
-        raise AssertionError("APF log-Z differs between the routes")
+    with _plain_cdf():
+        same_cdf = smc(71, "cuda", lookahead=lookahead)
+    if not torch.equal(same_cdf, smc(71, "torch", lookahead=lookahead)):
+        raise AssertionError("APF log-Z differs between the routes given "
+                             "one CDF")
     _check_log_z("plain filter, same noise", smc(71), exact)
 
     # Residual resampling: torch ops on the card, no kernel.
     reset_counts()
     res = smc(72, resampling_method="residual")
     counts = read_counts("residual filter")
-    if sum(counts.values()):
+    if any(counts.values()):
         raise AssertionError(f"the residual filter launched {counts}")
     _check_log_z("residual filter (torch ops)", res, exact)
     _eager_turns({
@@ -2878,12 +3325,9 @@ def _vrnn_on_device(dev, num_steps, block, callback=None, remat=True,
 def _gemm_split(prof):
     """Device ms of one profiled replay: matrix products (cuBLAS and
     CUTLASS kernels), the port's K1 and K2, and everything else."""
-    from torch.autograd import DeviceType
     split = {"gemm": 0.0, "K1/K2": 0.0, "rest": 0.0}
     names = (KERNELS["resample_systematic"][2], KERNELS["range_sum"][2])
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
+    for e in _on_card(prof.key_averages()):
         us = getattr(e, "device_time_total",
                      getattr(e, "cuda_time_total", 0.0))
         key = e.key.lower()
@@ -2905,20 +3349,22 @@ def vrnn_phase(dev):
     params = train.get_chained_params(*model[1:])
     steps = VRNN_T - 1
 
-    # Routes: the kernel route's loss and gradients against the plain
-    # route's on the same noise.
+    # Routes: the kernel route's loss and gradients, given the plain CDF,
+    # against the plain route's on the same noise.
     results = {}
     for impl in ("cuda", "torch"):
-        loss = vrnn.vrnn_loss(obs, VRNN_K, "aesmc", *model,
-                              noise=NoiseSource.seeded(81, dev),
-                              resampling_implementation=impl)
+        with (_plain_cdf() if impl == "cuda" else contextlib.nullcontext()):
+            loss = vrnn.vrnn_loss(obs, VRNN_K, "aesmc", *model,
+                                  noise=NoiseSource.seeded(81, dev),
+                                  resampling_implementation=impl)
         results[impl] = (loss.detach(), torch.autograd.grad(loss, params))
         del loss
     (loss_k, grads_k), (loss_t, grads_t) = results["cuda"], results["torch"]
     worst = max(float((a - b).abs().max() / b.abs().max())
                 for a, b in zip(grads_k, grads_t))
-    print(f"VRNN loss {float(loss_k):.6f} on the kernel route, equal to the "
-          f"plain route's {torch.equal(loss_k, loss_t)}; gradients within "
+    print(f"VRNN loss {float(loss_k):.6f} on the kernel route given the "
+          f"plain CDF, equal to the plain route's "
+          f"{torch.equal(loss_k, loss_t)}; gradients within "
           f"relative error {worst:.3g} (bound {GRAD_RTOL})", flush=True)
     if not torch.equal(loss_k, loss_t) or worst > GRAD_RTOL:
         raise AssertionError(f"VRNN routes differ: {float(loss_k)} vs "
@@ -2936,9 +3382,10 @@ def vrnn_phase(dev):
     counts = read_counts("VRNN train step")
     eager_peak = _peak_mib()
     others = {n: c for n, c in counts.items()
-              if n not in ("resample_systematic", "range_sum") and c}
-    if (counts["resample_systematic"], counts["range_sum"]) != (
-            steps, steps) or others or not bool(torch.isfinite(loss)):
+              if n not in ("resample_systematic", "range_sum", CDF) and c}
+    if (counts["resample_systematic"], counts["range_sum"], counts[CDF]) != (
+            steps, steps, steps) or others or not bool(
+                torch.isfinite(loss)):
         raise AssertionError(f"one VRNN step launched {counts}, loss {loss}")
     noise = NoiseSource.seeded(83, dev)
     eager_ms = _cuda_ms(lambda: step(comps, obs, noise), warmup=1, repeat=3,
@@ -3048,7 +3495,8 @@ def score_phase(dev):
     loss = step(comps, obs, NoiseSource.seeded(71, dev))
     counts = read_counts("score train step")
     if (counts["resample_sorted"], counts["range_sum"],
-            counts["resample_systematic"]) != (T - 1, T - 1, 0):
+            counts["resample_systematic"], counts[CDF]) != (T - 1, T - 1, 0,
+                                                            T - 1):
         raise AssertionError(f"one score step launched {counts}")
     # The loss value is the pathwise multinomial loss on the same noise
     # (the score term cancels exactly; the per-step log-Z terms are summed
@@ -3295,7 +3743,7 @@ def serving_phase(dev):
                           return_log_marginal_likelihood=True,
                           return_latents=False)
     log_z = online.log_marginal_likelihood(fs)
-    if counts["resample_systematic"] != T - 1:
+    if (counts["resample_systematic"], counts[CDF]) != (T - 1, T - 1):
         raise AssertionError(f"serving launched {counts}")
     if not (torch.equal(log_z, ref["log_marginal_likelihood"]) and
             torch.equal(fs.latent, ref["last_latent"]) and
@@ -3324,9 +3772,9 @@ def serving_phase(dev):
     # and the HMM's int32 particles, stratified (K4 and K5).
     hcomps, hobs = _hmm_data(dev, T, B, 0, num_states=HMM_STATES)
     for label, s_comps, s_obs, want in (
-            ("serving stratified", comps, obs[:T], ("resample_sorted",)),
+            ("serving stratified", comps, obs[:T], ("resample_sorted", CDF)),
             ("serving HMM stratified", hcomps, hobs,
-             ("searchsorted_sorted", "gather_sorted"))):
+             ("searchsorted_sorted", "gather_sorted", CDF))):
         s_init, s_step = online.make_online_filter(
             *s_comps, K, resampling_method="stratified")
         reset_counts()
@@ -3587,7 +4035,7 @@ def _serving_options(dev, comps, obs):
     reset_counts()
     loaded = step(fs, obs[1], noise)
     counts = read_counts("serving (exported step)")
-    if counts["resample_systematic"] != 1:
+    if (counts["resample_systematic"], counts[CDF]) != (1, 1):
         raise AssertionError(f"the exported step launched {counts}")
     if not _same_tree((online._fields(live[0]), live[1]),
                       (online._fields(loaded[0]), loaded[1])):
@@ -3810,7 +4258,8 @@ def _lorenz_rows(dev, label, comps, obs, seed):
     reset_counts()
     (log_z, ess), first_ms = _timed(call)
     counts = read_counts("lorenz")
-    if counts["resample_systematic"] != LORENZ_T - 1:
+    if (counts["resample_systematic"], counts[CDF]) != (LORENZ_T - 1,
+                                                        LORENZ_T - 1):
         raise AssertionError(f"{label}: launched {counts}")
     eager_ms = [_timed(call)[1] for _ in range(3)]
     train._warm_up(call, 1)
@@ -3982,15 +4431,17 @@ def bouncing_ball_phase(dev):
         out = call("auto", NoiseSource.seeded(42, dev))
         counts = read_counts("bouncing ball infer")
         if (counts["resample_systematic"] != BB_T - 1 or
-                sum(counts.values()) != BB_T - 1):
+                _searches(counts) != BB_T - 1 or counts[CDF] != BB_T - 1):
             raise AssertionError(f"one bouncing-ball call launched {counts}")
         plain = call("torch", NoiseSource.seeded(42, dev))
-        if not (torch.equal(out["ancestral_indices"],
+        with _plain_cdf():
+            same_cdf = call("auto", NoiseSource.seeded(42, dev))
+        if not (torch.equal(same_cdf["ancestral_indices"],
                             plain["ancestral_indices"]) and
-                torch.equal(out["log_marginal_likelihood"],
+                torch.equal(same_cdf["log_marginal_likelihood"],
                             plain["log_marginal_likelihood"])):
             raise AssertionError("bouncing ball: the kernel route differs "
-                                 "from the plain route")
+                                 "from the plain route given one CDF")
         log_z = out["log_marginal_likelihood"]
         if not bool(torch.isfinite(log_z).all()):
             raise AssertionError(f"bouncing ball log-Z {log_z}")
@@ -4000,7 +4451,8 @@ def bouncing_ball_phase(dev):
                 43, dev)))[1] for _ in range(2)]
     print(f"bouncing-ball filter: log-Z mean {float(log_z.mean()):.2f}; K1 "
           f"(D = 2) {counts['resample_systematic']} launches; ancestors and "
-          f"log-Z equal on both routes; eager ms a call, kernel route "
+          f"log-Z equal on both routes given the plain CDF; eager ms a "
+          f"call, kernel route "
           f"{np.round(ms['cuda'], 3).tolist()}, plain route (dense) "
           f"{np.round(ms['torch'], 3).tolist()}", flush=True)
 
@@ -4169,7 +4621,7 @@ def sqmc_phase(dev):
                     return_ancestral_indices=True)
     counts = read_counts("sqmc")
     if (counts["resample_sorted"] != SQMC_T - 1 or
-            sum(counts.values()) != SQMC_T - 1):
+            _searches(counts) != SQMC_T - 1 or counts[CDF]):
         raise AssertionError(f"one SQMC call launched {counts}")
     plain = sqmc_call(NoiseSource.seeded(51, dev), "torch",
                       return_ancestral_indices=True)
@@ -4211,7 +4663,7 @@ def sqmc_phase(dev):
             return_ancestral_indices=True)
         if impl == "cuda":
             counts = read_counts("sqmc d=2")
-    if counts["resample_sorted"] != SQMC_2D_T - 1 or not (
+    if counts["resample_sorted"] != SQMC_2D_T - 1 or counts[CDF] or not (
             torch.equal(runs["cuda"]["ancestral_indices"],
                         runs["torch"]["ancestral_indices"]) and
             torch.equal(runs["cuda"]["log_marginal_likelihood"],
@@ -4334,7 +4786,8 @@ def particle_gibbs_phase(dev):
         obs, *chain_comps, PG_CHAIN_K, PG_ITERATIONS,
         noise=NoiseSource.seeded(63, dev)))
     counts = read_counts("particle_gibbs (initial reference)")
-    if counts["resample_systematic"] != PG_CHAIN_T - 1:
+    if (counts["resample_systematic"], counts[CDF]) != (PG_CHAIN_T - 1,
+                                                        PG_CHAIN_T - 1):
         raise AssertionError(f"the initial reference launched {counts}")
     pg_mean = trajs[PG_BURN_IN:].mean(dim=0).cpu().numpy()       # [T, B]
     params = kalman.KalmanParams(0.0, 1.0, 0.9, 0.0, 1.0, 1.0, 0.0, 0.25)
@@ -4524,19 +4977,23 @@ def rbpf_phase(dev):
             got = call(NoiseSource.seeded(71, dev), method)
             counts = read_counts(f"rbpf Do={do} {method}")
             if (counts[kernel] != RBPF_T - 1 or
-                    sum(counts.values()) != RBPF_T - 1):
+                    _searches(counts) != RBPF_T - 1 or
+                    counts[CDF] != RBPF_T - 1):
                 raise AssertionError(f"rbpf {method} launched {counts}")
             want = call(NoiseSource.seeded(71, dev), method, "torch")
+            with _plain_cdf():
+                got = call(NoiseSource.seeded(71, dev), method)
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 raise AssertionError(f"rbpf Do={do} {method}: the routes "
-                                     f"differ")
+                                     f"differ given one CDF")
         noise = NoiseSource.seeded(72, dev)
         graph, (log_z, _), eager_ms, graph_ms = _graph_equal(
             f"RBPF Do={do} systematic call", lambda: call(noise), noise)
         del graph
         print(f"RBPF Do = {do}: systematic K1 (indices only) and stratified "
               f"K4 {RBPF_T - 1} launches a call, each equal to the torch "
-              f"route; log-Z mean {float(log_z.mean()):.3f}; {eager_ms:.3f} "
+              f"route given the plain CDF; log-Z mean "
+              f"{float(log_z.mean()):.3f}; {eager_ms:.3f} "
               f"ms eager, {graph_ms:.3f} ms graphed = "
               f"{RBPF_B * RBPF_K * RBPF_T / graph_ms / 1e3:.1f} M "
               f"particle-steps/s", flush=True)
@@ -4723,12 +5180,15 @@ def resample_move_phase(dev):
     log_z, rate = call(NoiseSource.seeded(81, dev))
     counts = read_counts("resample-move")
     if (counts["resample_systematic"] != RM_T - 1 or
-            sum(counts.values()) != RM_T - 1):
+            _searches(counts) != RM_T - 1 or counts[CDF] != RM_T - 1):
         raise AssertionError(f"one resample-move call launched {counts}")
     plain = call(NoiseSource.seeded(81, dev), "torch")
-    if not (torch.equal(log_z, plain[0]) and torch.equal(rate, plain[1])):
+    with _plain_cdf():
+        same_cdf = call(NoiseSource.seeded(81, dev))
+    if not (torch.equal(same_cdf[0], plain[0]) and
+            torch.equal(same_cdf[1], plain[1])):
         raise AssertionError("resample-move: the K1 route differs from the "
-                             "torch route")
+                             "torch route given one CDF")
     exact = _kalman_log_z(obs, SQMC_A, SQMC_Q, SQMC_EM, SQMC_R)
     err = float(np.max(np.abs(log_z.cpu().numpy() - exact)))
     mean_rate = float(rate.mean())
@@ -4737,7 +5197,8 @@ def resample_move_phase(dev):
         "resample-move call", lambda: call(noise), noise)
     del graph
     print(f"resample-move: K1 {counts['resample_systematic']} launches "
-          f"(D = 1 at t = 1, D = 2 after), equal to the torch route; log-Z "
+          f"(D = 1 at t = 1, D = 2 after), equal to the torch route given the "
+          f"plain CDF; log-Z "
           f"within {err:.4f} of the Kalman filter in every row (bound "
           f"{RM_LOG_Z_TOL}); mean acceptance {mean_rate:.3f} (bounds "
           f"{RM_ACCEPTANCE}); {eager_ms:.3f} ms eager, {graph_ms:.3f} ms "
@@ -4815,11 +5276,15 @@ def block_pf_phase(dev):
         log_z = call(NoiseSource.seeded(84, dev))
         counts = read_counts(f"block PF D={dim}")
         if (counts["resample_systematic"] != num_timesteps - 1 or
-                sum(counts.values()) != num_timesteps - 1):
+                _searches(counts) != num_timesteps - 1 or
+                counts[CDF] != num_timesteps - 1):
             raise AssertionError(f"one block-PF call launched {counts}")
-        if not torch.equal(log_z, call(NoiseSource.seeded(84, dev),
-                                       "torch")):
-            raise AssertionError(f"block PF D={dim}: the routes differ")
+        with _plain_cdf():
+            same_cdf = call(NoiseSource.seeded(84, dev))
+        if not torch.equal(same_cdf, call(NoiseSource.seeded(84, dev),
+                                          "torch")):
+            raise AssertionError(f"block PF D={dim}: the routes differ given "
+                                 f"one CDF")
         noise = NoiseSource.seeded(85, dev)
         graph, _, eager_ms, graph_ms = _graph_equal(
             f"block PF D={dim} call", lambda: call(noise), noise)
@@ -4827,7 +5292,8 @@ def block_pf_phase(dev):
         print(f"block PF D = {dim}, (T, B, K) = ({num_timesteps}, {batch}, "
               f"{k:,}): K1 (indices only) {counts['resample_systematic']} "
               f"launches on {len(blocks) * batch} rows, equal to the torch "
-              f"route; log-Z mean {float(log_z.mean()):.2f}; {eager_ms:.3f} "
+              f"route given the plain CDF; log-Z mean "
+              f"{float(log_z.mean()):.2f}; {eager_ms:.3f} "
               f"ms eager, {graph_ms:.3f} ms graphed = "
               f"{batch * k * num_timesteps / graph_ms / 1e3:.1f} M "
               f"particle-steps/s", flush=True)
@@ -4957,7 +5423,8 @@ def sampler_phase(dev):
                                                 return_history=True))
             counts = read_counts(f"sampler K={k} {label}")
             rungs = int(out["num_steps"])
-            if counts[kernel] != rungs or sum(counts.values()) != rungs:
+            if counts[kernel] != rungs or _searches(counts) != rungs or \
+                    counts[CDF] != (0 if waste_free else rungs):
                 raise AssertionError(f"sampler {label} at K = {k}: {rungs} "
                                      f"rungs launched {counts}")
             # One adaptive call of the waste-free sampler at the largest K
@@ -5090,7 +5557,7 @@ def smc2_phase(dev):
         rejuvenated = [t for t in range(1, S2_T) if ess[t] < 0.5 * m]
         want = S2_T - 1 + 2 * sum(rejuvenated)
         if (counts["resample_systematic"] != want or
-                sum(counts.values()) != want or
+                _searches(counts) != want or counts[CDF] != want or
                 len(rejuvenated) != int(out["num_rejuvenations"])):
             raise AssertionError(f"SMC^2 M = {m}: {counts}, expected K1 "
                                  f"{want} ({rejuvenated})")
@@ -5214,7 +5681,7 @@ def if2_phase(dev):
         counts = read_counts(f"if2 B={batch} K={k}")
         want = IF2_ITERATIONS * IF2_T
         if (counts["resample_systematic"] != want or
-                sum(counts.values()) != want):
+                _searches(counts) != want or counts[CDF] != want):
             raise AssertionError(f"IF2 launched {counts}, expected K1 {want}")
         eager = [_timed(lambda: call(NoiseSource.seeded(107, dev), 0.5,
                                      IF2_ITERATIONS))[1] for _ in range(2)]
@@ -5311,7 +5778,8 @@ def twisted_phase(dev):
                               noise=NoiseSource.seeded(110, dev),
                               return_latents=False, return_log_weights=True)
     counts = read_counts("twisted lgssm (exact twist)")
-    _check_launches("twisted LGSSM", counts, {"resample_systematic": T - 1})
+    _check_launches("twisted LGSSM", counts, {"resample_systematic": T - 1,
+                                              CDF: T - 1})
     lw = out["log_weights"]
     spread = float((lw.amax(dim=2) - lw.amin(dim=2)).max())
     exact = _lgssm_exact(obs)
@@ -5351,7 +5819,8 @@ def twisted_phase(dev):
     counts = read_counts("learn_twist sv")
     iteration_log_z = info["log_marginal_likelihood"].mean(1).cpu().numpy()
     _check_launches("learn_twist", counts,
-                    {"resample_systematic": TW_LEARN_ITERATIONS * (T - 1)})
+                    {"resample_systematic": TW_LEARN_ITERATIONS * (T - 1),
+                     CDF: TW_LEARN_ITERATIONS * (T - 1)})
     print(f"learn_twist, {TW_LEARN_ITERATIONS} ADP iterations at K = "
           f"{TW_LEARN_K:,}: {learn_ms:.0f} ms eager; per-iteration log-Z "
           f"(mean over rows) {np.round(iteration_log_z, 3)}; K1 "
@@ -5373,7 +5842,8 @@ def twisted_phase(dev):
         reset_counts()
         call()
         counts = read_counts(f"twisted sv ({label} twist)")
-        _check_launches("twisted SV", counts, {"resample_systematic": T - 1})
+        _check_launches("twisted SV", counts,
+                        {"resample_systematic": T - 1, CDF: T - 1})
         graph, log_z, eager_ms, graph_ms = _graph_equal(
             f"twisted SV call, {label} twist", call, noise, eager_calls=2)
         z = _replayed(graph, log_z, TW_SEEDS)
@@ -5410,7 +5880,8 @@ def twisted_hmm_phase(dev):
                               return_latents=False, return_log_weights=True)
     counts = read_counts("twisted hmm (exact twist)")
     _check_launches("twisted HMM", counts, {"resample_systematic": T - 1,
-                                            "gather_sorted": T - 1})
+                                            "gather_sorted": T - 1,
+                                            CDF: T - 1})
     lw = out["log_weights"]
     spread = float((lw.amax(dim=2) - lw.amin(dim=2)).max())
     exact = _hmm_exact(hcomps, hobs)
@@ -5468,7 +5939,8 @@ def deep_twist_phase(dev):
     counts = read_counts("learn_twist bouncing ball")
     runs = 1 + 2 * TW_BB_SCORE_SEEDS
     _check_launches("learn_twist (bouncing ball)", counts,
-                    {"resample_systematic": runs * (TW_BB_T - 1)})
+                    {"resample_systematic": runs * (TW_BB_T - 1),
+                     CDF: runs * (TW_BB_T - 1)})
     scores = info["scores"].cpu().numpy()
     selected = info["selected"].cpu().numpy()
     print(f"learn_twist: {learn_ms:.0f} ms eager; K1 "
@@ -5677,7 +6149,12 @@ def _md_worker(rank, world, port, backend, task, out_dir):
         world_size=world, **({"device_id": dev} if backend == "nccl" else
                              {}))
     try:
-        result = globals()[task](dev)
+        # A mesh's exchange builds its CDF with the plain CDF's arithmetic
+        # (`dist_resampling`), which the CDF kernel sums in another order:
+        # the mesh is held bit for bit against the single-device 'cuda'
+        # route with the plain CDF, not with the CDF kernel.
+        with _plain_cdf():
+            result = globals()[task](dev)
         torch.save(result, pathlib.Path(out_dir) / f"{rank}.pt")
         torch.distributed.barrier()
     finally:
@@ -7271,6 +7748,11 @@ def multi_device_phase(dev):
           f"rank(s), one card each; {MD_GLOO_RANKS} gloo ranks on cuda:0 "
           f"on meshes {MD_GLOO_MESHES}; K2-K4 at the distributed shapes; "
           f"phases 36 (slice E2) and 37 (slice E3) inside both worlds")
+    print("the ranks' single-device calls run the 'cuda' route with the "
+          "plain CDF (resampling._normalized_cumsum), whose arithmetic the "
+          "mesh exchanges keep; with the CDF kernel a single-device call "
+          "differs from a (1, 1) mesh at the bin-edge ancestors of phase 3k",
+          flush=True)
     start = time.perf_counter()
     _md_kernel_phase(dev)
     e3_kernels = _e3_kernel_phase(dev)
@@ -7474,6 +7956,7 @@ def main():
     times["searchsorted_cdf"] = k6_phase(dev)
     errors["searchsorted_cdf"] = 0.0
     rows_phase(dev)
+    cdf_times = cdf_phase(dev)
     path_shapes_phase(dev)
     filter_phase(dev)
     train_phase(dev)
@@ -7518,6 +8001,15 @@ def main():
             replaces=replaces, launches=launches,
             launches_by_path=LAUNCHES[name], max_abs_err=errors[name],
             **times[name]))
+    launches = sum(LAUNCHES[CDF].values())
+    if not launches:
+        raise AssertionError(f"{CDF} was never launched on a main path")
+    kernels.append(dict(
+        name=CDF, route="cuda",
+        source=f"aesmc_tpu_torch/csrc/{normalized_cdf_cuda.SOURCE}",
+        replaces="none: the JAX engine builds the CDF with XLA ops",
+        launches=launches, launches_by_path=LAUNCHES[CDF],
+        times_by_shape=cdf_times))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,7 @@ from torch.utils import _pytree as pytree
 from aesmc_tpu_torch import distributions, online, rbpf, statistics, train
 from aesmc_tpu_torch.models import lgssm
 from aesmc_tpu_torch.noise import NoiseSource
-from aesmc_tpu_torch.ops import resample_cuda
+from aesmc_tpu_torch.ops import normalized_cdf_cuda, resample_cuda
 import torch_threads  # noqa: F401  (caps PyTorch's threads)
 
 T, B, K, STEPS = 5, 2, 16, 8
@@ -149,9 +149,12 @@ def test_exported_step_launches_k1_and_equals_live_step(card):
         live = step_fn(state, obs[1], noise)
         noise.generator.set_state(start)
         before = resample_cuda.LAUNCHES
+        cdf_before = normalized_cdf_cuda.LAUNCHES
         loaded = step(state, obs[1], noise)
         torch.cuda.synchronize()
     assert resample_cuda.LAUNCHES == before + 1
+    # The CDF kernel's operator is in the program too.
+    assert normalized_cdf_cuda.LAUNCHES == cdf_before + 1
     assert _same((online._fields(live[0]), live[1]),
                  (online._fields(loaded[0]), loaded[1]))
 
