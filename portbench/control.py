@@ -40,10 +40,8 @@ def _filter(ctx, precision, calls):
                                     "num_particles"))
     model = ref.model_params(ctx.config)
     obs = ctx.model.observations(ctx.config["model"], ctx.generator(1), t, b)
-    exact = ref.kalman_log_z(obs.double().cpu().numpy(), model)
-    params = dict(ctx.model.optimal_proposal(model),
-                  transition_mult=model["transition_mult"],
-                  emission_mult=model["emission_mult"])
+    exact = ref.exact_log_z(obs.double().cpu().numpy(), model)
+    params = dict(ctx.model.proposal_params(model), **model)
     dtype = _dtype(precision)
     draws = FreshDraws(ctx.generator(2), dtype)
     with torch.no_grad():
@@ -61,10 +59,8 @@ def _serve(ctx, precision, calls):
     model = ref.model_params(ctx.config)
     obs = ctx.model.observations(ctx.config["model"], ctx.generator(1),
                                  calls + 1, b)
-    exact = ref.kalman_terms(obs.double().cpu().numpy(), model)
-    params = dict(ctx.model.optimal_proposal(model),
-                  transition_mult=model["transition_mult"],
-                  emission_mult=model["emission_mult"])
+    exact = ref.exact_terms(obs.double().cpu().numpy(), model)
+    params = dict(ctx.model.proposal_params(model), **model)
     dtype = _dtype(precision)
     with torch.no_grad():
         preds = ref.stream(model, params, obs.to(dtype), k,

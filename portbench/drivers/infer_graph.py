@@ -6,8 +6,12 @@ seed, makes one warm-up call and captures one call; each replay writes its
 log-Z into its own row of a device buffer. The window dispatches replays
 ahead of the device (a few in flight) and ends when the device has
 finished the last one dispatched before `--seconds` passed. A traced run
-replays as long without the profiler first, for the time of a call. On
-the CPU (the tests) the same call runs eagerly.
+replays as long without the profiler first, for the time of a call, and
+after the window makes one eager call of the same body under a profiler
+of its own, into a scratch row: the span readers read that call
+(`records()['spans']`, `trace.spans`); it is no call of the window, and
+the check never sees it. On the CPU (the tests) the same call runs
+eagerly.
 
 The check: a sample of the window's calls, drawn from the seed (the last
 one always among them), each row's log-Z against the reference's exact
@@ -24,7 +28,7 @@ import torch
 from aesmc_tpu_torch import inference
 from aesmc_tpu_torch.noise import NoiseSource
 
-from portbench.harness import checks, graph, stats
+from portbench.harness import checks, graph, stats, trace
 from portbench.harness.trace import Window
 
 
@@ -34,6 +38,7 @@ class Driver:
         self.on_card = torch.device(ctx.device).type == "cuda"
         self.calls = 0
         self.item_s = None
+        self.spans = {}
         self.attempted = self.failed = 0
 
     def setup(self):
@@ -48,7 +53,7 @@ class Driver:
         self.out = torch.empty((traffic["max_calls"], b), device=ctx.device)
         self.slot = torch.zeros((1,), dtype=torch.long, device=ctx.device)
 
-        def call():
+        def body(out, slot):
             with torch.no_grad():
                 log_z = inference.infer(
                     "smc", self.obs, *self.components, k, noise=noise,
@@ -56,9 +61,13 @@ class Driver:
                     return_log_marginal_likelihood=True,
                     return_latents=False,
                     return_log_weight=False)["log_marginal_likelihood"]
-                self.out.index_copy_(0, self.slot, log_z[None])
-                self.slot.add_(1)
+                out.index_copy_(0, slot, log_z[None])
+                slot.add_(1)
 
+        def call():
+            body(self.out, self.slot)
+
+        self.body = body
         if self.on_card:
             self.graph, _ = graph.capture(call, noise.generator)
             self.slot.zero_()
@@ -83,6 +92,21 @@ class Driver:
         self.window_s = window.seconds
         self.window_calls = self.calls - done
         self.attempted = self.calls
+        if window.traced:
+            self.spans = self._eager_item()
+
+    def _eager_item(self):
+        """The spans of one eager call of the body, under a profiler of
+        its own, into a scratch row."""
+        scratch = torch.empty_like(self.out[:1])
+        slot = torch.zeros_like(self.slot)
+        item = Window(traced=True, device=self.ctx.device)
+        item.open()
+        self.body(scratch, slot)
+        item.close()
+        found = trace.spans(item.profiler)
+        self.ctx.mark(f"eager item's spans: {found}")
+        return found
 
     def _replay(self, window, seconds):
         capacity = self.out.shape[0]
@@ -105,19 +129,20 @@ class Driver:
                                                    self.window_calls)}
 
     def records(self):
-        return {"items": self.window_calls, "item_s": self.item_s}
+        return {"items": self.window_calls, "item_s": self.item_s,
+                "spans": self.spans}
 
     def release(self):
         self.log_z = self.out[:self.calls].double().cpu().numpy()
         self.obs_host = self.obs.double().cpu().numpy()
         self.failed = int(np.sum(~np.isfinite(self.log_z).all(axis=1)))
-        del self.out, self.obs, self.components, self.call
+        del self.out, self.obs, self.components, self.call, self.body
         self.graph = None
 
     def check(self):
         ctx = self.ctx
         model = ctx.reference.model_params(ctx.config)
-        exact = ctx.reference.kalman_log_z(self.obs_host, model)
+        exact = ctx.reference.exact_log_z(self.obs_host, model)
         picked = checks.sample(self.calls, ctx.check["sample"], ctx.seed)
         gap = checks.widest_gap(self.log_z[picked], exact[None, :])
         return checks.checks({"logz_gap": gap}, ctx.check["limits"])

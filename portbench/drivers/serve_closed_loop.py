@@ -113,7 +113,7 @@ class Driver:
         ctx = self.ctx
         model = ctx.reference.model_params(ctx.config)
         y = self.series[:self.served + 1].double().numpy()
-        exact = ctx.reference.kalman_terms(y, model)
+        exact = ctx.reference.exact_terms(y, model)
         picked = 1 + checks.sample(self.served, ctx.check["sample"], ctx.seed)
         gap = checks.widest_gap(self.preds[picked], exact[picked])
         return checks.checks({"pred_gap": gap}, ctx.check["limits"])

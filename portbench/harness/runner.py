@@ -11,6 +11,27 @@ and closes the `trace.Window`), `end_to_end()` ({metric: value}),
 program's state), `check()` (a list of `checks.Check`) and the counts
 `attempted` and `failed`. A per-layer metric's reader
 (`metrics/<metric>.py`) is `read(reading)`, returning a number or None.
+
+A configuration's modules are found by its file's `model.kind`, and every
+driver reaches them through this contract alone, whatever the model:
+
+- `models/<kind>.py`, the configuration as the port runs it:
+  `filter_components(model, device)` gives (the components that
+  `inference.infer` takes, the proposal's numbers);
+  `observations(model, generator, T, B)` gives `[T, B]` observations on
+  the generator's device; `proposal_params(model)` gives the proposal's
+  numbers, which the control hands the reference's filters together with
+  the model's numbers.
+- `reference/<kind>.py`, plain PyTorch or numpy that imports nothing of
+  the program: `model_params(config)` gives the data model's numbers;
+  `exact_log_z(obs, params)` the exact log-Z `[B]` of observations
+  `[T, B]`, `exact_terms(obs, params)` the exact log p(y_t | y_{<t})
+  `[T, B]`; `filter_log_z(model, params, obs, K, draws)` and
+  `stream(model, params, obs, K, draws)` are the plain filters that the
+  control runs in the program's place.
+- `counts/<kind>.py`: the work of the cells' items (`infer_call`,
+  `serve_step`: operations and bytes; `k1_shape`), which readers divide
+  by.
 """
 
 from __future__ import annotations

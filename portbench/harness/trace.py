@@ -7,11 +7,17 @@ which is also marked as one host range, and `summarize` reduces the
 profiler's events to a `TraceSummary`: the device's busy time inside the
 window (the union of every kernel, copy and fill), the device operations
 by name, and the idle gaps named by what the host was doing at the time.
+
+`spans` reads a stopped profiler by span: for each host range named
+``aesmc.*`` (the program's spans, `profiling.annotate`) or
+``portbench.*`` (the harness's own), how often it occurred and the device
+work launched while it was open.
 """
 
 from __future__ import annotations
 
 import heapq
+import re
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -21,6 +27,10 @@ from dataclasses import dataclass, field
 # and then come back with no device event at all.
 PROFILE_MARGIN_S = 0.02
 WINDOW_RANGE = "portbench.window"
+# The host ranges `spans` reads: the program's spans and the harness's.
+SPAN_PREFIXES = ("aesmc.", "portbench.")
+# A CUDA runtime or driver API call's name, as the profiler gives it.
+CUDA_API = re.compile(r"cu(da)?[A-Z]")
 
 
 class Window:
@@ -162,3 +172,72 @@ def _name_gaps(gaps, host) -> dict:
         name = by_start[0][2] if by_start else "host: no operation"
         named[name] += (hi - lo) * 1e-9
     return dict(named)
+
+
+def _span_events(profiler):
+    """(ranges, calls, device) of a stopped profiler: the host ranges
+    (name, thread, start_ns, end_ns) named by `SPAN_PREFIXES`, the CUDA
+    runtime and driver calls (thread, start_ns, correlation) and the
+    device operations (correlation, start_ns, end_ns). The profiler gives
+    a call and the ranges around it one thread id. A call that was made
+    inside an op links to it; one made in no op (a launch from a library
+    of the program's own, straight inside a span) is known by its API
+    name alone."""
+    from torch.autograd import DeviceType
+    ranges, calls, device = [], [], []
+    for e in profiler.profiler.kineto_results.events():
+        name, start = e.name(), e.start_ns()
+        end = start + e.duration_ns()
+        if e.device_type() == DeviceType.CUDA:
+            if not e.is_user_annotation():
+                device.append((e.correlation_id(), start, end))
+        elif e.linked_correlation_id() > 0 or CUDA_API.match(name):
+            calls.append((e.start_thread_id(), start, e.correlation_id()))
+        elif name.startswith(SPAN_PREFIXES):
+            ranges.append((name, e.start_thread_id(), start, end))
+    return ranges, calls, device
+
+
+def spans(profiler, events=None) -> dict:
+    """{name: {'occurrences', 'launches', 'seconds'}} of every host range
+    whose name starts with one of `SPAN_PREFIXES`, from a stopped
+    profiler (or from ``events``, as `_span_events` gives them).
+
+    Each device operation is matched to its runtime call by correlation
+    id, and counts toward every such range open on the call's thread when
+    the call started: the time is inclusive, so a range holds its nested
+    ranges' work. 'launches' counts the device operations, 'seconds' sums
+    their durations; 'occurrences' counts the host ranges of the name."""
+    ranges, calls, device = _span_events(profiler) if events is None \
+        else events
+    work = defaultdict(lambda: [0, 0])          # correlation -> [ops, ns]
+    for correlation, start, end in device:
+        work[correlation][0] += 1
+        work[correlation][1] += end - start
+    # thread -> (time, order, what): at one time a range's end comes
+    # before a range's start, and both before a call.
+    points = defaultdict(list)
+    found = {}
+    for name, thread, start, end in ranges:
+        found.setdefault(name, {"occurrences": 0, "launches": 0,
+                                "seconds": 0.0})["occurrences"] += 1
+        points[thread] += [(start, 1, name), (end, 0, name)]
+    placed = set()
+    for thread, start, correlation in sorted(calls, key=lambda c: c[1]):
+        # The first call of a correlation holds its work (a runtime call
+        # and the driver call inside it may share one).
+        if correlation in work and correlation not in placed:
+            placed.add(correlation)
+            points[thread].append((start, 2, correlation))
+    for line in points.values():
+        open_names = defaultdict(int)
+        for _, order, what in sorted(line, key=lambda p: p[:2]):
+            if order < 2:
+                open_names[what] += 1 if order else -1
+                continue
+            launches, ns = work[what]
+            for name, depth in open_names.items():
+                if depth > 0:
+                    found[name]["launches"] += launches
+                    found[name]["seconds"] += ns * 1e-9
+    return found

@@ -10,6 +10,8 @@ K1 = "resample_systematic_kernel"
 # The profiler's own work (CUPTI's buffers), during which the device can
 # stall: its idle time is the profiler's, not the program's.
 PROFILER = ("Buffer Flush", "Activity Buffer Request", "Command Buffer Full")
+# The model algebra of a time step.
+PROPOSE_WEIGH = ("aesmc.smc.propose", "aesmc.smc.weigh")
 
 
 def _per_launch(reading, kernel):
@@ -62,3 +64,30 @@ def step_mfu(reading, work):
 def latency_p50_ms(reading):
     latencies = reading.records.get("latencies_s")
     return stats.percentile(latencies, 50) * 1e3 if latencies else None
+
+
+def _under_spans(reading, names):
+    """(device launches, device seconds) under the spans ``names``, and
+    the occurrences of the first, from the driver's `spans` record
+    (`trace.spans`); None where no device operation ran under them."""
+    spans = reading.records.get("spans") or {}
+    occurrences = spans.get(names[0], {}).get("occurrences", 0)
+    launches = sum(spans[n]["launches"] for n in names if n in spans)
+    if not occurrences or not launches:
+        return None
+    return launches, sum(spans[n]["seconds"] for n in names if n in spans), \
+        occurrences
+
+
+def span_device_us(reading, *names):
+    """Device microseconds under the spans ``names`` per occurrence of the
+    first."""
+    found = _under_spans(reading, names)
+    return None if found is None else found[1] * 1e6 / found[2]
+
+
+def span_launches(reading, *names):
+    """Device operations launched under the spans ``names`` per occurrence
+    of the first."""
+    found = _under_spans(reading, names)
+    return None if found is None else found[0] / found[2]

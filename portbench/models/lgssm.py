@@ -15,7 +15,7 @@ import torch
 from aesmc_tpu_torch.models import lgssm
 
 
-def optimal_proposal(model) -> dict:
+def proposal_params(model) -> dict:
     """The exactly optimal proposal p(x_t | x_{t-1}, y_t) of the model, an
     affine Gaussian of precision 1/q + c^2/r (one Kalman update)."""
     q0, q = model["initial_scale"] ** 2, model["transition_scale"] ** 2
@@ -49,7 +49,7 @@ def generative(model, device):
 def filter_components(model, device):
     """The data model with its optimal proposal, and that proposal's
     numbers (for the reference)."""
-    prop = optimal_proposal(model)
+    prop = proposal_params(model)
     return generative(model, device) + (_proposal(prop, device),), prop
 
 

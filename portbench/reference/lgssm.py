@@ -1,10 +1,10 @@
 """The plain reference of the `lgssm` configuration.
 
-- `kalman_terms`: the exact predictive log-densities log p(y_t | y_{<t})
-  of every row, by the Kalman filter in float64 numpy; their sum is the
-  exact log-Z that a filter call estimates, and each term is what a
-  served observation's `log_pred` estimates.
-- `smc_log_z` and `stream`: a bootstrap-free particle filter with the
+- `exact_terms`: the exact predictive log-densities log p(y_t | y_{<t})
+  of every row, by the Kalman filter in float64 numpy; their sum,
+  `exact_log_z`, is the exact log-Z that a filter call estimates, and
+  each term is what a served observation's `log_pred` estimates.
+- `filter_log_z` and `stream`: a bootstrap-free particle filter with the
   configuration's affine Gaussian proposal and systematic resampling, in
   any dtype: at float32 it takes the program's place as a sound run, at a
   lower precision it is the control.
@@ -25,7 +25,7 @@ import torch
 from .smc import gather_rows, log_mean_exp, normal_log_prob, \
     systematic_ancestors
 
-def kalman_terms(obs, model) -> np.ndarray:
+def exact_terms(obs, model) -> np.ndarray:
     """log p(y_t | y_{<t}) `[T, B]` (float64) of ``obs`` `[T, B]`."""
     y = np.asarray(obs, dtype=np.float64)
     a, c = model["transition_mult"], model["emission_mult"]
@@ -44,9 +44,9 @@ def kalman_terms(obs, model) -> np.ndarray:
     return out
 
 
-def kalman_log_z(obs, model) -> np.ndarray:
+def exact_log_z(obs, model) -> np.ndarray:
     """The exact log p(y_{0:T-1}) `[B]`."""
-    return kalman_terms(obs, model).sum(axis=0)
+    return exact_terms(obs, model).sum(axis=0)
 
 
 def _proposal_loc(prop, t, x_prev, y_t):

@@ -1,7 +1,10 @@
 """A later configuration, cell and per-layer metric are new files and new
-entries in BENCHMARK.json: here a dummy cell, its driver, configuration,
-model and reference and a dummy metric, all defined in this test file,
-run through the harness without a change to any file it already has."""
+entries in BENCHMARK.json, run through the harness without a change to
+any file it already has: a dummy cell with its own driver, configuration,
+model and reference and a dummy metric, all defined in this test file;
+and a new configuration kind (lgssm's model, reference and counts modules
+copied under another name) whose cell runs the filter cell's unchanged
+driver, with a reader of the driver's spans."""
 
 import json
 import shutil
@@ -57,6 +60,24 @@ METRIC = '''
 def read(reading):
     return float(reading.records["items"])
 '''
+SPAN_METRIC = '''
+def read(reading):
+    propose = reading.records.get("spans", {}).get("aesmc.smc.propose")
+    return None if propose is None else float(propose["occurrences"])
+'''
+# The new configuration's filter cell, at a size the CPU runs quickly.
+TWIN_STEPS = 12
+TWIN_TRAFFIC = {"name": "smc-logz-12x2x64", "num_timesteps": TWIN_STEPS,
+                "batch_size": 2, "num_particles": 64,
+                "resampling_method": "systematic", "max_calls": 100,
+                "warmup_seconds": 0.05}
+# Files the checkout gains, under portbench/.
+NEW_FILES = [
+    "drivers/dummy_sum.py", "reference/dummy.py", "models/dummy.py",
+    "metrics/dummy_items.py", "configs/dummy.json",
+    "workloads/dummy-cell.json", "models/twin.py", "reference/twin.py",
+    "counts/twin.py", "configs/twin.json", "workloads/twin-filter.json",
+    "metrics/propose_spans.twin.py"]
 
 
 @pytest.fixture
@@ -74,30 +95,60 @@ def checkout(tmp_path):
         "config": "dummy", "driver": "dummy_sum", "chips": 1,
         "why": "a test's cell", "traffic": {"name": "sum-1k", "size": 1000},
         "check": {"limits": {"sum_gap": 0}}, "trace": {"seconds": 0.05}}))
+    for kind in ("models", "reference", "counts"):
+        shutil.copy(bench / kind / "lgssm.py", bench / kind / "twin.py")
+    config = json.loads((bench / "configs" / "lgssm.json").read_text())
+    config["name"] = "twin"
+    config["model"]["kind"] = "twin"
+    (bench / "configs" / "twin.json").write_text(json.dumps(config))
+    (bench / "workloads" / "twin-filter.json").write_text(json.dumps({
+        "config": "twin", "driver": "infer_graph", "chips": 1,
+        "why": "a test's cell of a new configuration", "traffic":
+        TWIN_TRAFFIC, "check": {"sample": 8, "limits": {"logz_gap": 1.5}},
+        "trace": {"seconds": 0.05}}))
+    (bench / "metrics" / "propose_spans.twin.py").write_text(SPAN_METRIC)
     data = json.loads((ROOT / "BENCHMARK.json").read_text())
-    data["configs"].append({"name": "dummy", "source": "https://example.org",
-                            "file": "portbench/configs/dummy.json",
-                            "reduced": [], "why": "a test's configuration"})
-    data["workloads"].append({"name": "dummy-cell", "config": "dummy",
-                              "traffic": "sum-1k", "chips": 1,
-                              "why": "a test's cell"})
+    data["configs"] += [
+        {"name": "dummy", "source": "https://example.org",
+         "file": "portbench/configs/dummy.json", "reduced": [],
+         "why": "a test's configuration"},
+        {"name": "twin", "source": "https://example.org",
+         "file": "portbench/configs/twin.json", "reduced": [],
+         "why": "a test's copy of a configuration under a new kind"}]
+    data["workloads"] += [
+        {"name": "dummy-cell", "config": "dummy", "traffic": "sum-1k",
+         "chips": 1, "why": "a test's cell"},
+        {"name": "twin-filter", "config": "twin",
+         "traffic": TWIN_TRAFFIC["name"], "chips": 1,
+         "why": "a test's cell of a new configuration"}]
     for metric in data["end_to_end"]:
         if metric["name"] == "infer_call_ms":
-            metric["workloads"].append("dummy-cell")
-    data["per_layer"].append({
-        "name": "dummy_items", "unit": "items", "better": "higher",
-        "source": "host_clock", "layer": "a test's layer",
-        "moves": "infer_call_ms", "workloads": ["dummy-cell"]})
+            metric["workloads"] += ["dummy-cell", "twin-filter"]
+    data["per_layer"] += [
+        {"name": "dummy_items", "unit": "items", "better": "higher",
+         "source": "host_clock", "layer": "a test's layer",
+         "moves": "infer_call_ms", "workloads": ["dummy-cell"]},
+        {"name": "propose_spans.twin", "unit": "spans", "better": "lower",
+         "source": "program_span",
+         "layer": "model algebra: models/*.py, distributions.py",
+         "moves": "infer_call_ms", "workloads": ["twin-filter"]}]
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(data))
     return tmp_path
 
 
 def test_new_files_only(checkout):
-    for kind in ("drivers", "metrics", "configs", "workloads"):
-        for path in (ROOT / "portbench" / kind).iterdir():
-            if path.is_file():
-                copy = checkout / "portbench" / kind / path.name
-                assert copy.read_bytes() == path.read_bytes()
+    for name in NEW_FILES:
+        assert not (ROOT / "portbench" / name).exists(), name
+        assert (checkout / "portbench" / name).is_file(), name
+    kept = [path for path in (ROOT / "portbench").rglob("*")
+            if path.is_file() and not {".cache", "__pycache__"} &
+            set(path.relative_to(ROOT).parts)]
+    assert {p.parent.name for p in kept} >= {
+        "drivers", "metrics", "configs", "workloads", "models",
+        "reference", "counts", "harness"}
+    for path in kept:
+        copy = checkout / path.relative_to(ROOT)
+        assert copy.read_bytes() == path.read_bytes(), path
     assert spec_mod.validate(spec_mod.load(checkout)) == []
 
 
@@ -110,5 +161,20 @@ def test_dummy_cell_runs(checkout, trace):
         "sum_gap": {"value": 0.0, "limit": 0.0}}
     if trace:
         assert line["metrics"]["dummy_items"]["value"] >= 1
+    else:
+        assert set(line["metrics"]) == {"infer_call_ms", "setup_s"}
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_new_configuration_runs(checkout, trace):
+    spec = spec_mod.load(checkout)
+    line = runner.run_cell(spec, "twin-filter", 2 ** 31 + 7, 0.05, trace,
+                           "cpu", time.perf_counter())
+    assert line["correct"], line["checks"]
+    assert set(line["checks"]) == {"logz_gap"}
+    if trace:
+        # The eager call proposes once a step after the first.
+        assert line["metrics"] == {"propose_spans.twin": {
+            "value": float(TWIN_STEPS - 1), "unit": "spans"}}
     else:
         assert set(line["metrics"]) == {"infer_call_ms", "setup_s"}

@@ -2,6 +2,7 @@
 
 import copy
 import json
+import math
 
 import pytest
 
@@ -18,25 +19,38 @@ def test_benchmark_keeps_the_contract(spec):
     assert spec_mod.validate(spec) == []
 
 
-def test_listed_cells_and_metrics(spec):
-    assert [c["name"] for c in spec.data["workloads"]] == [
-        "lgssm-filter", "lgssm-serve"]
-    assert {m["name"] for m in spec.data["end_to_end"]} == {
-        "infer_call_ms", "serve_obs_p95_ms", "setup_s"}
-    assert {m["name"] for m in spec.data["per_layer"]} == {
+# What accepted benchmarks list: later ones may list more, never less.
+ACCEPTED = {
+    "workloads": {"lgssm-filter", "lgssm-serve"},
+    "end_to_end": {"infer_call_ms", "serve_obs_p95_ms", "setup_s"},
+    "per_layer": {
         "serve_obs_p50_ms", "kernels_per_call.infer", "k1_roofline.infer",
         "k1_roofline.serve", "device_idle.infer", "device_idle.serve",
-        "step_mfu.infer", "step_mfu.serve"}
+        "step_mfu.infer", "step_mfu.serve", "cdf_build_us.infer",
+        "resample_us.infer", "propose_weigh_us.infer",
+        "propose_weigh_kernels.infer"},
+}
+
+
+def test_listed_cells_and_metrics(spec):
+    for kind, accepted in ACCEPTED.items():
+        assert {m["name"] for m in spec.data[kind]} >= accepted, kind
     readers = {p.stem for p in (ROOT / "portbench" / "metrics").glob("*.py")}
     assert {m["name"] for m in spec.data["per_layer"]} <= readers
 
 
-@pytest.mark.parametrize("cell", ["lgssm-filter", "lgssm-serve"])
+@pytest.mark.parametrize("cell", [c["name"] for c in
+                                  load_spec().data["workloads"]])
 def test_cell_files(cell):
     data = load_spec().cell(cell)
     assert data["config_data"]["name"] == data["config"]
     assert (ROOT / "portbench" / "drivers" / f"{data['driver']}.py").is_file()
-    assert set(data["check"]["limits"]) <= {"logz_gap", "pred_gap"}
+    # The numbers compared are the ones the cell's own file names, each
+    # with a finite limit of its own.
+    limits = data["check"]["limits"]
+    assert limits and all(spec_mod._name(name) for name in limits)
+    assert all(isinstance(v, (int, float)) and math.isfinite(v) and v >= 0
+               for v in limits.values())
 
 
 @pytest.mark.parametrize("name,ok", [
